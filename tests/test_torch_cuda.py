@@ -12,7 +12,8 @@ import torch
 from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
 from x265_mod_by_patman_tpu_torch.ops.cuda.gather import (
     window_gather, window_gather_plain)
-from x265_mod_by_patman_tpu_torch.ops.cuda.sad import sad_grid, sad_grid_plain
+from x265_mod_by_patman_tpu_torch.ops.cuda.full_search import (
+    full_search, full_search_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -24,28 +25,44 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("b,n,r", [(5, 8, 4), (33, 16, 16), (4, 16, 63)])
-def test_sad_grid_kernel_equals_plain(dev, b, n, r):
+@pytest.mark.parametrize("b,n,r,kind", [
+    (5, 8, 4, "random"), (33, 16, 16, "random"), (4, 16, 63, "random"),
+    (40, 16, 16, "constant"), (9, 8, 4, "constant")])
+def test_full_search_kernel_equals_plain(dev, b, n, r, kind):
+    """Origins anywhere in and around a 72x130 plane (windows clamp on
+    every edge); random predictors; a constant plane makes every SAD tie,
+    so the first-minimum rule decides."""
     rng = np.random.default_rng(b)
-    ws = n + 2 * r
-    win = torch.from_numpy(rng.integers(0, 256, (b, ws, ws),
-                                        dtype=np.int32)).to(dev)
-    org = torch.from_numpy(rng.integers(0, 256, (b, n, n),
-                                        dtype=np.int32)).to(dev)
-    kernels.reset_counts()
-    got = sad_grid(win, org, n, r)
-    assert kernels.counts()["sad_grid"] == 1
-    assert torch.equal(got, sad_grid_plain(win, org, n, r))
+    h, w = 72, 130
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if kind == "constant":
+        ref = org = t(np.full((h, w), 200, np.int32))
+    else:
+        ref = t(rng.integers(0, 256, (h, w), dtype=np.int32))
+        org = t(rng.integers(0, 256, (h, w), dtype=np.int32))
+    x0 = t(rng.integers(-n, w, b, dtype=np.int32))
+    y0 = t(rng.integers(-n, h, b, dtype=np.int32))
+    pmx = t(rng.integers(-90, 90, b, dtype=np.int32))
+    pmy = t(rng.integers(-90, 90, b, dtype=np.int32))
+    for lam in (0, 1, 350):
+        kernels.reset_counts()
+        got = full_search(ref, org, x0, y0, pmx, pmy, lam, n, r)
+        assert kernels.counts()["full_search"] == 1
+        exp = full_search_plain(ref, org, x0, y0, pmx, pmy, lam, n, r)
+        for g, e in zip(got, exp):
+            assert torch.equal(g, e), (lam, g, e)
 
 
-@pytest.mark.parametrize("size", [11, 23, 48])
+@pytest.mark.parametrize("size", [1, 11, 16, 23, 25, 48, 70])
 def test_window_gather_kernel_equals_plain(dev, size):
     rng = np.random.default_rng(size)
     plane = torch.from_numpy(rng.integers(0, 256, (72, 130),
                                           dtype=np.int32)).to(dev)
-    ys = torch.from_numpy(rng.integers(-90, 160, 200,
+    # 203 windows: CTAs end at windows whose output starts are not
+    # 16-byte aligned
+    ys = torch.from_numpy(rng.integers(-90, 160, 203,
                                        dtype=np.int32)).to(dev)
-    xs = torch.from_numpy(rng.integers(-90, 220, 200,
+    xs = torch.from_numpy(rng.integers(-90, 220, 203,
                                        dtype=np.int32)).to(dev)
     kernels.reset_counts()
     got = window_gather(plane, ys, xs, size)

@@ -1,7 +1,7 @@
-"""K1 (SAD grid) and K2 (window gather) of the PyTorch port: their plain
-versions against the reference's Pallas kernels (run in interpret mode,
-as the reference's own tests run them), the full search against the
-reference's, dispatch and argument checks, and mv_bits.
+"""K1 (fused full search) and K2 (window gather) of the PyTorch port:
+their plain versions against the reference's Pallas kernels (run in
+interpret mode, as the reference's own tests run them), the full search
+against the reference's, dispatch and argument checks, and mv_bits.
 
 Tolerance: every output here is an integer and must match exactly."""
 import numpy as np
@@ -19,7 +19,8 @@ from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
 from x265_mod_by_patman_tpu_torch.ops import me as tme
 from x265_mod_by_patman_tpu_torch.ops.cuda.gather import (
     window_gather, window_gather_plain)
-from x265_mod_by_patman_tpu_torch.ops.cuda.sad import sad_grid, sad_grid_plain
+from x265_mod_by_patman_tpu_torch.ops.cuda.full_search import (
+    full_search, sad_grid_plain)
 from x265_mod_by_patman_tpu_torch.ops.interp import _gather_windows
 
 CPU = torch.device("cpu")
@@ -35,8 +36,6 @@ def test_sad_grid_plain_matches_pallas_interpret(b, n, r):
     got = to_numpy(sad_grid_plain(to_torch(win, CPU), to_torch(org, CPU),
                                   n, r))
     np.testing.assert_array_equal(got, ref)
-    got2 = to_numpy(sad_grid(to_torch(win, CPU), to_torch(org, CPU), n, r))
-    np.testing.assert_array_equal(got2, ref)
 
 
 def test_window_gather_plain_matches_pallas_within_margin():
@@ -103,26 +102,26 @@ def test_full_search_matches_reference(n, r, lam):
 def test_cpu_tensors_leave_launch_counters_at_zero():
     kernels.reset_counts()
     rng = np.random.default_rng(3)
-    win = to_torch(rng.integers(0, 256, (4, 16, 16)).astype(np.int32), CPU)
-    org = to_torch(rng.integers(0, 256, (4, 8, 8)).astype(np.int32), CPU)
-    sad_grid(win, org, 8, 4)
     plane = to_torch(rng.integers(0, 256, (32, 32)).astype(np.int32), CPU)
     ys = to_torch(np.array([0, 5], np.int32), CPU)
+    full_search(plane, plane, ys, ys, ys, ys, 100, 8, 4)
     window_gather(plane, ys, ys, 9)
-    assert kernels.counts() == {"sad_grid": 0, "window_gather": 0}
+    assert kernels.counts() == {"full_search": 0, "window_gather": 0}
 
 
 def test_wrappers_reject_bad_inputs():
-    win = torch.zeros((2, 16, 16), dtype=torch.int32)
-    org = torch.zeros((2, 8, 8), dtype=torch.int32)
-    with pytest.raises(TypeError):
-        sad_grid(win.to(torch.int64), org, 8, 4)
-    with pytest.raises(ValueError):
-        sad_grid(win, org, 8, 3)
-    with pytest.raises(ValueError):
-        sad_grid(win.transpose(1, 2), org, 8, 4)
     plane = torch.zeros((8, 8), dtype=torch.int32)
     ys = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        full_search(plane.to(torch.int64), plane, ys, ys, ys, ys, 1, 8, 4)
+    with pytest.raises(ValueError):
+        full_search(plane, plane[:4], ys, ys, ys, ys, 1, 8, 4)
+    with pytest.raises(ValueError):
+        full_search(plane.t(), plane, ys, ys, ys, ys, 1, 8, 4)
+    with pytest.raises(ValueError):
+        full_search(plane, plane, ys, ys[:2], ys, ys, 1, 8, 4)
+    with pytest.raises(ValueError):
+        full_search(plane, plane, ys, ys, ys, ys, 1, 8, 64)
     with pytest.raises(TypeError):
         window_gather(plane.float(), ys, ys, 4)
     with pytest.raises(ValueError):

@@ -1,6 +1,8 @@
 """The PyTorch port must import and encode with JAX unavailable (the GPU
-machine has no JAX): a subprocess blocks `jax` and runs a 64x64 I+P
-encode on the CPU."""
+machine has no JAX) and without the JAX package: a subprocess blocks
+`jax` and `x265_mod_by_patman_tpu` and runs a 64x64 I+P encode on the
+CPU, and a scan of the sources finds no import of either."""
+import ast
 import os
 import subprocess
 import sys
@@ -10,6 +12,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import sys
 sys.modules["jax"] = None
+sys.modules["x265_mod_by_patman_tpu"] = None
 import numpy as np
 import x265_mod_by_patman_tpu_torch
 from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
@@ -23,7 +26,7 @@ stream, enc = encode_sequence(default_params(64, 64, bframes=0), frames,
                               "cpu")
 assert [f.slice_type for f in enc] == ["I", "P"], enc
 assert len(stream) > 100
-assert not any(m == "jax" or m.startswith("jax.")
+assert not any(m.split(".")[0] in ("jax", "x265_mod_by_patman_tpu")
                for m, v in sys.modules.items() if v is not None)
 print("OK", len(stream))
 """
@@ -49,4 +52,27 @@ def test_port_sources_never_import_jax():
                     s = line.strip()
                     if s.startswith(("import jax", "from jax")):
                         offenders.append(path)
+    assert not offenders, offenders
+
+
+def _imported_modules(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.module
+
+
+def test_port_sources_never_import_the_jax_package():
+    """Every import in the package and in chip_smoke.py, lazy ones
+    included: the JAX package is the reference, never a dependency."""
+    pkg = os.path.join(ROOT, "x265_mod_by_patman_tpu_torch")
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(pkg):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    offenders = [(p, m) for p in paths for m in _imported_modules(p)
+                 if m.split(".")[0] in ("jax", "x265_mod_by_patman_tpu")]
     assert not offenders, offenders

@@ -15,9 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from x265_mod_by_patman_tpu.frame.zscan import frame_avail_masks
-
 from ..frame.planes import dev_i32
+from ..frame.zscan import frame_avail_masks
 from ..ops.cost import satd_batch
 from ..ops.interp import mc_batch, mc_batch_14, wp_apply_batch
 from ..ops.me import (_org_blocks, full_search_batch, mv_bits,
@@ -148,16 +147,20 @@ def _rd_resid_cost(org, pred, qp_b, log2n: int, bd: int, lam2):
 
 
 def _me_one_ref(oy, ry, bx, by, n: int, lam256: int, search_range: int,
-                bit_depth: int = 8, subme: int = 2):
-    """Full search (K2 + K1) + subpel against one reference, zero-pred
-    regularized.  Returns (mvx, mvy, cost, org) int32.  The reference's
+                bit_depth: int = 8, subme: int = 2, org=None):
+    """Full search (K1) + subpel against one reference, zero-pred
+    regularized.  Returns (mvx, mvy, cost, org) int32; `org` (the
+    (B, n, n) source blocks) is gathered here unless the caller passes
+    it, as a P frame does once for all its references.  The reference's
     lane chunking is TPU-only; its SEA and HME options are not ported."""
     pz = torch.zeros_like(bx)
     imx, imy, _ = full_search_batch(ry, oy, bx, by, pz, pz, lam256, n,
                                     search_range)
+    if org is None:
+        org = _org_blocks(oy, bx, by, n)
     mvx, mvy, cost = subpel_refine_batch(ry, oy, bx, by, imx, imy, pz, pz,
-                                         lam256, n, bit_depth, subme)
-    return mvx, mvy, cost, _org_blocks(oy, bx, by, n)
+                                         lam256, n, bit_depth, subme, org)
+    return mvx, mvy, cost, org
 
 
 MAX_BLOCKS = 9000        # the reference bands larger frames
@@ -256,9 +259,10 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
     # 1. per-ref full search + subpel (zero-pred regularized); recover
     # pure SATD by subtracting the bit charge the search applied
     cands = []
+    org = _org_blocks(oy, bx, by, n)
     for ry in ry_all:
-        mvx, mvy, cost, org = _me_one_ref(oy, ry, bx, by, n, lam256,
-                                          search_range, bd, subme)
+        mvx, mvy, cost, _ = _me_one_ref(oy, ry, bx, by, n, lam256,
+                                        search_range, bd, subme, org)
         satd = cost - ((lam256 * mv_bits(mvx, mvy)) >> 8)
         cands.append((mvx, mvy, satd))
 

@@ -11,9 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from x265_mod_by_patman_tpu.frame.zscan import frame_avail_masks
-
 from ..frame.planes import dev_i32
+from ..frame.zscan import frame_avail_masks
 from ..ops.cost import satd_batch
 from ..ops.intra import (block_index, gather_ref_samples,
                          intra_pred_all_batch, intra_pred_select_batch,

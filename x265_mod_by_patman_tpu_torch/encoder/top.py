@@ -3,8 +3,10 @@ the I and P branches of x265_mod_by_patman_tpu/encoder/top.py).
 
 The device work (mode decision, P analysis, the reconstruction
 wavefront, the inter TU32 pre-pass, deblocking, SAO statistics and
-apply) runs in torch on the device the Encoder was given; syntax and
-CABAC run on the host through the reference's jax-free modules.
+apply) runs in torch on the device the Encoder was given ("cuda" unless
+the caller asks for "cpu"); syntax and CABAC run on the host through the
+port's own copies of the reference's jax-free modules (``params``,
+``bitstream``, ``entropy`` with the native C CABAC engine, ``rc``).
 
 Scope: I and P pictures (bframes = 0), CQP, 4:2:0 8-bit.  Options of
 the reference outside that scope raise NotImplementedError naming the
@@ -22,25 +24,21 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from x265_mod_by_patman_tpu.params import EncoderParams
-from x265_mod_by_patman_tpu.bitstream.bitwriter import BitWriter
-from x265_mod_by_patman_tpu.bitstream.headers import (
+from ..params import EncoderParams
+from ..bitstream.bitwriter import BitWriter
+from ..bitstream.headers import (
     SLICE_I, SLICE_P, SliceHeader, build_pps_info, build_sps_info,
     write_pps, write_slice_header, write_sps, write_vps)
-from x265_mod_by_patman_tpu.bitstream.nal import (
+from ..bitstream.nal import (
     NAL_CRA_NUT, NAL_IDR_W_RADL, NAL_PPS, NAL_SPS, NAL_SUFFIX_SEI,
     NAL_TRAIL_R, NAL_VPS, annexb)
-from x265_mod_by_patman_tpu.bitstream.sei import (plane_md5,
-                                                  write_decoded_picture_hash)
-from x265_mod_by_patman_tpu.entropy.binir import BinIR
-from x265_mod_by_patman_tpu.entropy.cabac import encode_ir_to_writer
-from x265_mod_by_patman_tpu.entropy.contexts import init_states
-from x265_mod_by_patman_tpu.entropy.cu_syntax import (CodedCU,
-                                                      SliceSyntaxEncoder)
-from x265_mod_by_patman_tpu.rc.ratecontrol import (RateControl,
-                                                   frame_complexity)
-from x265_mod_by_patman_tpu.utils import trace
-
+from ..bitstream.sei import plane_md5, write_decoded_picture_hash
+from ..entropy.binir import BinIR
+from ..entropy.cabac import encode_ir_to_writer
+from ..entropy.contexts import init_states
+from ..entropy.cu_syntax import CodedCU, SliceSyntaxEncoder
+from ..rc.ratecontrol import RateControl, frame_complexity
+from ..utils import trace
 from ..analysis.intra_mode import decide_modes_tree, decide_modes_rd
 from ..analysis.inter_mode import analyse_p_frame, lambda_qp
 from ..frame.planes import (as_devplane, attach_dev, dev_i32, pack_levels,
@@ -128,12 +126,13 @@ def _unsupported(p: EncoderParams) -> List[str]:
 
 
 class Encoder:
-    """x265_encoder_open/encode analog on an explicit torch device.
+    """x265_encoder_open/encode analog on a torch device (the card by
+    default; "cpu" on request).
 
     encode_frame() takes display-order frames and returns 0+ encoded
     frames in decode order; call flush() at the end of the stream."""
 
-    def __init__(self, params: EncoderParams, device) -> None:
+    def __init__(self, params: EncoderParams, device="cuda") -> None:
         self.p = params.validate()
         bad = _unsupported(self.p)
         if bad:
@@ -266,8 +265,8 @@ class Encoder:
         out = (annexb(NAL_VPS, write_vps(self.sps)) +
                annexb(NAL_SPS, write_sps(self.sps)) +
                annexb(NAL_PPS, write_pps(self.pps)))
-        from x265_mod_by_patman_tpu.bitstream.nal import NAL_PREFIX_SEI
-        from x265_mod_by_patman_tpu.bitstream.sei import (
+        from ..bitstream.nal import NAL_PREFIX_SEI
+        from ..bitstream.sei import (
             parse_master_display, write_content_light_level,
             write_mastering_display, write_user_data_info)
         if self.p.info_sei:
@@ -280,7 +279,7 @@ class Encoder:
             out += annexb(NAL_PREFIX_SEI, write_content_light_level(
                 self.p.max_cll, self.p.max_fall))
         if self.p.film_grain:
-            from x265_mod_by_patman_tpu.bitstream.sei import (parse_film_grain_json,
+            from ..bitstream.sei import (parse_film_grain_json,
                                          write_film_grain)
             out += annexb(NAL_PREFIX_SEI, write_film_grain(
                 parse_film_grain_json(self.p.film_grain)))
@@ -411,7 +410,7 @@ class Encoder:
             assert ftype == "P" and self._anchors
             refs = [a[0] for a in self._anchors]
             if p.weightp:
-                from x265_mod_by_patman_tpu.analysis.weightp import (
+                from ..analysis.weightp import (
                     analyse_weightp, analyse_weightp_chroma)
                 with trace.scope("weightp"):
                     cand = [analyse_weightp(y, rf[0]) for rf in refs]
@@ -467,7 +466,7 @@ class Encoder:
                             bit_depth=self.sps.bit_depth)
         out = b""
         if p.aud:
-            from x265_mod_by_patman_tpu.bitstream.nal import NAL_AUD
+            from ..bitstream.nal import NAL_AUD
             bw_aud = BitWriter()
             bw_aud.u({"I": 0, "P": 1}[ftype], 3)
             bw_aud.rbsp_trailing_bits()
@@ -476,8 +475,8 @@ class Encoder:
             out += self.headers()
             self._headers_sent = True
         if p.interlace:
-            from x265_mod_by_patman_tpu.bitstream.sei import write_pic_timing
-            from x265_mod_by_patman_tpu.bitstream.nal import NAL_PREFIX_SEI
+            from ..bitstream.sei import write_pic_timing
+            from ..bitstream.nal import NAL_PREFIX_SEI
             disp_ix = self._idr_base + poc
             if p.interlace == 1:
                 pic_struct = 2 if (disp_ix & 1) else 1
@@ -543,7 +542,7 @@ class Encoder:
         """16x16-grid compressed motion field of this picture for TMVP
         (the reference's motion compression of colMVs); L0 only, as P
         pictures carry no L1 motion."""
-        from x265_mod_by_patman_tpu.entropy.mv_pred import ColMotion
+        from ..entropy.mv_pred import ColMotion
         nby, nbx = self.recon.nby, self.recon.nbx
         d = np.zeros((nby, nbx), np.int8)
         mv = np.zeros((nby, nbx, 2, 2), np.int32)
@@ -611,7 +610,7 @@ class Encoder:
         row start states (broadcast of the single table when row states
         are unavailable) — shape is FIXED either way so the wavefront
         keeps one trace per mode."""
-        from x265_mod_by_patman_tpu.entropy.est_bits import bits_table_from_states
+        from ..entropy.est_bits import bits_table_from_states
         got = self._adapt_states.get(init_type)
         rows = None
         if isinstance(got, dict):
@@ -803,8 +802,8 @@ class Encoder:
         """Run the native intra walker (one C call per slice / WPP
         row).  Returns [(bins, ctx, mark), ...] or None when the native
         library is unavailable."""
-        from x265_mod_by_patman_tpu.entropy.residual import _native_setup, _merge_tables
-        from x265_mod_by_patman_tpu.entropy.contexts import OFF
+        from ..entropy.residual import _native_setup, _merge_tables
+        from ..entropy.contexts import OFF
         if not _native_setup():
             return None
         nat, blob, offs, roff = _merge_tables()
@@ -1174,7 +1173,7 @@ class Encoder:
         # machine over the previous row's IR prefix, then arithmetic-code
         # every substream independently (the parallel-CABAC-lanes design,
         # SURVEY.md §7)
-        from x265_mod_by_patman_tpu.entropy.cabac import advance_states_over_ir
+        from ..entropy.cabac import advance_states_over_ir
         substreams: List[bytes] = []
         row_start_states: List[np.ndarray] = []
         row_states = init_states(slice_type, qp)
@@ -1207,8 +1206,10 @@ class Encoder:
         return bw.get_bytes()
 
 
-def encode_sequence(params: EncoderParams, frames, device) -> tuple:
-    """Encode an iterable of (y, u, v) frames on `device`.
+def encode_sequence(params: EncoderParams, frames,
+                    device="cuda") -> tuple:
+    """Encode an iterable of (y, u, v) frames on `device` (the card
+    unless the caller asks for "cpu"; no fallback when it is missing).
 
     Returns (annexb bytestream in decode order, [EncodedFrame...])."""
     enc = Encoder(params, device)

@@ -15,10 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from x265_mod_by_patman_tpu.constants.hevc_tables import CHROMA_QP_TABLE
-from x265_mod_by_patman_tpu.frame.zscan import (ctu_wavefront_order,
-                                                frame_avail_masks)
-
+from ..constants.hevc_tables import CHROMA_QP_TABLE
 from ..ops.cost import psy_cost_batch, psy_weight
 from ..ops.intra import (block_index, gather_ref_samples,
                          intra_pred_select_batch, substitute_filter_batch)
@@ -27,6 +24,7 @@ from ..ops.rdoq import rdoq_levels, tb_bits_est
 from ..ops.transform import (dct_batch, dequant_dyn, idct_batch, quant_dyn,
                              sbh_adjust)
 from .planes import dev_i32
+from .zscan import ctu_wavefront_order, frame_avail_masks
 
 I32 = torch.int32
 F32 = torch.float32

@@ -1,11 +1,12 @@
 """Hand-written Hopper kernels of the port (counterpart of the
-reference's ops/pallas): K1 `sad.sad_grid`, K2 `gather.window_gather`."""
+reference's ops/pallas): K1 `full_search.full_search` (the SAD grid
+fused with its caller's cost and argmin), K2 `gather.window_gather`."""
 from __future__ import annotations
 
 from .gather import window_gather
-from .sad import sad_grid
+from .full_search import full_search
 
-KERNELS = {"sad_grid": sad_grid, "window_gather": window_gather}
+KERNELS = {"full_search": full_search, "window_gather": window_gather}
 
 
 def reset_counts() -> None:

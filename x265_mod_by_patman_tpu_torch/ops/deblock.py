@@ -12,7 +12,7 @@ import functools
 import numpy as np
 import torch
 
-from x265_mod_by_patman_tpu.constants.hevc_tables import (
+from ..constants.hevc_tables import (
     CHROMA_QP_TABLE, DEBLOCK_BETA, DEBLOCK_TC)
 
 

@@ -11,9 +11,7 @@ import functools
 import numpy as np
 import torch
 
-from x265_mod_by_patman_tpu.constants.hevc_tables import (CHROMA_FILTER,
-                                                          LUMA_FILTER)
-
+from ..constants.hevc_tables import CHROMA_FILTER, LUMA_FILTER
 from .cuda.gather import window_gather
 
 LUMA_TAPS = 8

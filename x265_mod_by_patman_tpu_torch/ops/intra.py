@@ -8,7 +8,7 @@ import functools
 import numpy as np
 import torch
 
-from x265_mod_by_patman_tpu.constants.hevc_tables import (
+from ..constants.hevc_tables import (
     INTRA_INV_ANGLE, INTRA_PRED_ANGLE, intra_filter_flag)
 
 I32 = torch.int32

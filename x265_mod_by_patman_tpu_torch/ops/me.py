@@ -1,41 +1,23 @@
 """Motion estimation: batched integer full search + subpel refinement
 (port of x265_mod_by_patman_tpu/ops/me.py).
 
-The full search gathers each block's (n+2r)^2 window with K2
-(window_gather) and scores every candidate with K1 (sad_grid); the
-lambda * mv_bits charge and the first-minimum argmin run in torch, as in
-the reference's full_search_batch_pallas.  The reference's lane
-chunking and Pallas switches are TPU-only and have no counterpart."""
+The integer full search is K1 (`ops.cuda.full_search`): on the card one
+fused kernel reads the window and the source straight from the planes
+and returns each block's best MV and cost; on the CPU its plain chain
+(window gather, SAD grid, lambda * mv_bits, first-minimum argmin) runs,
+as the reference's full_search_batch_pallas composes it.  The
+reference's lane chunking and Pallas switches are TPU-only and have no
+counterpart."""
 from __future__ import annotations
-
-import functools
 
 import torch
 
 from .cost import satd_batch
+from .cuda.full_search import full_search, mv_bits  # noqa: F401
 from .cuda.gather import window_gather
-from .cuda.sad import sad_grid
 from .interp import LUMA_TAPS, _mc_core
 
 I32 = torch.int32
-
-
-@functools.lru_cache(maxsize=None)
-def _pow2(device) -> torch.Tensor:
-    return torch.tensor([1 << k for k in range(31)], dtype=torch.int64,
-                        device=device)
-
-
-def _bit_length(v: torch.Tensor) -> torch.Tensor:
-    """bit_length(|v|), exactly, as int32."""
-    a = torch.abs(v.to(torch.int64)).contiguous()
-    return torch.searchsorted(_pow2(a.device), a, right=True).to(I32)
-
-
-def mv_bits(dx, dy):
-    """MVD bit estimate 2*ceil(log2(|v|+1)) + 1 per component (qpel units),
-    in integers: ceil(log2(|v|+1)) == bit_length(|v|)."""
-    return 2 * _bit_length(dx) + 1 + 2 * _bit_length(dy) + 1
 
 
 def _org_blocks(orig, x0, y0, n: int):
@@ -50,22 +32,9 @@ def full_search_batch(ref, orig, x0, y0, pred_mv_x, pred_mv_y,
     Returns (mv_x, mv_y, cost) int32 (B,), MVs in QPEL units; cost =
     SAD + (lambda_x256 * bits) >> 8, first minimum in (dy, dx) row-major
     order."""
-    r = search_range
-    dev = ref.device
-    win = window_gather(ref.contiguous(), (y0 - r).to(I32).contiguous(),
-                        (x0 - r).to(I32).contiguous(), n + 2 * r)
-    org = _org_blocks(orig, x0, y0, n)
-    c = 2 * r + 1
-    sad = sad_grid(win, org, n, r)
-    ar = torch.arange(c, device=dev, dtype=I32)
-    mv_x = (ar.repeat(c) - r) * 4
-    mv_y = (ar.repeat_interleave(c) - r) * 4
-    bits = mv_bits(mv_x[None, :] - pred_mv_x[:, None],
-                   mv_y[None, :] - pred_mv_y[:, None])
-    cost = sad + ((lambda_x256 * bits) >> 8)
-    arg = torch.argmin(cost, dim=1)
-    bi = torch.arange(cost.shape[0], device=dev)
-    return mv_x[arg], mv_y[arg], cost[bi, arg].to(I32)
+    c = lambda a: a.to(I32).contiguous()
+    return full_search(c(ref), c(orig), c(x0), c(y0), c(pred_mv_x),
+                       c(pred_mv_y), lambda_x256, n, search_range)
 
 
 _OFFS8 = [(0, 0), (0, -2), (0, 2), (-2, 0), (2, 0),
@@ -76,12 +45,14 @@ _OFFS4 = [(0, 0), (0, -1), (0, 1), (-1, 0), (1, 0),
 
 def subpel_refine_batch(ref, orig, x0, y0, mv_x, mv_y, pred_mv_x,
                         pred_mv_y, lambda_x256, n: int,
-                        bit_depth: int = 8, subme: int = 2):
+                        bit_depth: int = 8, subme: int = 2, org=None):
     """Half- then quarter-pel refinement with SATD (see the reference).
-    One superset window per block (K2) covers every candidate."""
+    One superset window per block (K2) covers every candidate.  `org`:
+    the (B, n, n) source blocks, when the caller already holds them."""
     nt = LUMA_TAPS
     half = nt // 2 - 1
-    org = _org_blocks(orig, x0, y0, n)
+    if org is None:
+        org = _org_blocks(orig, x0, y0, n)
     sz = n + nt + 1
     base_int_x = mv_x >> 2
     base_int_y = mv_y >> 2

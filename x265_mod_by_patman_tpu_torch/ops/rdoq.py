@@ -8,10 +8,9 @@ import functools
 import numpy as np
 import torch
 
-from x265_mod_by_patman_tpu.constants.hevc_tables import scan_order
-from x265_mod_by_patman_tpu.entropy.est_bits import (
+from ..constants.hevc_tables import scan_order
+from ..entropy.est_bits import (
     BITS_TABLE, residual_ctx_scalars, sig_ctx_map)
-
 from .numeric import fexp2, fsqrt, fsum
 from .transform import (MAX_TR_DYNAMIC_RANGE, QUANT_SHIFT, _qp_vec, const)
 

@@ -11,9 +11,8 @@ import functools
 import numpy as np
 import torch
 
-from x265_mod_by_patman_tpu.constants.hevc_tables import (
+from ..constants.hevc_tables import (
     DST4, QUANT_SCALES, INV_QUANT_SCALES, dct_matrix)
-
 from .numeric import ieinsum
 
 MAX_TR_DYNAMIC_RANGE = 15
@@ -37,7 +36,7 @@ def _const(key, device):
     elif kind == "diag":
         a = _diag_scan_idx(arg).astype(np.int64)
     elif kind == "scans3":
-        from x265_mod_by_patman_tpu.constants.hevc_tables import (
+        from ..constants.hevc_tables import (
             scan_raster_index, SCAN_DIAG, SCAN_HOR, SCAN_VER)
         a = np.stack([np.ascontiguousarray(scan_raster_index(arg, si))
                       for si in (SCAN_DIAG, SCAN_HOR, SCAN_VER)]) \
@@ -128,7 +127,7 @@ def quant_dyn(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
 
 @functools.lru_cache(maxsize=None)
 def _diag_scan_idx(log2_size: int):
-    from x265_mod_by_patman_tpu.constants.hevc_tables import (
+    from ..constants.hevc_tables import (
         scan_raster_index, SCAN_DIAG)
     return np.ascontiguousarray(scan_raster_index(log2_size, SCAN_DIAG))
 

@@ -1,5 +1,6 @@
 """Device check and capability report (counterpart of the reference's
-utils/device.py).  The device is always explicit: nothing here picks one."""
+utils/device.py).  Nothing here falls back: a CUDA device that is asked
+for and missing raises."""
 from __future__ import annotations
 
 import subprocess

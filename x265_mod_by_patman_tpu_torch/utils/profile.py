@@ -45,7 +45,7 @@ def main() -> int:
                           os.path.join(a.out, "spans.json"))
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from x265_mod_by_patman_tpu.utils import trace
+    from x265_mod_by_patman_tpu_torch.utils import trace
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     from x265_mod_by_patman_tpu_torch.params import default_params
     from x265_mod_by_patman_tpu_torch.utils.device import capability_line
@@ -56,7 +56,7 @@ def main() -> int:
         os.path.abspath(__file__))))
     print(f"card: {capability_line()}")
     frames = _park(root, a.w, a.h, a.frames)
-    enc = Encoder(default_params(a.w, a.h, bframes=0), "cuda")
+    enc = Encoder(default_params(a.w, a.h, bframes=0))    # on the card
     for i, (y, u, v) in enumerate(frames):
         last = i == len(frames) - 1
         n0 = len(trace._events)
