@@ -12,23 +12,35 @@ checkout; imports neither JAX nor the JAX package.  Phases:
 1. build: compiles the port's CUDA kernels from csrc/ (timed);
 2. kernels vs their plain PyTorch versions on the card, exact equality:
    K1 `full_search` on real 1080p park planes (the reference weighted as
-   weightp weights it) at the main path's shape, at r = 63 and r = 4,
-   and on a constant plane where every SAD ties; K2 `window_gather` at
-   every main-path window size (11, 16, 23, 25) on the frame plane and on
-   the stacked-reference plane the merge/AMVP MC reads.  For each kernel
-   its device time per call (CUDA-graph replays; also one call with
-   its Python wrapper between CUDA events), its bound (the least time the card could
-   take for the same work, from the published peak rates and the card's
-   own SM clock and SM count), the share of the bound reached, the plain
-   version's time and, for K2, one PyTorch advanced-indexing call's time;
+   weightp weights it) at the analysis shape (n = 16, r = 16), on the
+   544x960 lowres planes of two park frames at the lookahead lattice's
+   shape (n = 8, r = 16), at r = 63 and r = 4, and on a constant plane
+   where every SAD ties; K2 `window_gather` at every main-path window
+   size: 11, 16, 23, 25 on the frame plane, 8 (lattice source blocks),
+   15 (lattice MC) and 17 (lattice subpel) on the lowres plane, and on
+   the stacked-reference plane the merge/AMVP MC reads.  For each kernel and shape its device
+   time per call (CUDA-graph replays; also one call with its Python
+   wrapper between CUDA events), its bound (the least time the card
+   could take for the same work, from the published peak rates and the
+   card's own SM clock and SM count), the share of the bound reached,
+   the plain version's time and, for K2, one PyTorch advanced-indexing
+   call's time;
 3. main path: a 6-frame 1920x1080 8-bit 4:2:0 clip (the `park`
-   generator of tools/make_clips.py) through the port's encode_sequence
-   on the card at the default parameters with bframes=0 (I P P P P P);
-   checks the slice types, that both kernels launched during the
-   encode, and the recon quality; prints per-frame times and bits;
-4. the same 3-frame 416x240 clip encoded on "cuda" and on "cpu" must
-   give byte-identical streams (the CPU path is what the test suite
-   holds to the JAX reference encoder and the in-repo decoder).
+   generator of tools/make_clips.py) through the port's Encoder on the
+   card at the repo defaults (CQP 32, 4 B-frames with b-adapt 2 and the
+   pyramid, open GOP, scenecut); checks that the decode order holds B
+   pictures and a referenced B in every mini-GOP of 3 or more B's, that
+   both kernels launched during the encode, and the recon quality;
+   prints seconds per I, P and B picture, the lookahead's trace spans,
+   each kernel's launches split into lookahead and analysis, bits per
+   frame and peak device memory, and whether the lowres intra-cost sums
+   (float32, fixed pairwise order) stayed exact;
+4. the 416x240 park clip encoded on "cuda" and on "cpu" must give
+   byte-identical streams, as I P P (bframes=0, 3 frames) and at the
+   repo defaults (6 frames); the CPU path is what the test suite holds
+   to the JAX reference encoder and the in-repo decoder.
+
+Each phase prints its seconds.
 
 Prints the kernels' JSON line, the card line, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is
@@ -52,11 +64,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the encoder's trace spans record only when this is set before the
+# port's trace module is imported (phase 3 reads the lookahead's spans)
+os.environ.setdefault("X265TPU_TRACE",
+                      os.path.join(ROOT, "build", "smoke_trace.json"))
 PKG = "x265_mod_by_patman_tpu_torch"
 FRAME_HW = (1088, 1920)     # 1080p luma, edge-padded to whole 16x16 blocks
 # K2 window sizes of the main path: chroma MC (on the 544x960 chroma
 # planes), source blocks, luma MC, subpel's superset window
 K2_SIZES = (11, 16, 23, 25)
+# K2 window sizes of the lookahead lattice on the 544x960 lowres plane:
+# 8x8 source blocks, 8x8 MC, 8x8 subpel superset window
+K2_LOWRES_SIZES = (8, 15, 17)
+LOWRES_HW = (FRAME_HW[0] // 2, FRAME_HW[1] // 2)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peak
 FP32_LANES_PER_SM = 128
 
@@ -225,6 +245,27 @@ def phase_k1(dev, rng, card: str, clock_hz: float):
     pm = lambda k: t(rng.integers(-300, 300, k, dtype=np.int32))
     _check_k1((ref, orig, x0, y0, pm(b), pm(b), lam, n, r),
               "1080p park, random predictors", res)
+    # the lookahead lattice: 8x8 blocks of the 544x960 lowres planes,
+    # +-16 around zero, the lookahead's lambda (analysis/slicetype.py)
+    from x265_mod_by_patman_tpu_torch.analysis.lookahead import (
+        LOOKAHEAD_LAMBDA_X256, N, SEARCH_RANGE, lowres_plane)
+    lo_cur = t(lowres_plane(pad(f[1][0])))
+    lo_ref = t(lowres_plane(pad(f[0][0])))
+    lh, lw = lo_cur.shape
+    lys, lxs = np.mgrid[0:lh // N, 0:lw // N]
+    lx0 = t((lxs.ravel() * N).astype(np.int32))
+    ly0 = t((lys.ravel() * N).astype(np.int32))
+    lz = torch.zeros_like(lx0)
+    lat = (lo_ref, lo_cur, lx0, ly0, lz, lz, LOOKAHEAD_LAMBDA_X256, N,
+           SEARCH_RANGE)
+    _check_k1(lat, "544x960 lowres park, lookahead lattice", res)
+    lb = lx0.shape[0]
+    lat_ms = time_ms(lambda: full_search(*lat))
+    _report("K1", f"lattice B={lb} n={N} r={SEARCH_RANGE} plane={lh}x{lw}",
+            lat_ms, call_ms(lambda: full_search(*lat)),
+            k1_bound_ms(lb, N, SEARCH_RANGE, clock_hz),
+            time_ms(lambda: full_search_plain(*lat), per_graph=2, reps=3),
+            card)
     for (bb, nn, rr) in ((64, 16, 63), (257, 8, 4)):
         xs = t(rng.integers(-nn, w, bb, dtype=np.int32))
         ys = t(rng.integers(-nn, h, bb, dtype=np.int32))
@@ -269,6 +310,30 @@ def phase_k2(dev, rng, card: str):
         if size == 23:
             res.update(ms=ms, plain_ms=plain, bound_ms=bound,
                        bound_by="bytes", library_ms=lib)
+    # the lookahead lattice's windows on the 544x960 lowres plane: the
+    # source blocks (size 8) at the block origins, MC (15) and subpel
+    # (17) reads at blocks displaced by up to +-17 px, as mc_batch /
+    # subpel_refine_batch start them
+    h, w = LOWRES_HW
+    plane = t(rng.integers(0, 256, (h, w), dtype=np.int32))
+    bys, bxs = np.mgrid[0:h // 8, 0:w // 8]
+    for size in K2_LOWRES_SIZES:
+        reach, half = {8: (0, 0), 15: (17, 3), 17: (17, 4)}[size]
+        d = lambda: rng.integers(-reach, reach + 1, bys.size) - half
+        ys = t((bys.ravel() * 8 + d()).astype(np.int32))
+        xs = t((bxs.ravel() * 8 + d()).astype(np.int32))
+        _check_k2(plane, ys, xs, size, "lowres", res)
+        ar = torch.arange(size, device=dev)
+        gy = torch.clip(ys.long()[:, None, None] + ar[None, :, None], 0,
+                        h - 1)
+        gx = torch.clip(xs.long()[:, None, None] + ar[None, None, :], 0,
+                        w - 1)
+        k2 = lambda: window_gather(plane, ys, xs, size)
+        _report("K2", f"B={ys.shape[0]} size={size} plane={h}x{w}",
+                time_ms(k2), call_ms(k2),
+                k2_bound_ms(ys.shape[0], size, (h, w)),
+                time_ms(lambda: window_gather_plain(plane, ys, xs, size)),
+                card, time_ms(lambda: plane[gy, gx]))
     # the merge/AMVP MC plane: the 3 references of a 1080p P frame stacked
     # with 28-row pads (analysis/inter_mode._stack_refs at r=16), windows
     # started as mc_batch starts them for 16x16 luma blocks
@@ -287,29 +352,16 @@ def phase_k2(dev, rng, card: str):
     return res
 
 
-def encode(frames, w, h, dev, per_frame=False):
-    """Encode through the port's encode_sequence; with per_frame, also
-    returns each frame's wall time (the time until the next frame is
-    pulled, synchronised)."""
+def encode(frames, w, h, dev, **kw):
+    """Encode through the port's encode_sequence; returns the stream,
+    the encoded frames and the wall seconds."""
     from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
     from x265_mod_by_patman_tpu_torch.params import default_params
-    params = default_params(w, h, bframes=0)
-    stamps = []
-
-    def feed():
-        for f in frames:
-            if per_frame and dev != "cpu":
-                torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-            yield f
-
     t0 = time.perf_counter()
-    stream, enc = encode_sequence(params, feed(), dev)
-    if per_frame and dev != "cpu":
+    stream, enc = encode_sequence(default_params(w, h, **kw), frames, dev)
+    if dev != "cpu":
         torch.cuda.synchronize()
-    stamps.append(time.perf_counter())
-    secs = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
-    return stream, enc, secs, time.perf_counter() - t0
+    return stream, enc, time.perf_counter() - t0
 
 
 def psnr(a, b) -> float:
@@ -318,55 +370,177 @@ def psnr(a, b) -> float:
     return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
+def vcl_nal_type(au: bytes) -> int:
+    """NAL unit type of the first slice NAL of an access unit."""
+    i = au.find(b"\x00\x00\x01")
+    while i >= 0:
+        t = (au[i + 3] >> 1) & 0x3F
+        if t < 32:
+            return t
+        i = au.find(b"\x00\x00\x01", i + 3)
+    raise AssertionError("access unit without a slice NAL")
+
+
+REFERENCED = (1, 3, 9)      # TRAIL_R, TSA_R, RASL_R
+
+
+def check_minigops(enc) -> None:
+    """Decode order must hold B pictures, and every mini-GOP of 3 or
+    more B's a referenced one (the pyramid's middle B)."""
+    groups, cur = [], None
+    for f in enc:
+        if f.slice_type == "B":
+            cur.append(f)
+        else:
+            cur = []
+            groups.append(cur)
+    if not any(groups):
+        raise AssertionError("no B picture in the decode order")
+    for g in groups:
+        if len(g) >= 3 and not any(vcl_nal_type(f.bitstream) in REFERENCED
+                                   for f in g):
+            raise AssertionError(f"mini-GOP of {len(g)} B's without a "
+                                 "referenced B")
+
+
+def lowres_sums_exact(frames, dev) -> None:
+    """The lookahead sums each frame's 8160 lowres intra costs in float32
+    (fixed pairwise order); below 2**24 that sum is exact in any order,
+    so the card, the CPU and the reference agree.  Prints each frame's
+    sum against the exact integer sum."""
+    from x265_mod_by_patman_tpu_torch.analysis.lookahead import LowresStore
+    from x265_mod_by_patman_tpu_torch.frame.planes import as_devplane
+    h, w = FRAME_HW
+    st = LowresStore(w, h, dev)
+    rows = []
+    for d, (y, _u, _v) in enumerate(frames):
+        st.ensure(d, as_devplane(np.pad(y, ((0, h - y.shape[0]), (0, 0)),
+                                        mode="edge")))
+        exact = int(st.intra_dev(d).sum(dtype=torch.int64))
+        rows.append((st.intra_sum(d), exact))
+    print("lowres intra-cost sums (float32 / exact): "
+          + ", ".join(f"{a:.0f}/{b}" for a, b in rows)
+          + f"; below 2**24: {all(b < 2 ** 24 for _, b in rows)}; "
+          f"float32 sum exact: {all(a == b for a, b in rows)}")
+
+
 def phase_main(dev, w=1920, h=1080, n=6):
-    """The 1080p I P P P P P encode on the card; returns launch counts."""
+    """The 1080p default encode on the card; returns launch counts."""
+    from x265_mod_by_patman_tpu_torch.analysis.slicetype import \
+        SlicetypeLookahead
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    from x265_mod_by_patman_tpu_torch.utils import trace
     frames = park_frames(w, h, n)
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_counts()
-    stream, enc, secs, total = encode(frames, w, h, dev, per_frame=True)
-    counts = kernels.counts()
-    types = [f.slice_type for f in enc]
-    print(f"main path {w}x{h}: slice types {' '.join(types)}")
-    if types != ["I"] + ["P"] * (n - 1):
-        raise AssertionError(f"unexpected slice types {types}")
-    for i, (f, s) in enumerate(zip(enc, secs)):
-        q = psnr(frames[i][0], f.recon[0][:h, :w])
-        print(f"frame {i} {f.slice_type}: {s:.3f} s, {f.bits} bits, "
-              f"PSNR-Y {q:.2f} dB")
+    enc = Encoder(default_params(w, h), dev)
+    pic_secs = []
+    la_counts = dict.fromkeys(kernels.KERNELS, 0)
+    encode_picture = Encoder._encode_picture
+    eval_triples = SlicetypeLookahead._eval_triples
+
+    def timed_picture(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = encode_picture(self, *a, **k)
+        torch.cuda.synchronize()
+        pic_secs.append(time.perf_counter() - t0)
+        return f
+
+    def counted_triples(self, triples):
+        before = kernels.counts()
+        eval_triples(self, triples)
+        for name, c in kernels.counts().items():
+            la_counts[name] += c - before[name]
+
+    Encoder._encode_picture = timed_picture
+    SlicetypeLookahead._eval_triples = counted_triples
+    try:
+        ev0 = len(trace._events)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = []
+        for y, u, v in frames:
+            out.extend(enc.encode_frame(y, u, v))
+        out.extend(enc.flush())
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = kernels.counts()
+        spans = trace._events[ev0:]
+    finally:
+        Encoder._encode_picture = encode_picture
+        SlicetypeLookahead._eval_triples = eval_triples
+    print(f"main path {w}x{h} at the repo defaults: decode order "
+          + " ".join(f"{f.slice_type}{f.disp}" for f in out))
+    check_minigops(out)
+    for i, (f, s) in enumerate(zip(out, pic_secs)):
+        q = psnr(frames[f.disp][0], f.recon[0][:h, :w])
+        print(f"picture {i} {f.slice_type} (display {f.disp}, NAL "
+              f"{vcl_nal_type(f.bitstream)}, QP {f.qp}): {s:.3f} s, "
+              f"{f.bits} bits, PSNR-Y {q:.2f} dB")
         if not q > 28.0:
-            raise AssertionError(f"frame {i}: recon PSNR {q:.2f} dB")
-    for t in ("I", "P"):
-        ss = [s for f, s in zip(enc, secs) if f.slice_type == t]
-        print(f"seconds per {t} frame: {statistics.mean(ss):.3f}")
-    print(f"fps: {n / total:.3f}; bits per frame: "
-          f"{8 * len(stream) / n:.0f}; max_memory_allocated: "
+            raise AssertionError(f"picture {i}: recon PSNR {q:.2f} dB")
+    for t in ("I", "P", "B"):
+        ss = [s for f, s in zip(out, pic_secs) if f.slice_type == t]
+        if ss:
+            print(f"seconds per {t} picture: {statistics.mean(ss):.3f} "
+                  f"(n={len(ss)}, range {min(ss):.3f}-{max(ss):.3f})")
+    agg, phases = {}, {}
+    for e in spans:
+        if e.get("ph") != "X":
+            continue
+        if e["name"].startswith("la_") or e["name"] == "slicetype_push":
+            c, d = agg.get(e["name"], (0, 0.0))
+            agg[e["name"]] = (c + 1, d + e["dur"] / 1e6)
+        elif "type" in e["args"]:
+            key = (e["args"]["type"], e["name"])
+            phases[key] = phases.get(key, 0.0) + e["dur"] / 1e6
+    for t in ("I", "P", "B"):
+        k = sum(f.slice_type == t for f in out)
+        if k:
+            print(f"{t} picture spans, mean seconds: " + ", ".join(
+                f"{name} {d / k:.3f}" for (tt, name), d in phases.items()
+                if tt == t))
+    print("lookahead spans: " + ", ".join(
+        f"{k} {c}x {d:.3f} s" for k, (c, d) in sorted(agg.items())))
+    print(f"lookahead total {sum(d for _, d in agg.values()):.3f} s of "
+          f"{total:.3f} s; fps {n / total:.3f}; bits per frame "
+          f"{8 * sum(len(f.bitstream) for f in out) / n:.0f}; "
+          f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    print(f"kernel launches during the encode: {counts}")
+    print("kernel launches during the encode: "
+          + ", ".join(f"{k} {c} (lookahead {la_counts[k]}, analysis "
+                      f"{c - la_counts[k]})" for k, c in counts.items()))
     for name, c in counts.items():
         if c <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    lowres_sums_exact(frames, dev)
     return counts
 
 
-def phase_agree(w=416, h=240, n=3):
+def phase_agree(w=416, h=240):
     """The same clip on cuda and on cpu must give identical bytes."""
-    frames = park_frames(w, h, n)
-    s_gpu, e_gpu, _, t_gpu = encode(frames, w, h, "cuda")
-    s_cpu, e_cpu, _, t_cpu = encode(frames, w, h, "cpu")
-    print(f"agree {w}x{h} x{n}: cuda {len(s_gpu)} B in {t_gpu:.2f} s, "
-          f"cpu {len(s_cpu)} B in {t_cpu:.2f} s")
-    if s_gpu != s_cpu:
-        for i, (a, b) in enumerate(zip(e_gpu, e_cpu)):
-            if a.bitstream != b.bitstream:
-                k = next((j for j, (x, y) in enumerate(
-                    zip(a.bitstream, b.bitstream)) if x != y),
-                    min(len(a.bitstream), len(b.bitstream)))
-                print(f"first difference: frame {i} ({a.slice_type}) "
-                      f"byte {k}")
-                break
-        raise AssertionError("cuda and cpu streams differ")
-    print("cuda and cpu streams are byte-identical")
+    for n, kw in ((3, dict(bframes=0)), (6, {})):
+        frames = park_frames(w, h, n)
+        s_gpu, e_gpu, t_gpu = encode(frames, w, h, "cuda", **kw)
+        s_cpu, e_cpu, t_cpu = encode(frames, w, h, "cpu", **kw)
+        what = f"{w}x{h} x{n} " + (" ".join(f.slice_type for f in e_gpu))
+        print(f"agree {what}: cuda {len(s_gpu)} B in {t_gpu:.2f} s, "
+              f"cpu {len(s_cpu)} B in {t_cpu:.2f} s")
+        if s_gpu != s_cpu:
+            for i, (a, b) in enumerate(zip(e_gpu, e_cpu)):
+                if a.bitstream != b.bitstream:
+                    k = next((j for j, (x, y) in enumerate(
+                        zip(a.bitstream, b.bitstream)) if x != y),
+                        min(len(a.bitstream), len(b.bitstream)))
+                    print(f"first difference: picture {i} "
+                          f"({a.slice_type}) byte {k}")
+                    break
+            raise AssertionError(f"cuda and cpu streams differ: {what}")
+        if not kw and "B" not in what:
+            raise AssertionError("the default encode made no B picture")
+        print(f"cuda and cpu streams are byte-identical: {what}")
 
 
 def main() -> int:
@@ -392,14 +566,20 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build(force=True)
     build.load_library()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
+    print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
           f"({build.library_path().relative_to(ROOT)})")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2026)
+    t0 = time.perf_counter()
     res = {"full_search": phase_k1(dev, rng, cap, clock),
            "window_gather": phase_k2(dev, rng, cap)}
+    print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     counts = phase_main(dev)
+    print(f"phase 3 main path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     phase_agree()
+    print(f"phase 4 agreement: {time.perf_counter() - t0:.2f} s")
     src = {"full_search": ("full_search.cu", "x265_mod_by_patman_tpu/ops/"
                            "pallas/sad.py:67"),
            "window_gather": ("window_gather.cu", "x265_mod_by_patman_tpu/"

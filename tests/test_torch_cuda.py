@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card (skipped without one): each kernel
 against its plain PyTorch twin on the same device tensors, the launch
-counters, and a card encode that must give the CPU's bytes.  The GPU
+counters, the lookahead lattice and B analysis on the card against the
+CPU, and card encodes that must give the CPU's bytes.  The GPU
 machine has no JAX, which tests/conftest.py imports, so run them there
 with `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
 
@@ -53,7 +54,7 @@ def test_full_search_kernel_equals_plain(dev, b, n, r, kind):
             assert torch.equal(g, e), (lam, g, e)
 
 
-@pytest.mark.parametrize("size", [1, 11, 16, 23, 25, 48, 70])
+@pytest.mark.parametrize("size", [1, 8, 11, 15, 16, 17, 23, 25, 48, 70])
 def test_window_gather_kernel_equals_plain(dev, size):
     rng = np.random.default_rng(size)
     plane = torch.from_numpy(rng.integers(0, 256, (72, 130),
@@ -84,4 +85,57 @@ def test_card_encode_equals_cpu(dev):
     s_gpu, _ = encode_sequence(p(), frames, dev)
     assert min(kernels.counts().values()) > 0
     s_cpu, _ = encode_sequence(p(), frames, "cpu")
+    assert s_gpu == s_cpu
+
+
+def test_card_lattice_and_b_analysis_equal_cpu(dev):
+    """The slicetype lattice (K1 at n = 8, K2 windows of 8, 15, 17 on
+    the lowres planes) and B analysis on the card give the CPU's
+    numbers."""
+    from x265_mod_by_patman_tpu_torch.analysis.inter_mode import \
+        analyse_b_frame
+    from x265_mod_by_patman_tpu_torch.analysis.slicetype import \
+        SlicetypeLookahead
+    from x265_mod_by_patman_tpu_torch.bitstream.headers import \
+        build_sps_info
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    rng = np.random.default_rng(1)
+    world = rng.integers(0, 256, (80, 128)).astype(np.int32)
+    world = (world + np.roll(world, 1, 0) + np.roll(world, 1, 1)) // 3
+    frames = [(world[i:i + 64, 3 * i:3 * i + 96].astype(np.uint8),
+               np.full((32, 48), 100 + i, np.uint8),
+               np.full((32, 48), 140 - i, np.uint8)) for i in range(5)]
+    got = []
+    for d in (dev, torch.device("cpu")):
+        st = SlicetypeLookahead(96, 64, 4, 2, device=d)
+        for i, f in enumerate(frames):
+            st.push(i, f[0])
+        k = st.decide_gop(0, [1, 2, 3, 4])
+        sps = build_sps_info(default_params(96, 64).validate())
+        kernels.reset_counts()
+        out = analyse_b_frame(*frames[2], [frames[1], frames[0]],
+                              [frames[3], frames[4]], sps, 32, d)
+        if d.type == "cuda":
+            assert min(kernels.counts().values()) > 0
+        got.append((k, dict(st._cost), [np.asarray(a) for a in out[:7]],
+                    [m.cpu().numpy() for m in out[7]]))
+    (k_g, c_g, o_g, m_g), (k_c, c_c, o_c, m_c) = got
+    assert k_g == k_c and c_g == c_c
+    for a, b in zip(o_g + m_g, o_c + m_c):
+        assert np.array_equal(a, b)
+
+
+def test_card_default_encode_equals_cpu(dev):
+    """The repo defaults: B pictures, the b-adapt 2 lookahead, pyramid."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    rng = np.random.default_rng(2)
+    world = rng.integers(0, 256, (80, 128)).astype(np.int32)
+    world = (world + np.roll(world, 1, 0) + np.roll(world, 1, 1)) // 3
+    frames = [(world[i:i + 64, 3 * i:3 * i + 96].astype(np.uint8),
+               np.full((32, 48), 100 + i, np.uint8),
+               np.full((32, 48), 140 - i, np.uint8)) for i in range(6)]
+    s_gpu, e_gpu = encode_sequence(default_params(96, 64), frames, dev)
+    s_cpu, _ = encode_sequence(default_params(96, 64), frames, "cpu")
+    assert "B" in [f.slice_type for f in e_gpu]
     assert s_gpu == s_cpu

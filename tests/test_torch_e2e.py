@@ -11,6 +11,7 @@ from x265_mod_by_patman_tpu.encoder import top as jtop
 from x265_mod_by_patman_tpu.params import default_params
 from x265_mod_by_patman_tpu_torch.encoder import top as ttop
 from tests.test_e2e_inter import moving_scene
+from tests.test_torch_bframes import _one_torch_thread  # noqa: F401
 
 CASES = {
     "ippp": (dict(qp=30, keyframe_max=250, bframes=0), 4,
@@ -42,7 +43,8 @@ def test_port_stream_equals_jax_and_decodes(case):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(bframes=2), "bframes"), (dict(bframes=0, rect=True), "--rect"),
+    (dict(bframes=4, weightb=True), "--weightb"),
+    (dict(bframes=0, rect=True), "--rect"),
     (dict(bframes=0, amp=True), "--amp"),
     (dict(bframes=0, search_method="sea"), "--me sea"),
     (dict(bframes=0, hme=True), "--hme"), (dict(bframes=0, mcstf=True),

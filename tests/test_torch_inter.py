@@ -16,6 +16,7 @@ from x265_mod_by_patman_tpu.params import default_params
 from x265_mod_by_patman_tpu_torch.analysis import inter_mode as tim
 from x265_mod_by_patman_tpu_torch.convert import to_numpy, to_torch
 from tests.test_e2e_inter import moving_scene
+from tests.test_torch_bframes import _one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -1,7 +1,8 @@
 """The PyTorch port must import and encode with JAX unavailable (the GPU
 machine has no JAX) and without the JAX package: a subprocess blocks
-`jax` and `x265_mod_by_patman_tpu` and runs a 64x64 I+P encode on the
-CPU, and a scan of the sources finds no import of either."""
+`jax` and `x265_mod_by_patman_tpu` and runs a 64x64 encode at the repo
+defaults (B pictures and the slicetype lookahead) on the CPU, and a scan
+of the sources finds no import of either."""
 import ast
 import os
 import subprocess
@@ -14,6 +15,8 @@ import sys
 sys.modules["jax"] = None
 sys.modules["x265_mod_by_patman_tpu"] = None
 import numpy as np
+import torch
+torch.set_num_threads(1)        # tiny tensors: one thread is fastest
 import x265_mod_by_patman_tpu_torch
 from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
 from x265_mod_by_patman_tpu_torch.params import default_params
@@ -21,10 +24,10 @@ rng = np.random.default_rng(0)
 base = rng.integers(0, 256, (96, 96)).astype(np.uint8)
 frames = [(base[i:i + 64, 2 * i:2 * i + 64].copy(),
            np.full((32, 32), 120, np.uint8), np.full((32, 32), 130, np.uint8))
-          for i in range(2)]
-stream, enc = encode_sequence(default_params(64, 64, bframes=0), frames,
-                              "cpu")
-assert [f.slice_type for f in enc] == ["I", "P"], enc
+          for i in range(6)]
+stream, enc = encode_sequence(default_params(64, 64), frames, "cpu")
+types = [f.slice_type for f in enc]
+assert types[:2] == ["I", "P"] and "B" in types, types
 assert len(stream) > 100
 assert not any(m.split(".")[0] in ("jax", "x265_mod_by_patman_tpu")
                for m, v in sys.modules.items() if v is not None)

@@ -1,11 +1,12 @@
-"""P-frame analysis: batched ME + merge/AMVP candidate rounds + region
-homogenization + inter/intra decision + MC prediction (port of the P
-half of x265_mod_by_patman_tpu/analysis/inter_mode.py).
+"""P- and B-frame analysis: batched ME + merge/AMVP candidate rounds +
+region homogenization + inter/intra decision + MC prediction (port of
+x265_mod_by_patman_tpu/analysis/inter_mode.py).
 
-lambda_qp, _scale_mv_np and temporal_merge_field are host functions
-copied unchanged from the reference (its module imports jax).  The
-reference's tile-row banding, rect/AMP, SEA and HME branches are not
-ported; the TPU-only _chain scheduling barriers have no counterpart.
+lambda_qp, _scale_mv_np, temporal_merge_field and _b_tmvp_field are host
+functions copied unchanged from the reference (its module imports jax).
+The reference's tile-row banding, rect/AMP, SEA, HME and weighted-B
+branches are not ported; the TPU-only _chain scheduling barriers have no
+counterpart.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from ..frame.planes import dev_i32
 from ..frame.zscan import frame_avail_masks
 from ..ops.cost import satd_batch
-from ..ops.interp import mc_batch, mc_batch_14, wp_apply_batch
+from ..ops.interp import bi_combine, mc_batch, mc_batch_14, wp_apply_batch
 from ..ops.me import (_org_blocks, full_search_batch, mv_bits,
                       subpel_refine_batch)
 from ..ops.numeric import fsum
@@ -536,3 +537,549 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
     return (intra_modes.reshape(nby, nbx), use_inter.reshape(nby, nbx),
             mvs, ref_sel.reshape(nby, nbx), mc[0], mc[1], mc[2],
             part.reshape(nby, nbx), mvs_b)
+
+
+def _b_tmvp_field(col, sps, block, ref_pocs, cur_poc):
+    """Full-frame 2-D B TMVP field (td, m0x, m0y, m1x, m1y) for the
+    band driver to row-slice (same derivation as the whole-frame
+    analyse_b_frame path)."""
+    low_delay = all(rp <= cur_poc for lst_p in ref_pocs
+                    for rp in lst_p)
+    nby_ = sps.height // block
+    nbx_ = sps.width // block
+    v0, m0x_, m0y_ = temporal_merge_field(
+        col, nby_, nbx_, block, sps.width, sps.height,
+        sps.log2_ctu_size, 0, ref_pocs[0][0], cur_poc, low_delay)
+    v1 = np.zeros_like(v0)
+    m1x_ = np.zeros_like(m0x_)
+    m1y_ = np.zeros_like(m0y_)
+    if ref_pocs[1]:
+        v1, m1x_, m1y_ = temporal_merge_field(
+            col, nby_, nbx_, block, sps.width, sps.height,
+            sps.log2_ctu_size, 1, ref_pocs[1][0], cur_poc, low_delay)
+    td_ = (v0.astype(np.int32) | (v1.astype(np.int32) << 1))
+    return (td_, np.asarray(m0x_), np.asarray(m0y_),
+            np.asarray(m1x_), np.asarray(m1y_))
+
+
+def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
+                    search_range: int = 16, block: int = 16,
+                    subme: int = 2, weights_b=None, rect: bool = False,
+                    me_sea: bool = False, amp: bool = False,
+                    col=None, ref_pocs=None, cur_poc: int = 0,
+                    pad_refs=(0, 0), hme: bool = False,
+                    rounds=(2, 2)):
+    """B-frame analysis (see the reference's analyse_b_frame): per-list
+    multi-reference ME, the bi-prediction test, merge/AMVP candidate
+    rounds over (dir, mv0, ref0, mv1, ref1), region homogenization and
+    the intra fallback.
+
+    refs0/refs1: lists of (y, u, v) planes in L0/L1 order (closest
+    first); a bare (y, u, v) tuple is accepted too.  ref_pocs: (l0_pocs,
+    l1_pocs) matching the lists (TMVP scaling, combined-bi pruning).
+    pad_refs: the reference pads each list to a fixed lane count to
+    bound recompiles and masks the padded lanes so they never win; here
+    the padded references are not searched at all, which gives the same
+    outputs.  Returns (intra_modes, inter_mask, dirs, mv_l0, mv_l1,
+    ref_sel0, ref_sel1, (mc_y, mc_u, mc_v), part, (dirs_b, mv0_b,
+    mv1_b)); the mc planes stay device tensors."""
+    if weights_b is not None and any(wp is not None for wp in weights_b):
+        raise NotImplementedError("weighted bi-prediction (--weightb) is "
+                                  "not ported")
+    if rect or amp:
+        raise NotImplementedError("rect/AMP partitions (--rect/--amp) are "
+                                  "not ported")
+    if me_sea:
+        raise NotImplementedError("--me sea is not ported")
+    if hme:
+        raise NotImplementedError("hierarchical ME (--hme) is not ported")
+    if getattr(sps, "chroma_format_idc", 1) != 1:
+        raise NotImplementedError("only 4:2:0 is ported")
+    if block != 16:
+        raise NotImplementedError("only 16x16 analysis blocks are ported")
+    if (sps.height // block) * (sps.width // block) > MAX_BLOCKS:
+        raise NotImplementedError(
+            "frames above 9000 16x16 blocks need the banded analysis "
+            "(_analysis_bands), which is not ported")
+
+    def _norm(rl):
+        if len(rl) == 3 and getattr(rl[0], "ndim", 0) == 2:
+            return [rl]
+        return list(rl)
+    refs0 = _norm(refs0)
+    refs1 = _norm(refs1)
+    device = torch.device(device)
+    bd = sps.bit_depth
+    lam, _ = lambda_qp(qp)
+    lam256 = int(round(lam * 256)) << (bd - 8)
+    avail = frame_avail_masks(sps.width, sps.height, block,
+                              sps.log2_ctu_size, 0)
+    if ref_pocs is not None and ref_pocs[0] and ref_pocs[1]:
+        l0p = [int(p) for p in ref_pocs[0]]
+        l1p = [int(p) for p in ref_pocs[1]]
+    else:
+        l0p = list(range(len(refs0)))
+        l1p = [-1 - i for i in range(len(refs1))]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    tmvp = None
+    if col is not None and ref_pocs is not None and ref_pocs[0]:
+        # bi temporal merge candidate (both lists scaled independently,
+        # spec 8.5.3.2.3/8)
+        tmvp = tuple(t(a.ravel()).to(I32) for a in
+                     _b_tmvp_field(col, sps, block, ref_pocs, cur_poc))
+    pl = lambda rl, i: [dev_i32(r[i], device) for r in rl]
+    out = _b_core(dev_i32(y, device), pl(refs0, 0), pl(refs0, 1),
+                  pl(refs0, 2), pl(refs1, 0), pl(refs1, 1), pl(refs1, 2),
+                  t(avail.reshape(-1, avail.shape[-1])), lam256, qp,
+                  search_range, block, bd, subme, sps.log2_ctu_size, tmvp,
+                  t(np.asarray(l0p, np.int64)),
+                  t(np.asarray(l1p, np.int64)), tuple(rounds))
+    (modes, inter, dirs, mv0, mv1, rs0, rs1, mcy, mcu, mcv, part,
+     dirs_b, mv0_b, mv1_b) = out
+    h = lambda a: a.cpu().numpy()
+    return (h(modes), h(inter), h(dirs), h(mv0), h(mv1), h(rs0), h(rs1),
+            (mcy, mcu, mcv), h(part), (h(dirs_b), h(mv0_b), h(mv1_b)))
+
+
+def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
+            qp: int, search_range: int, n: int, bd: int, subme: int,
+            log2_ctu: int, tmvp, poc0, poc1, rounds):
+    """Whole-frame B analysis on one device (the reference's _b_core for
+    an unbanded, unweighted, rect-free 4:2:0 call)."""
+    dev = oy.device
+    h, w = oy.shape
+    nbx, nby = w // n, h // n
+    nb = nbx * nby
+    nref0, nref1 = len(r0ys), len(r1ys)
+    log2n = n.bit_length() - 1
+    bys_np, bxs_np = np.mgrid[0:nby, 0:nbx]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    bx = t((bxs_np.ravel() * n).astype(np.int32))
+    by = t((bys_np.ravel() * n).astype(np.int32))
+    org = _org_blocks(oy, bx, by, n)
+
+    # per-(list, ref) full search + subpel, then a provisional joint
+    # (ref, mv) pick per list with ref_idx bin charges (x265
+    # predInterSearch per-ref loop, search.cpp:2554); first minimum
+    def list_me(planes):
+        cands = [_me_one_ref(oy, ry, bx, by, n, lam256, search_range, bd,
+                             subme, org) for ry in planes]
+        satd_r = torch.stack([c[2] - ((lam256 * mv_bits(c[0], c[1])) >> 8)
+                              for c in cands])
+        mvx_r = torch.stack([c[0] for c in cands])
+        mvy_r = torch.stack([c[1] for c in cands])
+        ridx = torch.arange(len(planes), device=dev, dtype=I32)[:, None]
+        prov = satd_r + ((lam256 * (mv_bits(mvx_r, mvy_r) + ridx + 4)) >> 8)
+        rsel = torch.argmin(prov, dim=0).to(I32)
+        pick = lambda a: torch.gather(a, 0, rsel.long()[None])[0]
+        return pick(mvx_r), pick(mvy_r), rsel, pick(satd_r)
+
+    mv0x, mv0y, rsel0, satd0 = list_me(r0ys)
+    mv1x, mv1y, rsel1, satd1 = list_me(r1ys)
+
+    # stacked tall planes per list: one MC gather serves per-block ref
+    # indices (candidate rounds, homogenization); the FINAL MC reads the
+    # per-ref planes below so clamping matches the decoder's spec MC
+    m_pad = search_range + 12
+    tall0, strip0 = _stack_refs(r0ys, m_pad)
+    tall1, strip1 = _stack_refs(r1ys, m_pad)
+    off2 = 1 << (13 - bd)
+    sh2 = 14 - bd
+    maxv = (1 << bd) - 1
+
+    def uni_of(p14):
+        return torch.clip((p14 + off2) >> sh2, 0, maxv)
+
+    def bi_of(p0, p1):
+        return bi_combine(p0, p1, bd)
+
+    def mc14(lst, bxk, byk, cmx, cmy, crf):
+        tall, strip = (tall0, strip0) if lst == 0 else (tall1, strip1)
+        return mc_batch_14(tall, bxk, byk + crf * strip + m_pad, cmx, cmy,
+                           n, 0, bd)
+
+    def pred_of(nd, q0, q1):
+        nd = nd[:, None, None]
+        return torch.where(nd == 3, bi_of(q0, q1),
+                           torch.where(nd == 1, uni_of(q0), uni_of(q1)))
+
+    # bi-prediction of the two best uni (ref, mv) pairs (checkBidir2Nx2N)
+    p0_14 = mc14(0, bx, by, mv0x, mv0y, rsel0)
+    p1_14 = mc14(1, bx, by, mv1x, mv1y, rsel1)
+    satd_bi = satd_batch(org, bi_of(p0_14, p1_14))
+
+    # S-mask availability indices (see the P side)
+    AV_A1, AV_A0, AV_B2, AV_B1, AV_B0 = n, n - 1, 2 * n, 3 * n, 3 * n + 1
+    av2 = avail.reshape(nb, -1)
+    icosts = _mode_costs(oy, avail, t(bxs_np.ravel().astype(np.int32)),
+                         t(bys_np.ravel().astype(np.int32)), log2n, bd)
+    intra_best = icosts.amin(1) + ((lam256 * 5) >> 8)
+    intra_modes = torch.argmin(icosts, dim=1).to(I32)
+    inter_est = (torch.minimum(torch.minimum(satd0, satd1), satd_bi)
+                 + ((lam256 * 6) >> 8)) <= intra_best
+    lam_f = torch.tensor(float(lam256), dtype=F32, device=dev) / 256.0
+    lam2 = lam_f * lam_f
+    qp_b = torch.full((nb,), qp, dtype=I32, device=dev)
+    big_f = torch.tensor(3e38, dtype=F32, device=dev)
+    zz = torch.zeros(nb, dtype=I32, device=dev)
+    i32 = lambda b_: b_.to(I32)
+    if tmvp is not None:
+        # vertical window guard (see the P side): candidate MC reads the
+        # stacked tall planes, whose edge replication covers m_pad rows
+        td_, t0x, t0y, t1x, t1y = tmvp
+        tok = ((torch.abs(t0y) <= 4 * (m_pad - 8))
+               & (torch.abs(t1y) <= 4 * (m_pad - 8)))
+        tm_c = (td_, t0x, t0y, t1x, t1y, zz, zz)
+    else:
+        tm_c = (zz,) * 7
+
+    def b_cand_round(dirs, c0x, c0y, c1x, c1y, r0f, r1f, rd=False):
+        flds = (dirs, c0x, c0y, c1x, c1y, r0f, r1f)
+
+        def gat(sy, sx):
+            return tuple(_neigh_field(a.reshape(nby, nbx), sy, sx)[0]
+                         .reshape(-1) for a in flds)
+
+        def gat_ie(sy, sx):
+            return _neigh_field(inter_est.reshape(nby, nbx), sy,
+                                sx)[0].reshape(-1)
+
+        # exact merge candidate derivation over full (dir, mv0, ref0,
+        # mv1, ref1) motion (spec 8.5.3.2.3): spatial A1/B1/B0/A0/B2 with
+        # pruning, TMVP, the first two combined-bi candidates and the bi
+        # zero-fill entry, each at its true list position
+        a1, b1, b0 = gat(0, 1), gat(1, 0), gat(1, -1)
+        a0, b2 = gat(-1, 1), gat(1, 1)
+        v_a1 = av2[:, AV_A1] & gat_ie(0, 1)
+        v_b1r = av2[:, AV_B1] & gat_ie(1, 0)
+        v_b0r = av2[:, AV_B0] & gat_ie(1, -1)
+        v_a0r = av2[:, AV_A0] & gat_ie(-1, 1)
+        v_b2r = av2[:, AV_B2] & gat_ie(1, 1)
+
+        def eq(c, d):
+            r = c[0] == d[0]
+            for i in range(1, 7):
+                r = r & (c[i] == d[i])
+            return r
+
+        v_b1 = v_b1r & ~(v_a1 & eq(b1, a1))
+        v_b0 = v_b0r & ~(v_b1r & eq(b0, b1))
+        v_a0 = v_a0r & ~(v_a1 & eq(a0, a1))
+        n4 = i32(v_a1) + i32(v_b1) + i32(v_b0) + i32(v_a0)
+        v_b2 = (v_b2r & (n4 < 4) & ~(v_a1 & eq(b2, a1))
+                & ~(v_b1r & eq(b2, b1)))
+        idx_a1 = zz
+        idx_b1 = i32(v_a1)
+        idx_b0 = idx_b1 + i32(v_b1)
+        idx_a0 = idx_b0 + i32(v_b0)
+        idx_b2 = idx_a0 + i32(v_a0)
+        n_sp = idx_b2 + i32(v_b2)
+        if tmvp is not None:
+            v_t = (td_ > 0) & tok & (n_sp < 3)
+        else:
+            v_t = zz != 0
+        idx_t = n_sp
+        cnt = n_sp + i32(v_t)
+        # combined-bi (0,1)/(1,0): base0/base1 = the list's first two
+        # entries, selected across the six candidate slots by position
+        spat = [(a1, v_a1, idx_a1), (b1, v_b1, idx_b1),
+                (b0, v_b0, idx_b0), (a0, v_a0, idx_a0),
+                (b2, v_b2, idx_b2), (tm_c, v_t, idx_t)]
+        stk = [torch.stack([c[0][i] for c in spat]) for i in range(7)]
+        vstk = torch.stack([c[1] for c in spat])
+        istk = torch.stack([c[2] for c in spat])
+
+        def base(k):
+            sel = torch.argmax(i32(vstk & (istk == k)), dim=0)
+            return [torch.gather(s, 0, sel[None])[0] for s in stk]
+
+        b0_, b1_ = base(0), base(1)
+        c01 = (zz + 3, b0_[1], b0_[2], b1_[3], b1_[4], b0_[5], b1_[6])
+        c10 = (zz + 3, b1_[1], b1_[2], b0_[3], b0_[4], b1_[5], b0_[6])
+        # same-picture pruning by POC (spec 8.5.3.2.4)
+        cl0 = lambda r: poc0[torch.clip(r, 0, nref0 - 1).long()]
+        cl1 = lambda r: poc1[torch.clip(r, 0, nref1 - 1).long()]
+        sp01 = cl0(b0_[5]) == cl1(b1_[6])
+        sp10 = cl0(b1_[5]) == cl1(b0_[6])
+        v_c01 = ((cnt == 2) & ((b0_[0] & 1) != 0) & ((b1_[0] & 2) != 0))
+        v_c01 &= ~(sp01 & (b0_[1] == b1_[3]) & (b0_[2] == b1_[4]))
+        v_c10 = ((cnt == 2) & ~v_c01 & ((b1_[0] & 1) != 0)
+                 & ((b0_[0] & 2) != 0))
+        v_c10 &= ~(sp10 & (b1_[1] == b0_[3]) & (b1_[2] == b0_[4]))
+        idx_c = cnt
+        idx_z = cnt + i32(v_c01 | v_c10)
+        v_z = idx_z < 3
+        bcands = spat + [(c01, v_c01, idx_c), (c10, v_c10, idx_c),
+                         ((zz + 3, zz, zz, zz, zz, zz, zz), v_z, idx_z)]
+
+        # per-list AMVP predictors ~ A1/B1 neighbour MVs of that list
+        def preds(lst):
+            out = []
+            for (cand, vr) in ((a1, v_a1), (b1, v_b1r)):
+                has = vr & ((cand[0] & (1 << lst)) != 0)
+                px = torch.where(has, cand[1] if lst == 0 else cand[3], 0)
+                py = torch.where(has, cand[2] if lst == 0 else cand[4], 0)
+                out.append((px, py))
+            return out
+        pl0 = preds(0)
+        pl1 = preds(1)
+        mvd0 = torch.minimum(
+            mv_bits(mv0x - pl0[0][0], mv0y - pl0[0][1]),
+            mv_bits(mv0x - pl0[1][0], mv0y - pl0[1][1]))
+        mvd1 = torch.minimum(
+            mv_bits(mv1x - pl1[0][0], mv1y - pl1[0][1]),
+            mv_bits(mv1x - pl1[1][0], mv1y - pl1[1][1]))
+        # ME modes: satd + merge_flag0/pred/part + inter_pred_idc(2) +
+        # mvd + mvp_idx + ref_idx TR bins per used list
+        cL0 = satd0 + ((lam256 * (mvd0 + 6 + rsel0)) >> 8)
+        cL1 = satd1 + ((lam256 * (mvd1 + 6 + rsel1)) >> 8)
+        cBI = satd_bi + ((lam256 * (mvd0 + mvd1 + 7 + rsel0
+                                    + rsel1)) >> 8)
+        best = torch.stack([cL0, cL1, cBI], 0)
+        best_rd = None
+        if rd:
+            # final round: transform-domain RD arbitration over {L0, L1,
+            # BI, merge neighbours} (see the P side's rd round)
+            syn_me = [(mvd0 + 6 + rsel0).to(F32),
+                      (mvd1 + 6 + rsel1).to(F32),
+                      (mvd0 + mvd1 + 7 + rsel0 + rsel1).to(F32)]
+            rds = []
+            for p, s in zip((uni_of(p0_14), uni_of(p1_14),
+                             bi_of(p0_14, p1_14)), syn_me):
+                cc, sz = _rd_resid_cost(org, p, qp_b, log2n, bd, lam2)
+                rds.append(torch.minimum(cc + lam2 * s,
+                                         sz + lam2 * (s + 1.0)))
+            rd_stack = torch.stack(rds, 0)
+            mi = torch.argmin(rd_stack, 0)
+            best_rd = rd_stack.amin(0)
+        else:
+            mi = torch.argmin(best, 0)
+        best_cost = torch.gather(best, 0, mi[None])[0]
+        best_dir = (mi + 1).to(I32)                # 1=L0, 2=L1, 3=BI
+        best_0x = torch.where(mi != 1, mv0x, 0)
+        best_0y = torch.where(mi != 1, mv0y, 0)
+        best_1x = torch.where(mi != 0, mv1x, 0)
+        best_1y = torch.where(mi != 0, mv1y, 0)
+        best_r0 = torch.where(mi != 1, rsel0, 0)
+        best_r1 = torch.where(mi != 0, rsel1, 0)
+        # every merge candidate's MC + SATD (+ residual RD) as one batch
+        # (the reference's vmap); the scan below keeps the sequential
+        # loop's first-minimum tie-breaking
+        k_c = len(bcands)
+        nd_s, n0x_s, n0y_s, n1x_s, n1y_s, nr0_s, nr1_s = (
+            torch.stack([c[0][i] for c in bcands]) for i in range(7))
+        idx_s = torch.stack([c[2] for c in bcands])
+        ok_s = (torch.stack([c[1] for c in bcands]) & (idx_s < 3)
+                & (nd_s > 0))
+        idxb_s = torch.where(idx_s == 0, 1, 2).to(I32)
+        bxk, byk = bx.repeat(k_c), by.repeat(k_c)
+        q0 = mc14(0, bxk, byk, n0x_s.reshape(-1), n0y_s.reshape(-1),
+                  torch.clip(nr0_s, 0, nref0 - 1).reshape(-1))
+        q1 = mc14(1, bxk, byk, n1x_s.reshape(-1), n1y_s.reshape(-1),
+                  torch.clip(nr1_s, 0, nref1 - 1).reshape(-1))
+        pred = pred_of(nd_s.reshape(-1), q0, q1)
+        org_k = org.repeat(k_c, 1, 1)
+        sc_r = satd_batch(org_k, pred).reshape(k_c, nb)
+        sc_all = sc_r + ((lam256 * (2 + idxb_s)) >> 8)
+        sc_all = torch.where(ok_s, sc_all, 1 << 30)
+        if rd:
+            cc_r, sz_r = _rd_resid_cost(org_k, pred, qp_b.repeat(k_c),
+                                        log2n, bd, lam2)
+            mb = (2 + idxb_s).to(F32)
+            rdk_all = torch.minimum(cc_r.reshape(k_c, nb) + lam2 * (mb + 4.0),
+                                    sz_r.reshape(k_c, nb) + lam2 * mb)
+            rdk_all = torch.where(ok_s, rdk_all, big_f)
+        for k in range(k_c):
+            if rd:
+                upd = rdk_all[k] < best_rd
+                best_rd = torch.where(upd, rdk_all[k], best_rd)
+            else:
+                upd = sc_all[k] < best_cost
+            best_cost = torch.where(upd, sc_all[k], best_cost)
+            best_dir = torch.where(upd, nd_s[k], best_dir)
+            best_0x = torch.where(upd, n0x_s[k], best_0x)
+            best_0y = torch.where(upd, n0y_s[k], best_0y)
+            best_1x = torch.where(upd, n1x_s[k], best_1x)
+            best_1y = torch.where(upd, n1y_s[k], best_1y)
+            best_r0 = torch.where(upd, nr0_s[k], best_r0)
+            best_r1 = torch.where(upd, nr1_s[k], best_r1)
+        return (best_dir, best_0x, best_0y, best_1x, best_1y,
+                best_r0, best_r1, best_cost, best_rd)
+
+    # provisional direction field from the pure ME costs (zero-pred
+    # charges), so round-1 neighbour predictors aren't list-biased
+    me_b0 = mv_bits(mv0x, mv0y)
+    me_b1 = mv_bits(mv1x, mv1y)
+    prov = torch.stack([satd0 + ((lam256 * me_b0) >> 8),
+                        satd1 + ((lam256 * me_b1) >> 8),
+                        satd_bi + ((lam256 * (me_b0 + me_b1 + 2)) >> 8)], 0)
+    dirs = (torch.argmin(prov, 0) + 1).to(I32)
+    has0 = dirs != 2
+    has1 = dirs != 1
+    c0x = torch.where(has0, mv0x, 0)
+    c0y = torch.where(has0, mv0y, 0)
+    c1x = torch.where(has1, mv1x, 0)
+    c1y = torch.where(has1, mv1y, 0)
+    r0f = torch.where(has0, rsel0, 0)
+    r1f = torch.where(has1, rsel1, 0)
+    cost_rd = None
+    for _ in range(rounds[0]):
+        (dirs, c0x, c0y, c1x, c1y, r0f, r1f, inter_cost,
+         _) = b_cand_round(dirs, c0x, c0y, c1x, c1y, r0f, r1f)
+    for _ in range(rounds[1]):
+        (dirs, c0x, c0y, c1x, c1y, r0f, r1f, inter_cost,
+         cost_rd) = b_cand_round(dirs, c0x, c0y, c1x, c1y, r0f, r1f,
+                                 rd=True)
+    mv0x, mv0y, mv1x, mv1y = c0x, c0y, c1x, c1y
+    ref0_f, ref1_f = r0f, r1f
+
+    # 2c. motion homogenization across 32 (and 64) regions: adopt one
+    # sub-block's (dir, mv0, ref0, mv1, ref1) for the region when the RD
+    # loss is smaller than the CU-syntax saving
+    def _b_region_uniform(dirs, m0x, m0y, m1x, m1y, r0m, r1m, cost,
+                          cost_rd, g):
+        gh, gw = nby // g, nbx // g
+        if gh == 0 or gw == 0 or n != 16:
+            return dirs, m0x, m0y, m1x, m1y, r0m, r1m, cost, cost_rd
+        f2 = lambda a: a.reshape(nby, nbx)
+        crop = lambda a: f2(a)[:gh * g, :gw * g]
+        rep2 = lambda a: a.repeat_interleave(g, 0).repeat_interleave(g, 1)
+        gsum_f = lambda a: fsum(a.reshape(gh, g, gw, g), (1, 3))
+        indiv_rd = gsum_f(crop(cost_rd))
+        s = g // 2
+
+        def setc(a, val):
+            o = f2(a).clone()
+            o[:gh * g, :gw * g] = val
+            return o.reshape(-1)
+
+        def eval_cand(rdd, rm0x, rm0y, rm1x, rm1y, rr0, rr1, gbits,
+                      valid=None):
+            fd = setc(dirs, rep2(rdd))
+            q0 = mc14(0, bx, by, setc(m0x, rep2(rm0x)),
+                      setc(m0y, rep2(rm0y)),
+                      torch.clip(setc(r0m, rep2(rr0)), 0, nref0 - 1))
+            q1 = mc14(1, bx, by, setc(m1x, rep2(rm1x)),
+                      setc(m1y, rep2(rm1y)),
+                      torch.clip(setc(r1m, rep2(rr1)), 0, nref1 - 1))
+            pred = pred_of(fd, q0, q1)
+            sbc = crop(satd_batch(org, pred))
+            cc, sz = _rd_resid_cost(org, pred, qp_b, log2n, bd, lam2)
+            blk_rd = crop(torch.minimum(cc, sz))
+            tot = gsum_f(blk_rd) + lam2 * gbits.to(F32)
+            if valid is not None:
+                tot = torch.where(valid, tot, big_f)
+            return [tot, rdd, rm0x, rm0y, rm1x, rm1y, rr0, rr1, sbc,
+                    gbits, blk_rd]
+
+        def merge_best(best, cand):
+            if best is None:
+                return cand
+            u_ = cand[0] < best[0]
+            ub = rep2(u_)
+            return ([torch.where(u_, cand[i], best[i]) for i in range(8)]
+                    + [torch.where(ub, cand[8], best[8]),
+                       torch.where(u_, cand[9], best[9]),
+                       torch.where(ub, cand[10], best[10])])
+
+        flds = (dirs, m0x, m0y, m1x, m1y, r0m, r1m)
+        best = None
+        for c in range(4):
+            sy, sx = (c >> 1) * s, (c & 1) * s
+            # merge/skip-realistic region syntax charge (see the P side)
+            best = merge_best(best, eval_cand(
+                *(crop(f)[sy::g, sx::g] for f in flds),
+                torch.full((gh, gw), 10, dtype=I32, device=dev)))
+        # A1/B1 merge-aligned candidates: the region CU's actual spatial
+        # merge candidates
+        ry_i = torch.arange(gh, device=dev) * g
+        rx_i = torch.arange(gw, device=dev) * g
+        f2s = [f2(f) for f in flds]
+        mb3 = torch.full((gh, gw), 3, dtype=I32, device=dev)
+        a1_r = ry_i + (g - 1)
+        a1_c = rx_i - 1
+        va1 = (a1_c >= 0)[None, :].expand(gh, gw)
+        ac = torch.clip(a1_c, 0, nbx - 1)
+        ga1 = lambda f: f[a1_r[:, None], ac[None, :]]
+        best = merge_best(best, eval_cand(
+            *(ga1(f) for f in f2s), mb3, va1 & (ga1(f2s[0]) > 0)))
+        b1_r = ry_i - 1
+        b1_c = rx_i + (g - 1)
+        vb1 = (b1_r >= 0)[:, None].expand(gh, gw)
+        br = torch.clip(b1_r, 0, nby - 1)
+        gb1 = lambda f: f[br[:, None], b1_c[None, :]]
+        best = merge_best(best, eval_cand(
+            *(gb1(f) for f in f2s), mb3, vb1 & (gb1(f2s[0]) > 0)))
+        # bi zero-mv candidate (the B-slice merge list's zero-fill
+        # entry is bidirectional, spec 8.5.3.2.3 step 5)
+        z2 = torch.zeros((gh, gw), dtype=I32, device=dev)
+        best = merge_best(best, eval_cand(z2 + 3, z2, z2, z2, z2, z2, z2,
+                                          mb3 + 1))
+        (tot, rdd, rm0x, rm0y, rm1x, rm1y, rr0, rr1, sbc, gbits,
+         blk_rd) = best
+        # tie-accepting compare with sub-CU syntax slack (see the P side);
+        # every block is 2Nx2N here, so every region may adopt
+        acc = tot <= indiv_rd + lam2 * 4.0
+        accb = rep2(acc)
+        pb_bits = rep2(((lam256 * gbits) >> 8) // (g * g))
+        out = [setc(a, torch.where(accb, rep2(r), crop(a)))
+               for a, r in zip(flds, (rdd, rm0x, rm0y, rm1x, rm1y, rr0,
+                                      rr1))]
+        new_cost = setc(cost, torch.where(accb, sbc + pb_bits, crop(cost)))
+        new_rd = setc(cost_rd, torch.where(
+            accb, blk_rd + lam2 * rep2(gbits).to(F32) / (g * g),
+            crop(cost_rd)))
+        return (*out, new_cost, new_rd)
+
+    (dirs, mv0x, mv0y, mv1x, mv1y, ref0_f, ref1_f, inter_cost,
+     cost_rd) = _b_region_uniform(dirs, mv0x, mv0y, mv1x, mv1y, ref0_f,
+                                  ref1_f, inter_cost, cost_rd, 2)
+    if log2_ctu == 6:
+        (dirs, mv0x, mv0y, mv1x, mv1y, ref0_f, ref1_f, inter_cost,
+         cost_rd) = _b_region_uniform(dirs, mv0x, mv0y, mv1x, mv1y,
+                                      ref0_f, ref1_f, inter_cost, cost_rd,
+                                      4)
+
+    use_inter = inter_cost <= intra_best
+    dirs = torch.where(use_inter, dirs, 0)
+
+    # MC predictions of the chosen (dir, ref, mv) per block from the
+    # per-ref FULL planes with a select (not the tall stacks), so edge
+    # clamping matches the decoder's spec MC exactly
+    is_bi = (dirs == 3)[:, None, None]
+    use_l0 = ((dirs == 1)[:, None, None]) | is_bi
+
+    def sel_ref_mc(planes, rsel_f, fn):
+        sel = None
+        for ridx, rp in enumerate(planes):
+            pr = fn(rp)
+            sel = pr if sel is None else torch.where(
+                (rsel_f == ridx)[:, None, None], pr, sel)
+        return sel
+
+    nc = n >> 1
+    mc = []
+    for (pls0, pls1, c_idx) in ((r0ys, r1ys, 0), (ru0s, ru1s, 1),
+                                (rv0s, rv1s, 2)):
+        sz = n if c_idx == 0 else nc
+        bx_ = bx if c_idx == 0 else bx >> 1
+        by_ = by if c_idx == 0 else by >> 1
+        per = lambda fn, p, mx, my: fn(p, bx_, by_, mx, my, sz, c_idx, bd)
+        b0 = sel_ref_mc(pls0, ref0_f,
+                        lambda p: per(mc_batch_14, p, mv0x, mv0y))
+        b1 = sel_ref_mc(pls1, ref1_f,
+                        lambda p: per(mc_batch_14, p, mv1x, mv1y))
+        u0 = sel_ref_mc(pls0, ref0_f, lambda p: per(mc_batch, p, mv0x, mv0y))
+        u1 = sel_ref_mc(pls1, ref1_f, lambda p: per(mc_batch, p, mv1x, mv1y))
+        sel = torch.where(is_bi, bi_combine(b0, b1, bd),
+                          torch.where(use_l0, u0, u1))
+        mc.append(sel.reshape(nby, nbx, sz, sz))
+
+    f = lambda a: a.reshape(nby, nbx).to(I32)
+    mv2 = lambda mx, my: torch.stack([mx, my], -1).reshape(nby, nbx, 2) \
+        .to(I32)
+    z2 = torch.zeros((nby, nbx), dtype=I32, device=dev)    # 2Nx2N only
+    z3 = torch.zeros((nby, nbx, 2), dtype=I32, device=dev)
+    return (f(intra_modes), use_inter.reshape(nby, nbx), f(dirs),
+            mv2(mv0x, mv0y), mv2(mv1x, mv1y), f(ref0_f), f(ref1_f),
+            mc[0], mc[1], mc[2], z2, z2, z3, z3)

@@ -1,25 +1,31 @@
 """Top-level encoder of the port: frames in, Annex-B HEVC out (port of
-the I and P branches of x265_mod_by_patman_tpu/encoder/top.py).
+x265_mod_by_patman_tpu/encoder/top.py).
 
-The device work (mode decision, P analysis, the reconstruction
-wavefront, the inter TU32 pre-pass, deblocking, SAO statistics and
-apply) runs in torch on the device the Encoder was given ("cuda" unless
-the caller asks for "cpu"); syntax and CABAC run on the host through the
-port's own copies of the reference's jax-free modules (``params``,
-``bitstream``, ``entropy`` with the native C CABAC engine, ``rc``).
+The device work (the slicetype lookahead, mode decision, P and B
+analysis, the reconstruction wavefront, the inter TU32 pre-pass,
+deblocking, SAO statistics and apply) runs in torch on the device the
+Encoder was given ("cuda" unless the caller asks for "cpu"); syntax and
+CABAC run on the host through the port's own copies of the reference's
+jax-free modules (``params``, ``bitstream``, ``entropy`` with the native
+C CABAC engine, ``rc``).
 
-Scope: I and P pictures (bframes = 0), CQP, 4:2:0 8-bit.  Options of
-the reference outside that scope raise NotImplementedError naming the
-option.  Host-only helpers (slice syntax assembly, headers, QP chain,
-stats, TMVP motion store, adaptive rate tables) are copied from the
-reference, since its module imports jax, without the B, rect, NxN and
-4:2:2 branches that the scope above excludes.
+Scope: the default encode — I, P and B pictures with the b-adapt
+lookahead, the B pyramid, open-GOP CRA keyframes with RASL leaders and
+scenecut by the lookahead's cost ratio — under CQP, 4:2:0 8-bit.
+Options of the reference outside that scope raise NotImplementedError
+naming the option.  Host-only helpers (slice syntax assembly, headers,
+QP chain, stats, TMVP motion store, adaptive rate tables) are copied
+from the reference, since its module imports jax, without the rect,
+NxN, weighted-B and 4:2:2 branches that the scope above excludes.
+B pictures of a mini-GOP are encoded one after another: the
+reference's frame-parallel B (--frame-threads > 1) gives the same
+bytes under CQP.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,11 +33,12 @@ import torch
 from ..params import EncoderParams
 from ..bitstream.bitwriter import BitWriter
 from ..bitstream.headers import (
-    SLICE_I, SLICE_P, SliceHeader, build_pps_info, build_sps_info,
+    SLICE_B, SLICE_I, SLICE_P, SliceHeader, build_pps_info, build_sps_info,
     write_pps, write_slice_header, write_sps, write_vps)
 from ..bitstream.nal import (
-    NAL_CRA_NUT, NAL_IDR_W_RADL, NAL_PPS, NAL_SPS, NAL_SUFFIX_SEI,
-    NAL_TRAIL_R, NAL_VPS, annexb)
+    NAL_CRA_NUT, NAL_IDR_W_RADL, NAL_PPS, NAL_RASL_N, NAL_RASL_R, NAL_SPS,
+    NAL_SUFFIX_SEI, NAL_TRAIL_N, NAL_TRAIL_R, NAL_TSA_N, NAL_TSA_R,
+    NAL_VPS, annexb)
 from ..bitstream.sei import plane_md5, write_decoded_picture_hash
 from ..entropy.binir import BinIR
 from ..entropy.cabac import encode_ir_to_writer
@@ -40,7 +47,8 @@ from ..entropy.cu_syntax import CodedCU, SliceSyntaxEncoder
 from ..rc.ratecontrol import RateControl, frame_complexity
 from ..utils import trace
 from ..analysis.intra_mode import decide_modes_tree, decide_modes_rd
-from ..analysis.inter_mode import analyse_p_frame, lambda_qp
+from ..analysis.inter_mode import (analyse_b_frame, analyse_p_frame,
+                                   lambda_qp)
 from ..frame.planes import (as_devplane, attach_dev, dev_i32, pack_levels,
                             pack_recon)
 from ..frame.recon_intra import IntraReconstructor, chroma_qp
@@ -96,10 +104,9 @@ class EncodedFrame:
 def _unsupported(p: EncoderParams) -> List[str]:
     """Options of the reference this port does not take."""
     out = []
-    if p.bframes > 0 and p.keyframe_max > 1:
-        out.append("bframes > 0 (B pictures and the lookahead)")
     checks = (
         (p.rect, "--rect"), (p.amp, "--amp"),
+        (p.weightb and p.bframes > 0 and p.keyframe_max > 1, "--weightb"),
         (p.search_method == "sea", "--me sea"), (p.hme, "--hme"),
         (p.mcstf, "--mcstf"),
         (p.analysis_save or p.analysis_load, "analysis save/load"),
@@ -185,17 +192,26 @@ class Encoder:
                                     method_r[self.p.search_method]))
         self._headers_sent = False
         self._rounds_p = (1, 1) if self.p.rd_level <= 2 else (2, 1)
-        self.bframes = 0
+        self._rounds_b = (1, 1) if self.p.rd_level <= 2 else (2, 2)
+        self.bframes = max(0, self.p.bframes) if self.p.keyframe_max > 1 \
+            else 0
+        # the slicetype lattice supplies frame complexities whenever
+        # b-adapt wants the DP (the reference's other triggers, CRF/ABR
+        # and VBV, are not ported)
+        self._la_rc = (self.p.keyframe_max > 1 and self.bframes > 0
+                       and self.p.b_adapt > 0)
         self.rc = RateControl(self.p.rc_mode, self.p.qp, self.p.crf,
                               self.p.bitrate_kbps,
                               self.p.fps_num / max(1, self.p.fps_denom),
                               self.sps.width, self.sps.height,
                               self.p.qp_min, self.p.qp_max,
-                              cu_tree=False, lookahead_units=False,
-                              bframes=0)
+                              cu_tree=False, lookahead_units=self._la_rc,
+                              bframes=self.bframes)
         self._prev_src_y = None
         self._cplx_avg = 0.0
         self._idr_base = 0
+        self._slicetype = None            # lazy (needs padded geometry)
+        self._lowres = None
         self._enc_order = 0
         self._last_anchor_disp = -1
         self._keyint_min = params.keyframe_min if params.keyframe_min > 0 \
@@ -296,7 +312,28 @@ class Encoder:
         planes = (as_devplane(self._pad(y, 0)),
                   as_devplane(self._pad(u, self.cshift)),
                   as_devplane(self._pad(v, self.cshift)))
-        cplx = frame_complexity(planes[0], self._prev_src_y)
+        st = self._slicetype
+        if st is None and self._la_rc:
+            from ..analysis.slicetype import SlicetypeLookahead
+            st = self._slicetype = SlicetypeLookahead(
+                planes[0].shape[1], planes[0].shape[0], self.bframes,
+                p.b_adapt, p.scenecut_bias / 100.0, p.scenecut_threshold,
+                b_frame_bias=p.b_frame_bias, hme=p.hme,
+                store=self._lowres_store())
+        if st is not None:
+            with trace.scope("slicetype_push"):
+                st.push(self.frame_count, planes[0])
+            # ingest-time complexity = lowres lattice P-cost vs the
+            # previous display frame (refined to the decided refs in
+            # _emit_minigop); first frame = lowres intra cost
+            d = self.frame_count
+            with trace.scope("la_ingest_cost"):
+                if d > 0 and st.has(d - 1):
+                    cplx = st.frame_cost(d, d - 1, d)
+                else:
+                    cplx = st.intra_cost(d)
+        else:
+            cplx = frame_complexity(planes[0], self._prev_src_y)
         self._prev_src_y = planes[0]
         out: List[EncodedFrame] = []
         force_idr = (self.frame_count % max(1, p.keyframe_max) == 0)
@@ -308,9 +345,23 @@ class Encoder:
             self._prev_hist = hist
         elif p.hist_scenecut:
             self._prev_hist = self._luma_hist(planes[0])
+        # scene-cut detection: the lookahead's intra/inter cost-ratio
+        # test when available (slicetype.cpp scenecutInternal:2832),
+        # else the temporal-complexity-spike fallback
         if not force_idr and p.scenecut and p.keyframe_max > 1 \
                 and self._disp_since_idr >= self._keyint_min:
-            if self._cplx_avg > 0 and cplx > 4.0 * self._cplx_avg \
+            if st is not None and self.frame_count > 0:
+                force_idr = st.scenecut(
+                    self.frame_count, self.frame_count - 1,
+                    self._disp_since_idr, self._keyint_min,
+                    p.keyframe_max)
+                if force_idr and p.fades and \
+                        st.fade_state(self.frame_count) != 0:
+                    # mid-fade brightness ramps read as scene changes
+                    # to the cost-ratio test; hold the cut until the
+                    # ramp ends (x265 --fades)
+                    force_idr = False
+            elif self._cplx_avg > 0 and cplx > 4.0 * self._cplx_avg \
                     and cplx > 0.1 * self.sps.width * self.sps.height:
                 force_idr = True
         if not force_idr:
@@ -320,69 +371,208 @@ class Encoder:
             open_kf = (p.open_gop and self.frame_count > 0
                        and p.keyframe_max > 1)
             if open_kf:
-                # open-GOP keyframe: a CRA continuing the POC sequence
-                # (with bframes = 0 there are no queued leading pictures)
-                assert not self._queue
+                # open GOP (x265 --open-gop, dpb.cpp getNalUnitType):
+                # the keyframe is a CRA continuing the POC sequence and
+                # the queued frames become its RASL leading pictures,
+                # referencing across the keyframe (prev anchor + CRA)
+                prev_anchor = self._anchors[0] if self._anchors else None
+                prev_disp = self._last_anchor_disp
                 kf_poc = self.frame_count - self._idr_base
                 self._disp_since_idr = 0
                 self._last_anchor_disp = self.frame_count
-                out.append(self._encode_picture(planes, kf_poc, "I", cplx,
-                                                nal_class="cra"))
+                if st is not None:
+                    cplx = st.intra_cost(self.frame_count)
+                cra = self._encode_picture(planes, kf_poc, "I", cplx,
+                                           nal_class="cra")
+                out.append(cra)
+                cra_ref = (cra.recon, kf_poc)
+                leaders, self._queue = self._queue, []
+                for (pl, pc, cx2) in leaders:
+                    if st is not None and prev_disp >= 0:
+                        cx2 = st.frame_cost(self._idr_base + pc,
+                                            prev_disp, self.frame_count)
+                    out.append(self._encode_picture(
+                        pl, pc, "B", cx2,
+                        b_refs=([prev_anchor], [cra_ref], (), False),
+                        nal_class="rasl"))
+                if st is not None:
+                    st.drop_before(self.frame_count)
                 self.frame_count += 1
                 self._disp_since_idr = 1
                 self._adapt_states.update(self._est_pending)
                 self._est_pending = {}
                 return out
             while self._queue:
-                out.extend(self._emit_minigop())
+                out.extend(self._emit_minigop(self._next_gop_len()))
             self._disp_since_idr = 0
             self._idr_base = self.frame_count
             self._last_anchor_disp = self.frame_count
+            if st is not None:
+                cplx = st.intra_cost(self.frame_count)
             out.append(self._encode_picture(planes, 0, "I", cplx))
             self._adapt_states.update(self._est_pending)
             self._est_pending = {}
+            if st is not None:
+                st.drop_before(self.frame_count)
         else:
+            # queue poc is relative to the last IDR (CVS base) — under
+            # open GOP that differs from the distance-to-keyframe
+            # counter (_disp_since_idr resets at CRAs too)
             self._queue.append((planes, self.frame_count - self._idr_base,
                                 cplx))
-            out.extend(self._emit_minigop())
+            # b-adapt: spike fallback only without the lookahead (the
+            # DP's P placement subsumes it)
+            spike = (st is None and p.b_adapt > 0 and
+                     len(self._queue) > 1 and self._cplx_avg > 0 and
+                     cplx > 2.5 * self._cplx_avg)
+            if len(self._queue) >= self.bframes + 1 or spike:
+                out.extend(self._emit_minigop(self._next_gop_len()))
         self.frame_count += 1
         self._disp_since_idr += 1
         return out
 
+    def _next_gop_len(self) -> Optional[int]:
+        """Mini-GOP length for the head of the queue: the b-adapt DP's
+        P-anchor placement (slicetype.cpp slicetypePath analog), or the
+        whole queue without the lookahead."""
+        st = self._slicetype
+        if st is None or not self._queue:
+            return None
+        p0 = self._last_anchor_disp
+        disps = [self._idr_base + q[1] for q in self._queue]
+        if p0 < 0:
+            return None
+        try:
+            with trace.scope("la_decide_gop"):
+                return st.decide_gop(p0, disps)
+        except KeyError:
+            return None
+
+    def _lowres_store(self):
+        """The lowres store of the slicetype lookahead (the reference
+        shares it with cuTree, which CQP does not run)."""
+        if self._lowres is None:
+            from ..analysis.lookahead import LowresStore
+            # coded (min-CU-aligned) size == the _pad()ded plane shape
+            self._lowres = LowresStore(self.sps.width, self.sps.height,
+                                       self.device)
+        return self._lowres
+
     def flush(self) -> List[EncodedFrame]:
         out: List[EncodedFrame] = []
         while self._queue:
-            out.extend(self._emit_minigop())
+            out.extend(self._emit_minigop(self._next_gop_len()))
         return out
 
-    def _emit_minigop(self) -> List[EncodedFrame]:
-        """With bframes = 0 every mini-GOP is one P picture."""
-        frames, self._queue = self._queue, []
-        assert len(frames) == 1
-        planes, poc, cplx = frames[0]
-        self._last_anchor_disp = self._idr_base + poc
-        out = [self._encode_picture(planes, poc, "P", cplx)]
-        self._anchors.insert(0, (out[0].recon, out[0].poc))
+    def _emit_minigop(self, k: Optional[int] = None) -> List[EncodedFrame]:
+        if k is None or k >= len(self._queue):
+            frames, self._queue = self._queue, []
+        else:
+            frames, self._queue = self._queue[:k], self._queue[k:]
+        st = self._slicetype
+        prev_disp = self._last_anchor_disp
+        anchor_disp = self._idr_base + frames[-1][1]
+        if st is not None and prev_disp >= 0:
+            # refine complexities with the DECIDED references (the
+            # reference feeds rce->lastSatd from the slicetype-decided
+            # lowres cost, ratecontrol.cpp:2101): P vs its anchor, Bs
+            # vs their actual (p0, p1) pair incl. the pyramid bref
+            mid = len(frames) - 1
+            if self.p.b_pyramid and len(frames) - 1 >= 3:
+                mid = (len(frames) - 1) // 2
+            mid_disp = self._idr_base + frames[mid][1]
+            ref = []
+            with trace.scope("la_rc_refine"):
+                for i, (pl, pc, cx) in enumerate(frames):
+                    d = self._idr_base + pc
+                    if i == len(frames) - 1:
+                        cx = st.frame_cost(d, prev_disp, d)
+                    elif i == mid:
+                        cx = st.frame_cost(d, prev_disp, anchor_disp)
+                    elif i < mid:
+                        cx = st.frame_cost(d, prev_disp, mid_disp)
+                    else:
+                        cx = st.frame_cost(d, mid_disp, anchor_disp)
+                    ref.append((pl, pc, cx))
+            frames = ref
+        self._last_anchor_disp = anchor_disp
+        if st is not None:
+            st.drop_before(self._last_anchor_disp)
+        out = [self._encode_picture(frames[-1][0], frames[-1][1], "P",
+                                    frames[-1][2])]
+        anchor1 = (out[0].recon, out[0].poc)
+        bs = frames[:-1]
+        # full B reference lists (reference dpb.cpp:151): L0 = past
+        # anchors closest-first up to --ref, L1 = the future anchor(s).
+        # Every retained picture appears in some list, so the per-slice
+        # RPS keeps the DPB coherent for later frames of the mini-GOP and
+        # the next P.
+        past = list(self._anchors)[:self.max_refs]
+        if self.p.b_pyramid and len(bs) >= 3:
+            # referenced middle B (reference placeBref, slicetype.cpp:1849)
+            mid = len(bs) // 2
+            bref_fr = self._encode_picture(
+                bs[mid][0], bs[mid][1], "B", bs[mid][2],
+                b_refs=(past, [anchor1], (), True))
+            out.append(bref_fr)
+            bref = (bref_fr.recon, bref_fr.poc)
+            jobs = []
+            for k, (planes, poc, cplx) in enumerate(bs):
+                if k == mid:
+                    continue
+                if k < mid:
+                    # L1 = both future refs (bref closest); the far
+                    # anchor rides the list, so it needs no keep entry
+                    jobs.append((planes, poc, cplx,
+                                 (past, [bref, anchor1], (), False)))
+                else:
+                    jobs.append((planes, poc, cplx,
+                                 (([bref] + past)[:self.max_refs],
+                                  [anchor1], (), False)))
+        else:
+            jobs = [(planes, poc, cplx, (past, [anchor1], (), False))
+                    for (planes, poc, cplx) in bs]
+        out.extend(self._encode_b_jobs(jobs))
+        # decode order emitted; DPB advances to the new P anchor
+        self._anchors.insert(0, anchor1)
         del self._anchors[self.max_refs:]
         self._adapt_states.update(self._est_pending)
         self._est_pending = {}
         return out
 
+    def _encode_b_jobs(self, jobs) -> List[EncodedFrame]:
+        """Encode a mini-GOP's mutually independent B pictures, one after
+        another.  The reference's frame-parallel mode (--frame-threads >
+        1) gives byte-identical output under CQP, so it has no separate
+        path here."""
+        return [self._encode_picture(pl, pc, "B", cx, b_refs=br)
+                for (pl, pc, cx, br) in jobs]
+
     # -- one picture ---------------------------------------------------------
     def _encode_picture(self, planes, poc: int, ftype: str,
-                        complexity: float = 0.0,
+                        complexity: float = 0.0, b_refs=None,
                         nal_class=None) -> EncodedFrame:
+        """b_refs: for B pictures, (L0 [(planes, poc)..], L1 [(planes,
+        poc)..], extra POCs to retain in the RPS, is_referenced).
+        nal_class: None (default typing), "cra" (open-GOP keyframe) or
+        "rasl" (leading pictures of a CRA)."""
         p = self.p
         y, u, v = planes
-        qp = self.rc.frame_qp(ftype, complexity, None)
+        rc_type = ftype
+        if ftype == "B" and b_refs is not None and not b_refs[3]:
+            rc_type = "b"                 # non-referenced B
+        qp = self.rc.frame_qp(rc_type, complexity, None)
         qp_map = qp
         recon = self.recon
         dev = self.device
-        ref_sel = None
+        dirs = mvs1 = None
+        ref_sel = ref_sel1 = None
         wp_l0 = None
         wp_chroma = None
         intra_cand = None
         split32 = mode32 = None
+        keep_pocs: tuple = ()
+        b_is_ref = False
         trace.instant("picture", poc=poc, type=ftype, qp=qp)
         if ftype == "I":
             if p.var_cu_tree:
@@ -406,8 +596,8 @@ class Encoder:
             inter_mask = np.zeros(modes.shape, bool)
             mvs = np.zeros(modes.shape + (2,), np.int32)
             ref_pocs = ((), ())
-        else:
-            assert ftype == "P" and self._anchors
+        elif ftype == "P":
+            assert self._anchors
             refs = [a[0] for a in self._anchors]
             if p.weightp:
                 from ..analysis.weightp import (
@@ -435,14 +625,51 @@ class Encoder:
                         col=col_a, ref_pocs=rp_p, cur_poc=poc,
                         pad_refs=self.max_refs, rounds=self._rounds_p)
             recon_fn = self._inter_recon_fn(
-                y, u, v, modes, mc, inter_mask, 1, mvs, ref_sel,
-                ebits=(self._ebits_for(1, qp, per_row=True),
-                       self._ebits_for(1, qp)))
+                y, u, v, modes, mc, inter_mask, 1, mvs, None, None,
+                ref_sel, ebits=(self._ebits_for(1, qp, per_row=True),
+                                self._ebits_for(1, qp)))
             ref_pocs = rp_p
+        else:
+            (list0, list1, keep_pocs, b_is_ref) = b_refs
+            rp_b = (tuple(a[1] for a in list0),
+                    tuple(a[1] for a in list1))
+            col_b = self._col_store.get(rp_b[0][0]) \
+                if self.sps.temporal_mvp else None
+            with trace.scope("analysis", type="B"):
+                (modes, inter_mask, dirs, mvs, mvs1, ref_sel, ref_sel1,
+                 mc, _part, _pu1) = analyse_b_frame(
+                    y, u, v, [a[0] for a in list0], [a[0] for a in list1],
+                    self.sps, qp, dev, search_range=self._me_range,
+                    subme=p.subpel_refine, col=col_b, ref_pocs=rp_b,
+                    cur_poc=poc,
+                    pad_refs=(self.max_refs, 2 if p.b_pyramid else 1),
+                    rounds=self._rounds_b)
+            recon_fn = self._inter_recon_fn(
+                y, u, v, modes, mc, inter_mask, 0, mvs, mvs1, dirs,
+                ref_sel, ref_sel1=ref_sel1,
+                ebits=(self._ebits_for(0, qp, per_row=True),
+                       self._ebits_for(0, qp)))
+            ref_pocs = rp_b
         if nal_class == "cra":
             nal_unit = NAL_CRA_NUT
+        elif nal_class == "rasl":
+            nal_unit = NAL_RASL_R if b_is_ref else NAL_RASL_N
         else:
-            nal_unit = {"I": NAL_IDR_W_RADL, "P": NAL_TRAIL_R}[ftype]
+            nal_unit = {"I": NAL_IDR_W_RADL, "P": NAL_TRAIL_R,
+                        "B": NAL_TRAIL_R if b_is_ref else NAL_TRAIL_N
+                        }[ftype]
+        # temporal sub-layers (x265 --temporal-layers, dpb.cpp:181/241):
+        # non-ref b ride the top layer as TSA_N; at 3 layers the
+        # pyramid's referenced mid-B is layer 1 (TSA_R).  RASL typing
+        # (open-GOP leading pictures) outranks TSA.
+        temporal_id = 0
+        if p.temporal_layers >= 2 and ftype == "B" and nal_class is None:
+            if not b_is_ref:
+                temporal_id = p.temporal_layers - 1
+                nal_unit = NAL_TSA_N
+            elif p.temporal_layers >= 3:
+                temporal_id = 1
+                nal_unit = NAL_TSA_R
 
         with trace.scope("wavefront", type=ftype):
             r = recon_fn(qp_map)
@@ -450,15 +677,16 @@ class Encoder:
         ms = r.get("modes_sel", modes)
         dqp_map = self._derived_qp_map(qp_map, r, qp)
         with trace.scope("loopfilter", type=ftype):
-            self._deblock(r, inter_mask, mvs, ref_pocs, dqp_map, recon,
-                          ref_sel, split32)
+            self._deblock(r, inter_mask, mvs, mvs1, dirs, ref_pocs,
+                          dqp_map, recon, ref_sel, split32,
+                          ref_sel1=ref_sel1)
             self._force_levels(r)
             sao_maps = self._sao(r, y, u, v, qp) if p.sao else None
         with trace.scope("entropy", type=ftype):
             slice_rbsp = self._encode_slice(
-                ms, inter_mask, mvs, r, ftype, poc, qp, ref_pocs, sao_maps,
-                ref_sel, qp_map, wp_l0, split32, mode32, wp_chroma,
-                nal_unit)
+                ms, inter_mask, mvs, mvs1, dirs, r, ftype, poc, qp,
+                ref_pocs, sao_maps, ref_sel, keep_pocs, qp_map, wp_l0,
+                split32, mode32, wp_chroma, nal_unit, ref_sel1=ref_sel1)
         with trace.scope("recon_fetch", type=ftype):
             self._finalize_recon(r)
         with trace.scope("md5"):
@@ -468,7 +696,7 @@ class Encoder:
         if p.aud:
             from ..bitstream.nal import NAL_AUD
             bw_aud = BitWriter()
-            bw_aud.u({"I": 0, "P": 1}[ftype], 3)
+            bw_aud.u({"I": 0, "P": 1, "B": 2}[ftype], 3)   # pic_type
             bw_aud.rbsp_trailing_bits()
             out += annexb(NAL_AUD, bw_aud.get_bytes())
         if not self._headers_sent or (p.repeat_headers and ftype == "I"):
@@ -487,20 +715,22 @@ class Encoder:
         self._enc_order += 1
         if isinstance(slice_rbsp, list):
             for rb in slice_rbsp:
-                out += annexb(nal_unit, rb)
+                out += annexb(nal_unit, rb, temporal_id=temporal_id)
         else:
-            out += annexb(nal_unit, slice_rbsp)
+            out += annexb(nal_unit, slice_rbsp, temporal_id=temporal_id)
         if p.decoded_picture_hash:
-            out += annexb(NAL_SUFFIX_SEI, write_decoded_picture_hash(md5))
+            out += annexb(NAL_SUFFIX_SEI, write_decoded_picture_hash(md5),
+                          temporal_id=temporal_id)
         frame = EncodedFrame(poc, out,
                              (r["recon_y"], r["recon_u"], r["recon_v"]),
                              bits=len(out) * 8, md5=md5, slice_type=ftype,
                              qp=qp, disp=self._idr_base + poc,
                              stats=self._frame_stats(r, inter_mask, mvs))
-        self.rc.update(ftype, qp, frame.bits, complexity)
-        if self.sps.temporal_mvp:
+        self.rc.update(rc_type, qp, frame.bits, complexity)
+        if self.sps.temporal_mvp and (ftype in ("I", "P") or b_is_ref):
             self._col_store[poc] = self._build_col_motion(
-                poc, inter_mask, mvs, ref_sel, ref_pocs)
+                poc, inter_mask, dirs, mvs, mvs1, ref_sel, ref_pocs,
+                ref_sel1=ref_sel1)
             if len(self._col_store) > self.max_refs + 3:
                 for k in sorted(self._col_store)[:-(self.max_refs + 3)]:
                     del self._col_store[k]
@@ -538,21 +768,26 @@ class Encoder:
                     st["max_mv"] = round(float(m.max()), 2)
         return st
 
-    def _build_col_motion(self, poc, inter_mask, mvs, ref_sel, ref_pocs):
+    def _build_col_motion(self, poc, inter_mask, dirs, mvs, mvs1,
+                          ref_sel, ref_pocs, ref_sel1=None):
         """16x16-grid compressed motion field of this picture for TMVP
-        (the reference's motion compression of colMVs); L0 only, as P
-        pictures carry no L1 motion."""
+        (the reference's motion compression of colMVs)."""
         from ..entropy.mv_pred import ColMotion
         nby, nbx = self.recon.nby, self.recon.nbx
         d = np.zeros((nby, nbx), np.int8)
         mv = np.zeros((nby, nbx, 2, 2), np.int32)
         rp = np.zeros((nby, nbx, 2), np.int64)
         if inter_mask.any():
-            d[:] = np.where(inter_mask, 1, 0).astype(np.int8)
+            dd = np.where(inter_mask, 1 if dirs is None else dirs, 0)
+            d[:] = dd.astype(np.int8)
             mv[..., 0, :] = mvs
-            if ref_pocs[0]:
-                tab = np.asarray(ref_pocs[0], np.int64)
-                rp[..., 0] = tab[np.clip(ref_sel, 0, len(tab) - 1)]
+            if mvs1 is not None:
+                mv[..., 1, :] = mvs1
+            for lst, sel in ((0, ref_sel), (1, ref_sel1)):
+                if ref_pocs[lst]:
+                    tab = np.asarray(ref_pocs[lst], np.int64)
+                    rp[..., lst] = tab[0] if sel is None else \
+                        tab[np.clip(sel, 0, len(tab) - 1)]
         return ColMotion(poc, d, mv, rp)
 
     def _post_wavefront(self, r: dict) -> None:
@@ -632,16 +867,18 @@ class Encoder:
         return tab[:nby + 1]
 
     def _inter_recon_fn(self, y, u, v, modes, mc, inter_mask,
-                        init_type: int, mvs, ref_sel, ebits=None):
-        """Wavefront runner for P frames with the inter TU32 pre-pass
+                        init_type: int, mvs, mvs1, dirs, ref_sel,
+                        ref_sel1=None, ebits=None):
+        """Wavefront runner for P/B frames with the inter TU32 pre-pass
         (frame/inter_tu32.py)."""
         recon = self.recon
         i32_mask = None
         if self.p.var_cu_tree and inter_mask is not None:
             from ..frame.inter_tu32 import region_uniform_mask
             m = region_uniform_mask(
-                np.asarray(inter_mask, bool), np.asarray(mvs), None, None,
-                ref_sel, None, self.sps.width, self.sps.height)
+                np.asarray(inter_mask, bool), np.asarray(mvs), mvs1, dirs,
+                ref_sel, None, self.sps.width, self.sps.height,
+                ref_sel1=ref_sel1)
             if m.any():
                 i32_mask = m
         eb_rows, eb_flat = ebits if ebits is not None else (None, None)
@@ -668,8 +905,8 @@ class Encoder:
             return r
         return fn
 
-    def _deblock(self, r: dict, inter_mask, mvs, ref_pocs, qp, recon,
-                 ref_sel=None, split32=None) -> None:
+    def _deblock(self, r: dict, inter_mask, mvs, mvs1, dirs, ref_pocs, qp,
+                 recon, ref_sel=None, split32=None, ref_sel1=None) -> None:
         if not self.p.deblock:
             return
         p = self.p
@@ -690,15 +927,19 @@ class Encoder:
                 use_b = np.repeat(np.repeat(tu32_use, 2, 0), 2, 1)
                 h2, w2 = use_b.shape
                 cbf[:h2, :w2] = np.where(use_b, cbf32, cbf[:h2, :w2])
-            dirs_m = np.where(inter_mask, 1, 0).astype(np.int32)
-            mvs1_m = np.zeros_like(mvs)
-            if ref_sel is not None and ref_pocs[0]:
-                poc_tab = np.asarray(ref_pocs[0], np.int64)
-                p0 = poc_tab[np.clip(ref_sel, 0, len(ref_pocs[0]) - 1)]
+            if dirs is None:
+                dirs_m = np.where(inter_mask, 1, 0).astype(np.int32)
+                mvs1_m = np.zeros_like(mvs)
             else:
-                p0 = np.full((nby, nbx),
-                             ref_pocs[0][0] if ref_pocs[0] else 0, np.int64)
-            p1 = np.full((nby, nbx), 0, np.int64)
+                dirs_m = np.where(inter_mask, dirs, 0).astype(np.int32)
+                mvs1_m = mvs1
+            p0, p1 = (
+                np.asarray(ref_pocs[lst], np.int64)[
+                    np.clip(sel, 0, len(ref_pocs[lst]) - 1)]
+                if sel is not None and ref_pocs[lst] else
+                np.full((nby, nbx), ref_pocs[lst][0] if ref_pocs[lst]
+                        else 0, np.int64)
+                for lst, sel in ((0, ref_sel), (1, ref_sel1)))
             bs_v, bs_h = inter_bs_maps(~inter_mask, mvs, cbf, w, h, 16,
                                        dirs_m, mvs1_m, p0, p1, None,
                                        part_map=None, pu1=None,
@@ -876,13 +1117,14 @@ class Encoder:
             cap *= 2
         return None
 
-    def _encode_slice(self, modes, inter_mask, mvs, r: dict, ftype: str,
-                      poc: int, qp: int, ref_pocs, sao_maps, ref_sel,
-                      qp_map, wp_l0, split32, mode32, wp_chroma, nal):
-        """Slice data of one I or P picture: the rbsp bytes, or one rbsp
-        per slice when the picture is cut into several."""
+    def _encode_slice(self, modes, inter_mask, mvs, mvs1, dirs, r: dict,
+                      ftype: str, poc: int, qp: int, ref_pocs, sao_maps,
+                      ref_sel, keep_pocs, qp_map, wp_l0, split32, mode32,
+                      wp_chroma, nal, ref_sel1=None):
+        """Slice data of one picture: the rbsp bytes, or one rbsp per
+        slice when the picture is cut into several."""
         sps, pps = self.sps, self.pps
-        slice_type = {"I": SLICE_I, "P": SLICE_P}[ftype]
+        slice_type = {"I": SLICE_I, "P": SLICE_P, "B": SLICE_B}[ftype]
         sh = SliceHeader(slice_type=slice_type, nal_type=nal, poc=poc,
                          qp=qp,
                          deblocking_disabled=pps.deblocking_disabled,
@@ -899,6 +1141,23 @@ class Encoder:
                 sh.wp_l0 = tuple(wp_l0)
                 if wp_chroma is not None:
                     sh.wp_l0_chroma = tuple(wp_chroma)
+        elif ftype == "B":
+            n_l0 = max(1, len(ref_pocs[0]))
+            n_l1 = max(1, len(ref_pocs[1]))
+            num_refs = (n_l0, n_l1)
+            sh.num_ref_idx = (n_l0, n_l1)
+            # RPS: every list ref (used_by_curr = 1) plus pictures kept
+            # for later frames of the mini-GOP (used_by_curr = 0),
+            # sorted per spec order.  The decoder rebuilds L0 = neg+pos
+            # and L1 = pos+neg from the used entries in this order
+            # (spec 8.3.4), which matches the analysis list order
+            # because both lists are closest-first.
+            neg = [(rp - poc, True) for rp in ref_pocs[0]] + \
+                [(kp - poc, False) for kp in keep_pocs if kp < poc]
+            pos = [(rp - poc, True) for rp in ref_pocs[1]] + \
+                [(kp - poc, False) for kp in keep_pocs if kp > poc]
+            sh.st_rps_neg = tuple(sorted(set(neg), reverse=True))
+            sh.st_rps_pos = tuple(sorted(set(pos)))
         col = None
         if sps.temporal_mvp and ftype != "I" and ref_pocs[0]:
             col = self._col_store.get(ref_pocs[0][0])
@@ -945,7 +1204,12 @@ class Encoder:
                 cu = CodedCU(
                     x0, y0, 4, (1,), 4, {}, is_inter=True,
                     mv=(int(mvs[by, bx, 0]), int(mvs[by, bx, 1])),
-                    ref_idx=int(ref_sel[by, bx]), inter_dir=1)
+                    ref_idx=int(ref_sel[by, bx]),
+                    inter_dir=1 if dirs is None else int(dirs[by, bx]),
+                    mv1=(0, 0) if mvs1 is None else
+                    (int(mvs1[by, bx, 0]), int(mvs1[by, bx, 1])),
+                    ref_idx1=0 if ref_sel1 is None
+                    else int(ref_sel1[by, bx]))
             else:
                 cu = CodedCU(x0, y0, 4, (int(modes[by, bx]),), 4)
             for c_idx, lvc, nzc, clog2 in ((0, lvy, nz16y, 4),
