@@ -32,17 +32,31 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    pictures and a referenced B in every mini-GOP of 3 or more B's, that
    both kernels launched during the encode, and the recon quality;
    prints seconds per I, P and B picture, the lookahead's trace spans,
-   each kernel's launches split into lookahead and analysis, bits per
-   frame and peak device memory, and whether the lowres intra-cost sums
-   (float32, fixed pairwise order) stayed exact;
+   each kernel's launches split into lookahead, cuTree and analysis,
+   bits per frame and peak device memory, and whether the lowres
+   intra-cost sums (float32, fixed pairwise order) stayed exact;
 4. the 416x240 park clip encoded on "cuda" and on "cpu" must give
-   byte-identical streams, as I P P (bframes=0, 3 frames) and at the
-   repo defaults (6 frames); the CPU path is what the test suite holds
-   to the JAX reference encoder and the in-repo decoder.
+   byte-identical streams: CQP as I P P (bframes=0, 3 frames) and at the
+   repo defaults (6 frames), CRF 28 with AQ 2 and cuTree (rc_lookahead
+   4, 8 frames, so cuTree pops inside the stream) and ABR 300 kb/s with
+   AQ 1 (6 frames); the CPU path is what the test suite holds to the
+   JAX reference encoder and the in-repo decoder.  The CRF case is also
+   written as y4m under build/ and encoded by the port's CLI
+   (`python -m x265_mod_by_patman_tpu_torch.cli`) in a subprocess on
+   the card: its .hevc must equal the in-process cuda bytes;
+5. the rate-control path: the same 1080p clip as phase 3 under CRF 28
+   with AQ 2 and the cuTree lookahead (rc_lookahead at its default);
+   prints, besides what phase 3 prints, each picture's frame QP and the
+   min/mean/max of the per-CTU QP map it coded, the aq_map, cutree_push
+   and cutree_pop spans and the launches split into lookahead, cuTree
+   and analysis; checks the recon quality and that the per-CTU QP map
+   varies on at least one picture.
 
-Each phase prints its seconds.
+Phases 3 and 5 each set the kernel counts to 0 just before their encode
+and read them just after.  Each phase prints its seconds.
 
-Prints the kernels' JSON line, the card line, and as its last line
+Prints the kernels' JSON line (launches from phase 5, and per path), the
+card line, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is
 then non-zero and no result line is printed.
 """
@@ -352,18 +366,6 @@ def phase_k2(dev, rng, card: str):
     return res
 
 
-def encode(frames, w, h, dev, **kw):
-    """Encode through the port's encode_sequence; returns the stream,
-    the encoded frames and the wall seconds."""
-    from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
-    from x265_mod_by_patman_tpu_torch.params import default_params
-    t0 = time.perf_counter()
-    stream, enc = encode_sequence(default_params(w, h, **kw), frames, dev)
-    if dev != "cpu":
-        torch.cuda.synchronize()
-    return stream, enc, time.perf_counter() - t0
-
-
 def psnr(a, b) -> float:
     d = a.astype(np.float64) - b.astype(np.float64)
     mse = float((d * d).mean())
@@ -424,37 +426,54 @@ def lowres_sums_exact(frames, dev) -> None:
           f"float32 sum exact: {all(a == b for a, b in rows)}")
 
 
-def phase_main(dev, w=1920, h=1080, n=6):
-    """The 1080p default encode on the card; returns launch counts."""
+def drive(enc, frames):
+    """Encode `frames` through `enc` on the card with the kernel counts
+    set to 0 just before and read just after.  Times each picture (card
+    synchronised around _encode_picture), records the per-CTU QP map it
+    coded (the map _derived_qp_map receives) and the trace spans it ran,
+    and splits each kernel's launches into the slicetype lookahead
+    (SlicetypeLookahead._eval_triples), cuTree (CuTreeLookahead._cost_vs)
+    and analysis (the rest)."""
+    from x265_mod_by_patman_tpu_torch.analysis.lookahead import \
+        CuTreeLookahead
     from x265_mod_by_patman_tpu_torch.analysis.slicetype import \
         SlicetypeLookahead
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
-    from x265_mod_by_patman_tpu_torch.params import default_params
     from x265_mod_by_patman_tpu_torch.utils import trace
-    frames = park_frames(w, h, n)
-    enc = Encoder(default_params(w, h), dev)
-    pic_secs = []
-    la_counts = dict.fromkeys(kernels.KERNELS, 0)
-    encode_picture = Encoder._encode_picture
-    eval_triples = SlicetypeLookahead._eval_triples
+    pics, qp_maps = [], []
+    split = {"lookahead": dict.fromkeys(kernels.KERNELS, 0),
+             "cutree": dict.fromkeys(kernels.KERNELS, 0)}
+    originals = (Encoder._encode_picture, Encoder._derived_qp_map,
+                 SlicetypeLookahead._eval_triples, CuTreeLookahead._cost_vs)
+    encode_picture, derived_qp_map, eval_triples, cost_vs = originals
 
     def timed_picture(self, *a, **k):
         torch.cuda.synchronize()
+        ev0 = len(trace._events)
         t0 = time.perf_counter()
         f = encode_picture(self, *a, **k)
         torch.cuda.synchronize()
-        pic_secs.append(time.perf_counter() - t0)
+        pics.append((time.perf_counter() - t0, trace._events[ev0:]))
         return f
 
-    def counted_triples(self, triples):
-        before = kernels.counts()
-        eval_triples(self, triples)
-        for name, c in kernels.counts().items():
-            la_counts[name] += c - before[name]
+    def recording_qp_map(self, qp_map, r, slice_qp=0):
+        qp_maps.append(np.asarray(qp_map))
+        return derived_qp_map(self, qp_map, r, slice_qp)
+
+    def counted(what, fn):
+        def wrapper(self, *a):
+            before = kernels.counts()
+            got = fn(self, *a)
+            for name, c in kernels.counts().items():
+                split[what][name] += c - before[name]
+            return got
+        return wrapper
 
     Encoder._encode_picture = timed_picture
-    SlicetypeLookahead._eval_triples = counted_triples
+    Encoder._derived_qp_map = recording_qp_map
+    SlicetypeLookahead._eval_triples = counted("lookahead", eval_triples)
+    CuTreeLookahead._cost_vs = counted("cutree", cost_vs)
     try:
         ev0 = len(trace._events)
         torch.cuda.reset_peak_memory_stats()
@@ -469,28 +488,42 @@ def phase_main(dev, w=1920, h=1080, n=6):
         counts = kernels.counts()
         spans = trace._events[ev0:]
     finally:
-        Encoder._encode_picture = encode_picture
-        SlicetypeLookahead._eval_triples = eval_triples
-    print(f"main path {w}x{h} at the repo defaults: decode order "
+        (Encoder._encode_picture, Encoder._derived_qp_map,
+         SlicetypeLookahead._eval_triples, CuTreeLookahead._cost_vs) = \
+            originals
+    return dict(out=out, pics=pics, qp_maps=qp_maps, counts=counts,
+                split=split, spans=spans, total=total,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def report_drive(run, frames, w, h, what):
+    """Print a drive()'s pictures, spans, launches and memory; checks the
+    recon quality and that both kernels launched."""
+    out, pics, n = run["out"], run["pics"], len(frames)
+    print(f"{what}: decode order "
           + " ".join(f"{f.slice_type}{f.disp}" for f in out))
-    check_minigops(out)
-    for i, (f, s) in enumerate(zip(out, pic_secs)):
+    for i, (f, (s, _ev), qm) in enumerate(zip(out, pics, run["qp_maps"])):
         q = psnr(frames[f.disp][0], f.recon[0][:h, :w])
+        aq = sum(e["dur"] for e in _ev if e.get("ph") == "X"
+                 and e["name"] == "aq_map") / 1e3
         print(f"picture {i} {f.slice_type} (display {f.disp}, NAL "
-              f"{vcl_nal_type(f.bitstream)}, QP {f.qp}): {s:.3f} s, "
-              f"{f.bits} bits, PSNR-Y {q:.2f} dB")
+              f"{vcl_nal_type(f.bitstream)}, QP {f.qp}, CTU QP "
+              f"min/mean/max {qm.min()}/{qm.mean():.2f}/{qm.max()}): "
+              f"{s:.3f} s, {f.bits} bits, PSNR-Y {q:.2f} dB, aq_map "
+              f"{aq:.1f} ms")
         if not q > 28.0:
             raise AssertionError(f"picture {i}: recon PSNR {q:.2f} dB")
     for t in ("I", "P", "B"):
-        ss = [s for f, s in zip(out, pic_secs) if f.slice_type == t]
+        ss = [s for f, (s, _ev) in zip(out, pics) if f.slice_type == t]
         if ss:
             print(f"seconds per {t} picture: {statistics.mean(ss):.3f} "
                   f"(n={len(ss)}, range {min(ss):.3f}-{max(ss):.3f})")
     agg, phases = {}, {}
-    for e in spans:
+    for e in run["spans"]:
         if e.get("ph") != "X":
             continue
-        if e["name"].startswith("la_") or e["name"] == "slicetype_push":
+        if e["name"].startswith(("la_", "cutree_")) or \
+                e["name"] in ("slicetype_push", "aq_map"):
             c, d = agg.get(e["name"], (0, 0.0))
             agg[e["name"]] = (c + 1, d + e["dur"] / 1e6)
         elif "type" in e["args"]:
@@ -502,45 +535,155 @@ def phase_main(dev, w=1920, h=1080, n=6):
             print(f"{t} picture spans, mean seconds: " + ", ".join(
                 f"{name} {d / k:.3f}" for (tt, name), d in phases.items()
                 if tt == t))
-    print("lookahead spans: " + ", ".join(
+    print("lookahead and rate-control spans: " + ", ".join(
         f"{k} {c}x {d:.3f} s" for k, (c, d) in sorted(agg.items())))
+    total = run["total"]
     print(f"lookahead total {sum(d for _, d in agg.values()):.3f} s of "
           f"{total:.3f} s; fps {n / total:.3f}; bits per frame "
           f"{8 * sum(len(f.bitstream) for f in out) / n:.0f}; "
-          f"max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    print("kernel launches during the encode: "
-          + ", ".join(f"{k} {c} (lookahead {la_counts[k]}, analysis "
-                      f"{c - la_counts[k]})" for k, c in counts.items()))
-    for name, c in counts.items():
+          f"max_memory_allocated {run['peak'] / 2**20:.0f} MiB")
+    la, ct = run["split"]["lookahead"], run["split"]["cutree"]
+    print("kernel launches during the encode: " + ", ".join(
+        f"{k} {c} (lookahead {la[k]}, cuTree {ct[k]}, analysis "
+        f"{c - la[k] - ct[k]})" for k, c in run["counts"].items()))
+    for name, c in run["counts"].items():
         if c <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+            raise AssertionError(f"{name} never launched on the path: "
+                                 f"{what}")
+
+
+def phase_main(dev, w=1920, h=1080, n=6):
+    """The 1080p default encode on the card; returns launch counts."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    frames = park_frames(w, h, n)
+    run = drive(Encoder(default_params(w, h), dev), frames)
+    report_drive(run, frames, w, h,
+                 f"main path {w}x{h} at the repo defaults")
+    check_minigops(run["out"])
     lowres_sums_exact(frames, dev)
-    return counts
+    return run["counts"]
+
+
+def phase_rc(dev, w=1920, h=1080, n=6):
+    """The 1080p rate-control path on the card: the repo defaults under
+    CRF 28 with AQ 2 and the cuTree lookahead (rc_lookahead at its
+    default, so every cuTree pop of this clip runs in the flush);
+    returns launch counts."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    frames = park_frames(w, h, n)
+    enc = Encoder(default_params(w, h, rc_mode="crf", crf=28.0, aq_mode=2),
+                  dev)
+    if enc._cutree is None or not enc.pps.cu_qp_delta_enabled:
+        raise AssertionError("CRF + AQ 2 did not enable cuTree and "
+                             "cu_qp_delta")
+    run = drive(enc, frames)
+    report_drive(run, frames, w, h,
+                 f"rate-control path {w}x{h}, CRF 28, AQ 2, cuTree "
+                 f"(rc_lookahead {enc.p.rc_lookahead})")
+    check_minigops(run["out"])
+    if not any(qm.min() < qm.max() for qm in run["qp_maps"]):
+        raise AssertionError("the per-CTU QP map never varied")
+    return run["counts"]
+
+
+def cli_params(w: int, h: int, n: int, opts):
+    """Parameters built as the CLI builds them for an n-frame y4m at
+    25 fps (cli.py: defaults, the y4m's rate and length, --qp 32, CQP,
+    then each option through EncoderParams.parse)."""
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    p = default_params(w, h)
+    p.fps_num, p.fps_denom, p.total_frames = 25, 1, n
+    p.qp, p.rc_mode = 32, "cqp"
+    for k, v in opts:
+        p.parse(k, v)
+    return p
+
+
+# the rate-control agreement cases: (frames, CLI options); the first is
+# also run through the CLI on the card
+RC_AGREE = ((8, (("crf", "28"), ("aq-mode", "2"), ("rc-lookahead", "4"))),
+            (6, (("bitrate", "300"), ("aq-mode", "1"))))
+
+
+def _agree(frames, what, p_gpu, p_cpu):
+    from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
+    t0 = time.perf_counter()
+    s_gpu, e_gpu = encode_sequence(p_gpu, frames, "cuda")
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_cpu, e_cpu = encode_sequence(p_cpu, frames, "cpu")
+    t_cpu = time.perf_counter() - t0
+    what += " " + " ".join(f"{f.slice_type}{f.qp}" for f in e_gpu)
+    print(f"agree {what}: cuda {len(s_gpu)} B in {t_gpu:.2f} s, "
+          f"cpu {len(s_cpu)} B in {t_cpu:.2f} s")
+    if s_gpu != s_cpu:
+        for i, (a, b) in enumerate(zip(e_gpu, e_cpu)):
+            if a.bitstream != b.bitstream:
+                k = next((j for j, (x, y) in enumerate(
+                    zip(a.bitstream, b.bitstream)) if x != y),
+                    min(len(a.bitstream), len(b.bitstream)))
+                print(f"first difference: picture {i} "
+                      f"({a.slice_type}, display {a.disp}) byte {k}")
+                break
+        raise AssertionError(f"cuda and cpu streams differ: {what}")
+    print(f"cuda and cpu streams are byte-identical: {what}")
+    return s_gpu, e_gpu
 
 
 def phase_agree(w=416, h=240):
-    """The same clip on cuda and on cpu must give identical bytes."""
+    """The same clip on cuda and on cpu must give identical bytes: CQP
+    (I P P, and the repo defaults), CRF with AQ 2 and cuTree, ABR with
+    AQ 1.  The CRF case is then run through the CLI in a subprocess on
+    the card, whose .hevc must equal the in-process cuda bytes."""
+    from x265_mod_by_patman_tpu_torch.params import default_params
     for n, kw in ((3, dict(bframes=0)), (6, {})):
         frames = park_frames(w, h, n)
-        s_gpu, e_gpu, t_gpu = encode(frames, w, h, "cuda", **kw)
-        s_cpu, e_cpu, t_cpu = encode(frames, w, h, "cpu", **kw)
-        what = f"{w}x{h} x{n} " + (" ".join(f.slice_type for f in e_gpu))
-        print(f"agree {what}: cuda {len(s_gpu)} B in {t_gpu:.2f} s, "
-              f"cpu {len(s_cpu)} B in {t_cpu:.2f} s")
-        if s_gpu != s_cpu:
-            for i, (a, b) in enumerate(zip(e_gpu, e_cpu)):
-                if a.bitstream != b.bitstream:
-                    k = next((j for j, (x, y) in enumerate(
-                        zip(a.bitstream, b.bitstream)) if x != y),
-                        min(len(a.bitstream), len(b.bitstream)))
-                    print(f"first difference: picture {i} "
-                          f"({a.slice_type}) byte {k}")
-                    break
-            raise AssertionError(f"cuda and cpu streams differ: {what}")
-        if not kw and "B" not in what:
+        _s, e = _agree(frames, f"{w}x{h} x{n} CQP", default_params(w, h, **kw),
+                       default_params(w, h, **kw))
+        if not kw and "B" not in [f.slice_type for f in e]:
             raise AssertionError("the default encode made no B picture")
-        print(f"cuda and cpu streams are byte-identical: {what}")
+    streams = []
+    for n, opts in RC_AGREE:
+        frames = park_frames(w, h, n)
+        s, e = _agree(frames, f"{w}x{h} x{n} " + " ".join(
+            f"--{k} {v}" for k, v in opts), cli_params(w, h, n, opts),
+            cli_params(w, h, n, opts))
+        if not any(f.slice_type == "B" for f in e):
+            raise AssertionError("no B picture under rate control")
+        streams.append((frames, s))
+    from x265_mod_by_patman_tpu_torch.io.y4m import VideoInfo, Y4MWriter
+    (n, opts), (frames, s_gpu) = RC_AGREE[0], streams[0]
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    src = os.path.join(build, f"smoke_{w}x{h}.y4m")
+    dst = os.path.join(build, f"smoke_{w}x{h}_cli.hevc")
+    wr = Y4MWriter(src, VideoInfo(w, h, 25, 1, total_frames=n))
+    for f in frames:
+        wr.write(*f)
+    wr.close()
+    cmd = [sys.executable, "-m", f"{PKG}.cli", "--input", src, "-o", dst,
+           "--frames", str(n), "--no-progress"]
+    for k, v in opts:
+        cmd += [f"--{k}", v]
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    print(f"CLI on the card ({' '.join(cmd[1:])}): exit {res.returncode} "
+          f"in {time.perf_counter() - t0:.2f} s; "
+          f"{res.stderr.strip().splitlines()[-1] if res.stderr else ''}")
+    if res.returncode != 0:
+        raise AssertionError("the CLI failed: " + res.stderr[-2000:])
+    with open(dst, "rb") as f:
+        got = f.read()
+    if got != s_gpu:
+        raise AssertionError(f"the CLI's .hevc ({len(got)} B) differs from "
+                             f"the in-process cuda bytes ({len(s_gpu)} B)")
+    print(f"the CLI's .hevc equals the in-process cuda bytes "
+          f"({len(got)} B)")
 
 
 def main() -> int:
@@ -575,18 +718,24 @@ def main() -> int:
            "window_gather": phase_k2(dev, rng, cap)}
     print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    counts = phase_main(dev)
+    counts_cqp = phase_main(dev)
     print(f"phase 3 main path: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_agree()
     print(f"phase 4 agreement: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts = phase_rc(dev)
+    print(f"phase 5 rate-control path: {time.perf_counter() - t0:.2f} s")
     src = {"full_search": ("full_search.cu", "x265_mod_by_patman_tpu/ops/"
                            "pallas/sad.py:67"),
            "window_gather": ("window_gather.cu", "x265_mod_by_patman_tpu/"
                              "ops/pallas/gather.py:82")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{cu}",
-         "replaces": rep, "launches": counts[name], **res[name]}
+         "replaces": rep, "launches": counts[name],
+         "launches_by_path": {"cqp_defaults": counts_cqp[name],
+                              "crf_aq_cutree": counts[name]},
+         **res[name]}
         for name, (cu, rep) in src.items()]}
     print(json.dumps(line))
     print(cap)

@@ -64,11 +64,14 @@ def _defs(rel):
 
 
 @pytest.mark.parametrize("rel,names", [
-    ("analysis/lookahead.py", ("lowres_plane", "_raster_avail")),
+    ("analysis/lookahead.py", ("lowres_plane", "_raster_avail",
+                               "_scatter", "_propagate", "pop")),
     ("analysis/slicetype.py", ("has", "fade_state", "drop_before",
                                "intra_cost", "frame_cost", "gop_cost",
                                "decide_gop", "scenecut")),
     ("analysis/inter_mode.py", ("_b_tmvp_field",)),
+    ("encoder/top.py", ("_aq_map", "_zone_qp", "_cutree_pop",
+                        "write_stats")),
 ])
 def test_host_functions_are_verbatim(rel, names):
     """The host-side decision logic is a copy of the reference's."""

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a card (skipped without one): each kernel
 against its plain PyTorch twin on the same device tensors, the launch
-counters, the lookahead lattice and B analysis on the card against the
-CPU, and card encodes that must give the CPU's bytes.  The GPU
+counters, the lookahead lattice, B analysis and cuTree's lowres inter
+costs on the card against the CPU, and card encodes (CQP, and CRF with
+AQ and cuTree) that must give the CPU's bytes.  The GPU
 machine has no JAX, which tests/conftest.py imports, so run them there
 with `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
 
@@ -137,5 +138,46 @@ def test_card_default_encode_equals_cpu(dev):
                np.full((32, 48), 140 - i, np.uint8)) for i in range(6)]
     s_gpu, e_gpu = encode_sequence(default_params(96, 64), frames, dev)
     s_cpu, _ = encode_sequence(default_params(96, 64), frames, "cpu")
+    assert "B" in [f.slice_type for f in e_gpu]
+    assert s_gpu == s_cpu
+
+
+def test_card_inter_costs_equal_cpu(dev):
+    """cuTree's lowres inter costs (K1 at n = 8, K2 windows of 8) on the
+    card give the CPU's costs and motion vectors."""
+    from x265_mod_by_patman_tpu_torch.analysis.lookahead import (
+        LowresStore, _inter_costs)
+    rng = np.random.default_rng(3)
+    world = rng.integers(0, 256, (80, 128)).astype(np.int32)
+    world = (world + np.roll(world, 1, 0) + np.roll(world, 1, 1)) // 3
+    ys = [world[i:i + 64, 3 * i:3 * i + 96].astype(np.uint8)
+          for i in range(2)]
+    got = []
+    for d in (dev, torch.device("cpu")):
+        st = LowresStore(96, 64, d)
+        for i, y in enumerate(ys):
+            st.ensure(i, y)
+        kernels.reset_counts()
+        out = _inter_costs(st.low(1), st.low(0), st.nby, st.nbx)
+        if d.type == "cuda":
+            assert min(kernels.counts().values()) > 0
+        got.append([a.cpu().numpy() for a in out])
+    for a, b in zip(*got):
+        assert np.array_equal(a, b)
+
+
+def test_card_crf_aq_cutree_encode_equals_cpu(dev):
+    """CRF 28 with AQ 2 and cuTree at the repo defaults."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    rng = np.random.default_rng(4)
+    world = rng.integers(0, 256, (80, 128)).astype(np.int32)
+    world = (world + np.roll(world, 1, 0) + np.roll(world, 1, 1)) // 3
+    frames = [(world[i:i + 64, 3 * i:3 * i + 96].astype(np.uint8),
+               np.full((32, 48), 100 + i, np.uint8),
+               np.full((32, 48), 140 - i, np.uint8)) for i in range(6)]
+    p = lambda: default_params(96, 64, rc_mode="crf", crf=28.0, aq_mode=2)
+    s_gpu, e_gpu = encode_sequence(p(), frames, dev)
+    s_cpu, _ = encode_sequence(p(), frames, "cpu")
     assert "B" in [f.slice_type for f in e_gpu]
     assert s_gpu == s_cpu

@@ -49,8 +49,9 @@ def test_port_stream_equals_jax_and_decodes(case):
     (dict(bframes=0, search_method="sea"), "--me sea"),
     (dict(bframes=0, hme=True), "--hme"), (dict(bframes=0, mcstf=True),
                                            "--mcstf"),
-    (dict(bframes=0, aq_mode=1), "--aq-mode"),
-    (dict(bframes=0, rc_mode="crf"), "CRF"),
+    (dict(bframes=0, vbv_bufsize=800, vbv_maxrate=400), "VBV"),
+    (dict(bframes=0, rc_mode="crf", frame_parallel_window=2),
+     "--frame-threads"),
     (dict(bframes=0, analysis_save="x.dat"), "analysis save/load"),
     (dict(bframes=0, mesh_tile_rows=2), "mesh_tile_rows"),
     (dict(bframes=0, internal_csp=3), "4:4:4"),

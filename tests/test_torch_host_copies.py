@@ -1,6 +1,7 @@
 """The port's own copies of the reference's jax-free host modules
-(params, bitstream, entropy, rc, constants, frame.zscan, utils.trace, the
-native C entropy engine, the host half of analysis.weightp) must stay
+(params, bitstream, entropy, rc, constants, frame.zscan, utils.trace,
+the CLI's io and metrics modules, the native C entropy engine, the host
+half of analysis.weightp) must stay
 verbatim: each copy's source equals the reference's once the package name
 is substituted.  The native loader is the one module that differs (it
 builds under build/ with a per-process temporary name); its bindings
@@ -31,7 +32,9 @@ VERBATIM = (
     "entropy/binir.py", "entropy/cabac.py", "entropy/contexts.py",
     "entropy/cu_syntax.py", "entropy/est_bits.py", "entropy/mv_pred.py",
     "entropy/residual.py", "rc/ratecontrol.py", "frame/zscan.py",
-    "utils/trace.py", "native/entropy_kernels.c")
+    "utils/trace.py", "native/entropy_kernels.c", "io/__init__.py",
+    "io/y4m.py", "io/script_input.py", "io/gop_output.py",
+    "io/reconplay.py", "utils/metrics.py", "utils/vmaf.py")
 
 
 def _read(pkg: str, rel: str) -> str:

@@ -11,19 +11,23 @@ C CABAC engine, ``rc``).
 
 Scope: the default encode — I, P and B pictures with the b-adapt
 lookahead, the B pyramid, open-GOP CRA keyframes with RASL leaders and
-scenecut by the lookahead's cost ratio — under CQP, 4:2:0 8-bit.
-Options of the reference outside that scope raise NotImplementedError
-naming the option.  Host-only helpers (slice syntax assembly, headers,
-QP chain, stats, TMVP motion store, adaptive rate tables) are copied
-from the reference, since its module imports jax, without the rect,
-NxN, weighted-B and 4:2:2 branches that the scope above excludes.
-B pictures of a mini-GOP are encoded one after another: the
-reference's frame-parallel B (--frame-threads > 1) gives the same
-bytes under CQP.
+scenecut by the lookahead's cost ratio — in 4:2:0 8-bit, under CQP, CRF
+or ABR with one or two passes, adaptive quantisation (modes 1-4), the
+cuTree lookahead (or, in pass 2, its pass-1 offsets played back), zones
+and a qpfile.  Options of the reference outside that scope raise
+NotImplementedError naming the option.  Host-only helpers (slice syntax
+assembly, headers, QP chain, AQ map, zones, stats, TMVP motion store,
+adaptive rate tables) are copied from the reference, since its module
+imports jax, without the rect, NxN, weighted-B and 4:2:2 branches that
+the scope above excludes.  B pictures of a mini-GOP are encoded one
+after another: the reference's frame-parallel B (--frame-threads > 1)
+gives the same bytes under CQP only, so it is rejected under CRF/ABR.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -47,6 +51,7 @@ from ..entropy.cu_syntax import CodedCU, SliceSyntaxEncoder
 from ..rc.ratecontrol import RateControl, frame_complexity
 from ..utils import trace
 from ..analysis.intra_mode import decide_modes_tree, decide_modes_rd
+from ..analysis.lookahead import CuTreeLookahead
 from ..analysis.inter_mode import (analyse_b_frame, analyse_p_frame,
                                    lambda_qp)
 from ..frame.planes import (as_devplane, attach_dev, dev_i32, pack_levels,
@@ -111,11 +116,14 @@ def _unsupported(p: EncoderParams) -> List[str]:
         (p.mcstf, "--mcstf"),
         (p.analysis_save or p.analysis_load, "analysis save/load"),
         (p.mesh_tile_rows > 1, "mesh_tile_rows > 1"),
-        (p.aq_mode > 0, "--aq-mode (AQ)"),
-        (p.rc_mode != "cqp", f"--rc {p.rc_mode} (CRF/ABR)"),
-        (p.vbv_bufsize > 0 or p.vbv_maxrate > 0, "VBV"),
-        (p.pass_num != 0, "2-pass rate control"),
+        (p.vbv_bufsize > 0 or p.vbv_maxrate > 0,
+         "VBV (--vbv-bufsize/--vbv-maxrate)"),
         (p.hrd, "--hrd"),
+        # the reference's frame-parallel B defers rate-control feedback
+        # across the window, which the port's sequential B encode does
+        # not reproduce (same bytes under CQP only)
+        (p.frame_parallel_window > 1 and p.rc_mode != "cqp",
+         "--frame-threads > 1 with CRF/ABR"),
         (p.internal_csp != 1, "4:2:2 / 4:4:4 chroma"),
         (p.internal_bit_depth != 8, "bit depths above 8"),
         (p.nxn_intra, "--nxn-intra"), (p.lossless, "--lossless"),
@@ -124,7 +132,6 @@ def _unsupported(p: EncoderParams) -> List[str]:
         (p.rdoq_level > 0 and p.sign_hide, "--sign-hide with RDOQ"),
         (getattr(p, "cutree_share_write", "") or
          getattr(p, "cutree_share_read", ""), "cuTree share"),
-        (p.zones or p.qpfile, "--zones/--qpfile"),
         (p.dhdr10_info, "--dhdr10-info"),
         (getattr(p, "dolby_vision_rpu", ""), "--dolby-vision-rpu"),
     )
@@ -151,7 +158,36 @@ class Encoder:
         self.pps = build_pps_info(self.p)
         self.pps.entropy_coding_sync = bool(self.p.wpp)
         self.pps.sign_hide = bool(self.p.sign_hide)
-        self.pps.cu_qp_delta_enabled = False
+        # cuTree runs under CRF/ABR only; AQ and cuTree (or its pass-2
+        # playback) code per-CTU QP deltas
+        self._cutree = None
+        self._lowres = None           # lowres store, built on first use
+        self._la_buf: deque = deque()
+        self._ctshare_w = None        # the cuTree share is not ported
+        self._ana_store = None        # analysis save is not ported
+        self._ct2pass = None          # pass-2 cuTree offsets playback
+        self._ct1_offs = None         # pass-1 offsets to persist
+        if (self.p.pass_num == 2 and self.p.cu_tree
+                and os.path.exists(self.p.stats_file + ".cutree")):
+            # 2-pass cuTree reuse (reference cuTreeReadFor2Pass,
+            # ratecontrol.cpp:1972): pass 2 plays back the pass-1
+            # offsets instead of re-running the lookahead
+            self._ct2pass = list(np.load(
+                self.p.stats_file + ".cutree")["offs"])
+        elif (self.p.cu_tree and self.p.rc_mode != "cqp"
+                and self.p.keyframe_max > 1 and self.p.rc_lookahead > 0):
+            self._cutree = CuTreeLookahead(
+                self.p.pic_width_in_ctus * self.p.ctu_size,
+                self.p.pic_height_in_ctus * self.p.ctu_size,
+                self.p.ctu_size, self.p.qcomp,
+                bframes=self.p.bframes if self.p.keyframe_max > 1
+                else 0, hme=self.p.hme,
+                store=self._lowres_store())
+        if self.p.pass_num == 1 and self._cutree is not None:
+            self._ct1_offs = []
+        self.pps.cu_qp_delta_enabled = (self.p.aq_mode > 0
+                                        or self._cutree is not None
+                                        or self._ct2pass is not None)
         self.pps.deblocking_disabled = not self.p.deblock
         self.sps.sao_enabled = bool(self.p.sao)
         self.sps.temporal_mvp = bool(self.p.temporal_mvp) and \
@@ -178,7 +214,7 @@ class Encoder:
                                         psy_rdoq=self.p.psy_rdoq,
                                         tu4=self.p.nxn_intra and
                                         self.p.tu_intra_depth >= 2)
-        self.frame_count = 0
+        self.frame_count = 0          # display index, global
         self._disp_since_idr = 0
         self._queue: List[tuple] = []
         self._anchors: List[tuple] = []
@@ -195,23 +231,28 @@ class Encoder:
         self._rounds_b = (1, 1) if self.p.rd_level <= 2 else (2, 2)
         self.bframes = max(0, self.p.bframes) if self.p.keyframe_max > 1 \
             else 0
-        # the slicetype lattice supplies frame complexities whenever
-        # b-adapt wants the DP (the reference's other triggers, CRF/ABR
-        # and VBV, are not ported)
-        self._la_rc = (self.p.keyframe_max > 1 and self.bframes > 0
-                       and self.p.b_adapt > 0)
+        # lookahead-fed rate control (reference rateEstimateQscale
+        # consumes lowres satd costs, ratecontrol.cpp:2101): the
+        # slicetype lattice supplies frame complexities whenever RC
+        # needs them (CRF/ABR/2-pass) or b-adapt wants the DP
+        self._la_rc = self.p.keyframe_max > 1 and (
+            (self.bframes > 0 and self.p.b_adapt > 0)
+            or self.p.rc_mode in ("crf", "abr"))
         self.rc = RateControl(self.p.rc_mode, self.p.qp, self.p.crf,
                               self.p.bitrate_kbps,
                               self.p.fps_num / max(1, self.p.fps_denom),
                               self.sps.width, self.sps.height,
                               self.p.qp_min, self.p.qp_max,
-                              cu_tree=False, lookahead_units=self._la_rc,
+                              cu_tree=self._cutree is not None,
+                              lookahead_units=self._la_rc,
                               bframes=self.bframes)
+        if self.p.pass_num == 2:
+            from ..rc.ratecontrol import read_stats_file
+            self.rc.load_pass1(read_stats_file(self.p.stats_file))
         self._prev_src_y = None
         self._cplx_avg = 0.0
         self._idr_base = 0
         self._slicetype = None            # lazy (needs padded geometry)
-        self._lowres = None
         self._enc_order = 0
         self._last_anchor_disp = -1
         self._keyint_min = params.keyframe_min if params.keyframe_min > 0 \
@@ -220,6 +261,28 @@ class Encoder:
         self._prev_hist = None
         self._adapt_states = {}
         self._est_pending = {}
+        # zones: list of (start, end, qp_override, bitrate_factor)
+        self._zones = []
+        for z in filter(None, self.p.zones.split("/")):
+            parts = z.split(",")
+            s0, e0 = int(parts[0]), int(parts[1])
+            qov, bf = None, None
+            for kv in parts[2:]:
+                k, _, vv = kv.partition("=")
+                if k == "q":
+                    qov = int(vv)
+                elif k == "b":
+                    bf = float(vv)
+            self._zones.append((s0, e0, qov, bf))
+        # qpfile: display idx -> (ftype, qp)
+        self._qpfile: Dict[int, tuple] = {}
+        if self.p.qpfile:
+            with open(self.p.qpfile) as f:
+                for line in f:
+                    t = line.split()
+                    if len(t) >= 3:
+                        self._qpfile[int(t[0])] = (t[1].upper(),
+                                                   int(t[2]))
 
     @staticmethod
     def _luma_hist(y: np.ndarray) -> np.ndarray:
@@ -228,6 +291,69 @@ class Encoder:
         h = np.bincount((np.asarray(y).ravel() >> 2).astype(np.int64),
                         minlength=64)[:64]
         return h / max(h.sum(), 1)
+
+    def _zone_qp(self, disp: int, qp: int) -> int:
+        """Zone / qpfile frame-QP overrides (reference zones,
+        encoder.cpp:3806 + CLI --qpfile)."""
+        if disp in self._qpfile and self._qpfile[disp][1] >= 0:
+            return self._qpfile[disp][1]
+        for (s0, e0, qov, bf) in self._zones:
+            if s0 <= disp <= e0:
+                if qov is not None:
+                    return qov
+                if bf:
+                    import math
+                    return int(np.clip(round(qp - 6.0 * math.log2(bf)),
+                                       self.p.qp_min, self.p.qp_max))
+        return qp
+
+    def _aq_map(self, y: np.ndarray, qp: int):
+        """Per-CTU QP offsets (reference aq modes 1-4,
+        slicetype.cpp calcAdaptiveQuantFrame:490 / edgeDensityCu:278):
+        1 variance, 2 auto-variance (z-score normalized), 3 +dark-scene
+        bias, 4 edge-density blended.  Returns an (nCtuY, nCtuX) int
+        map, or the scalar qp when AQ is off."""
+        mode = self.p.aq_mode
+        if mode <= 0:
+            return qp
+        ctu = 1 << self.sps.log2_ctu_size
+        h, w = y.shape
+        ncy = -(-h // ctu)
+        ncx = -(-w // ctu)
+        yv = np.asarray(y, np.int64)
+        gx = np.abs(np.diff(yv, axis=1, prepend=yv[:, :1]))
+        gy = np.abs(np.diff(yv, axis=0, prepend=yv[:1]))
+        g = gx + gy
+
+        def tiles(a):
+            """(ncy, ncx, ctu*ctu) edge-padded CTU tiles (ragged edge
+            tiles keep their true pixel population via NaN masking)."""
+            pad = np.full((ncy * ctu, ncx * ctu), np.nan)
+            pad[:h, :w] = a
+            return pad.reshape(ncy, ctu, ncx, ctu) \
+                      .transpose(0, 2, 1, 3).reshape(ncy, ncx, -1)
+        ty = tiles(yv)
+        mean = np.nanmean(ty, axis=-1)
+        var = np.nanvar(ty, axis=-1)
+        edge = np.nanmean(tiles(g), axis=-1)
+        lv = np.log2(var + 1.0)
+        if mode == 1:
+            off = self.p.aq_strength * (lv - lv.mean())
+        else:
+            sd = max(lv.std(), 1e-3)
+            off = self.p.aq_strength * 1.5 * (lv - lv.mean()) / sd
+            if mode == 3:
+                # darker blocks get lower QP (reference dark bias)
+                off = off - np.where(mean < 60, 1.5,
+                                     np.where(mean < 100, 0.5, 0.0))
+            if mode == 4:
+                le = np.log2(edge + 1.0)
+                se = max(le.std(), 1e-3)
+                off = 0.5 * off + self.p.aq_strength * 0.75 * \
+                    (le - le.mean()) / se
+        off = np.rint(off)
+        return np.clip(qp + np.clip(off, -6, 6), self.p.qp_min,
+                       min(51, self.p.qp_max)).astype(np.int32)
 
     def _derived_qp_map(self, qp_map, r: dict,
                         slice_qp: int = 0) -> np.ndarray:
@@ -304,10 +430,37 @@ class Encoder:
     # -- streaming API -------------------------------------------------------
     def encode_frame(self, y: np.ndarray, u: np.ndarray,
                      v: np.ndarray) -> List[EncodedFrame]:
-        """Display-order input; returns decode-order encoded frames."""
-        return self._ingest(y, u, v)
+        """Display-order input; returns decode-order encoded frames.
+        With cuTree active, sources pass an rc_lookahead-deep window
+        first (reference Lookahead thread analog)."""
+        return self._post_filter_frame(y, u, v)
 
-    def _ingest(self, y, u, v) -> List[EncodedFrame]:
+    def _post_filter_frame(self, y, u, v) -> List[EncodedFrame]:
+        if self._ct2pass is not None:
+            i = min(self.frame_count, len(self._ct2pass) - 1)
+            return self._ingest(y, u, v, self._ct2pass[i])
+        if self._cutree is None:
+            return self._ingest(y, u, v)
+        self._la_buf.append((y, u, v))
+        with trace.scope("cutree_push"):
+            self._cutree.push(self._pad(y, 0))
+        out: List[EncodedFrame] = []
+        while len(self._la_buf) > self.p.rc_lookahead:
+            fy, fu, fv = self._la_buf.popleft()
+            out.extend(self._ingest(fy, fu, fv, self._cutree_pop()))
+        return out
+
+    def _cutree_pop(self):
+        with trace.scope("cutree_pop"):
+            off = self._cutree.pop()
+        if self._ctshare_w is not None:
+            # keyed by the display index the popped frame will take
+            self._ctshare_w.publish(self.frame_count, off)
+        if self._ct1_offs is not None:
+            self._ct1_offs.append(np.asarray(off, np.int8))
+        return off
+
+    def _ingest(self, y, u, v, qp_off=None) -> List[EncodedFrame]:
         p = self.p
         planes = (as_devplane(self._pad(y, 0)),
                   as_devplane(self._pad(u, self.cshift)),
@@ -337,6 +490,16 @@ class Encoder:
         self._prev_src_y = planes[0]
         out: List[EncodedFrame] = []
         force_idr = (self.frame_count % max(1, p.keyframe_max) == 0)
+        self._closed_kf_next = False
+        if getattr(self, "_force_idr_next", False):
+            # x265_encoder_intra_refresh analog (api.cpp:365): the next
+            # ingested frame opens a fresh IDR (always closed)
+            force_idr = True
+            self._force_idr_next = False
+            self._closed_kf_next = True
+        if self._qpfile.get(self.frame_count, ("", 0))[0] == "I":
+            force_idr = True
+            self._closed_kf_next = True
         if not force_idr and p.hist_scenecut and \
                 self._prev_hist is not None:
             hist = self._luma_hist(planes[0])
@@ -369,7 +532,8 @@ class Encoder:
                 if self._cplx_avg else cplx
         if force_idr:
             open_kf = (p.open_gop and self.frame_count > 0
-                       and p.keyframe_max > 1)
+                       and p.keyframe_max > 1
+                       and not self._closed_kf_next)
             if open_kf:
                 # open GOP (x265 --open-gop, dpb.cpp getNalUnitType):
                 # the keyframe is a CRA continuing the POC sequence and
@@ -383,18 +547,19 @@ class Encoder:
                 if st is not None:
                     cplx = st.intra_cost(self.frame_count)
                 cra = self._encode_picture(planes, kf_poc, "I", cplx,
+                                           qp_off=qp_off,
                                            nal_class="cra")
                 out.append(cra)
                 cra_ref = (cra.recon, kf_poc)
                 leaders, self._queue = self._queue, []
-                for (pl, pc, cx2) in leaders:
+                for (pl, pc, cx2, qo) in leaders:
                     if st is not None and prev_disp >= 0:
                         cx2 = st.frame_cost(self._idr_base + pc,
                                             prev_disp, self.frame_count)
                     out.append(self._encode_picture(
                         pl, pc, "B", cx2,
                         b_refs=([prev_anchor], [cra_ref], (), False),
-                        nal_class="rasl"))
+                        qp_off=qo, nal_class="rasl"))
                 if st is not None:
                     st.drop_before(self.frame_count)
                 self.frame_count += 1
@@ -409,7 +574,8 @@ class Encoder:
             self._last_anchor_disp = self.frame_count
             if st is not None:
                 cplx = st.intra_cost(self.frame_count)
-            out.append(self._encode_picture(planes, 0, "I", cplx))
+            out.append(self._encode_picture(planes, 0, "I", cplx,
+                                            qp_off=qp_off))
             self._adapt_states.update(self._est_pending)
             self._est_pending = {}
             if st is not None:
@@ -418,8 +584,9 @@ class Encoder:
             # queue poc is relative to the last IDR (CVS base) — under
             # open GOP that differs from the distance-to-keyframe
             # counter (_disp_since_idr resets at CRAs too)
-            self._queue.append((planes, self.frame_count - self._idr_base,
-                                cplx))
+            self._queue.append((planes,
+                                self.frame_count - self._idr_base, cplx,
+                                qp_off))
             # b-adapt: spike fallback only without the lookahead (the
             # DP's P placement subsumes it)
             spike = (st is None and p.b_adapt > 0 and
@@ -449,8 +616,8 @@ class Encoder:
             return None
 
     def _lowres_store(self):
-        """The lowres store of the slicetype lookahead (the reference
-        shares it with cuTree, which CQP does not run)."""
+        """The one lowres store shared by the slicetype lookahead and
+        cuTree: a plane lives until both have released it."""
         if self._lowres is None:
             from ..analysis.lookahead import LowresStore
             # coded (min-CU-aligned) size == the _pad()ded plane shape
@@ -460,9 +627,28 @@ class Encoder:
 
     def flush(self) -> List[EncodedFrame]:
         out: List[EncodedFrame] = []
+        if self._cutree is not None:
+            while self._la_buf:
+                fy, fu, fv = self._la_buf.popleft()
+                out.extend(self._ingest(fy, fu, fv, self._cutree_pop()))
         while self._queue:
             out.extend(self._emit_minigop(self._next_gop_len()))
         return out
+
+    def write_stats(self) -> None:
+        """Pass-1 stats / analysis emission (call after final flush)."""
+        if self.p.pass_num == 1:
+            from ..rc.ratecontrol import write_stats_file
+            write_stats_file(self.p.stats_file, self.rc.history)
+            if self._ct1_offs:
+                np.savez(self.p.stats_file + ".cutree",
+                         offs=np.stack(self._ct1_offs))
+                import os as _os
+                _os.replace(self.p.stats_file + ".cutree.npz",
+                            self.p.stats_file + ".cutree")
+        if self._ana_store is not None:
+            self._ana_store.close()
+            self._ana_store = None
 
     def _emit_minigop(self, k: Optional[int] = None) -> List[EncodedFrame]:
         if k is None or k >= len(self._queue):
@@ -483,7 +669,7 @@ class Encoder:
             mid_disp = self._idr_base + frames[mid][1]
             ref = []
             with trace.scope("la_rc_refine"):
-                for i, (pl, pc, cx) in enumerate(frames):
+                for i, (pl, pc, cx, qo) in enumerate(frames):
                     d = self._idr_base + pc
                     if i == len(frames) - 1:
                         cx = st.frame_cost(d, prev_disp, d)
@@ -493,13 +679,13 @@ class Encoder:
                         cx = st.frame_cost(d, prev_disp, mid_disp)
                     else:
                         cx = st.frame_cost(d, mid_disp, anchor_disp)
-                    ref.append((pl, pc, cx))
+                    ref.append((pl, pc, cx, qo))
             frames = ref
         self._last_anchor_disp = anchor_disp
         if st is not None:
             st.drop_before(self._last_anchor_disp)
         out = [self._encode_picture(frames[-1][0], frames[-1][1], "P",
-                                    frames[-1][2])]
+                                    frames[-1][2], qp_off=frames[-1][3])]
         anchor1 = (out[0].recon, out[0].poc)
         bs = frames[:-1]
         # full B reference lists (reference dpb.cpp:151): L0 = past
@@ -513,25 +699,25 @@ class Encoder:
             mid = len(bs) // 2
             bref_fr = self._encode_picture(
                 bs[mid][0], bs[mid][1], "B", bs[mid][2],
-                b_refs=(past, [anchor1], (), True))
+                b_refs=(past, [anchor1], (), True), qp_off=bs[mid][3])
             out.append(bref_fr)
             bref = (bref_fr.recon, bref_fr.poc)
             jobs = []
-            for k, (planes, poc, cplx) in enumerate(bs):
+            for k, (planes, poc, cplx, qoff) in enumerate(bs):
                 if k == mid:
                     continue
                 if k < mid:
                     # L1 = both future refs (bref closest); the far
                     # anchor rides the list, so it needs no keep entry
-                    jobs.append((planes, poc, cplx,
+                    jobs.append((planes, poc, cplx, qoff,
                                  (past, [bref, anchor1], (), False)))
                 else:
-                    jobs.append((planes, poc, cplx,
+                    jobs.append((planes, poc, cplx, qoff,
                                  (([bref] + past)[:self.max_refs],
                                   [anchor1], (), False)))
         else:
-            jobs = [(planes, poc, cplx, (past, [anchor1], (), False))
-                    for (planes, poc, cplx) in bs]
+            jobs = [(planes, poc, cplx, qoff, (past, [anchor1], (), False))
+                    for (planes, poc, cplx, qoff) in bs]
         out.extend(self._encode_b_jobs(jobs))
         # decode order emitted; DPB advances to the new P anchor
         self._anchors.insert(0, anchor1)
@@ -544,16 +730,18 @@ class Encoder:
         """Encode a mini-GOP's mutually independent B pictures, one after
         another.  The reference's frame-parallel mode (--frame-threads >
         1) gives byte-identical output under CQP, so it has no separate
-        path here."""
-        return [self._encode_picture(pl, pc, "B", cx, b_refs=br)
-                for (pl, pc, cx, br) in jobs]
+        path here (the encoder rejects it under CRF/ABR)."""
+        return [self._encode_picture(pl, pc, "B", cx, b_refs=br,
+                                     qp_off=qo)
+                for (pl, pc, cx, qo, br) in jobs]
 
     # -- one picture ---------------------------------------------------------
     def _encode_picture(self, planes, poc: int, ftype: str,
                         complexity: float = 0.0, b_refs=None,
-                        nal_class=None) -> EncodedFrame:
+                        qp_off=None, nal_class=None) -> EncodedFrame:
         """b_refs: for B pictures, (L0 [(planes, poc)..], L1 [(planes,
         poc)..], extra POCs to retain in the RPS, is_referenced).
+        qp_off: per-CTU cuTree QP offsets (<= 0) or None.
         nal_class: None (default typing), "cra" (open-GOP keyframe) or
         "rasl" (leading pictures of a CRA)."""
         p = self.p
@@ -561,8 +749,27 @@ class Encoder:
         rc_type = ftype
         if ftype == "B" and b_refs is not None and not b_refs[3]:
             rc_type = "b"                 # non-referenced B
+        # the VBV lookahead (frame_qp's third argument) is not ported
         qp = self.rc.frame_qp(rc_type, complexity, None)
-        qp_map = qp
+        qp = self._zone_qp(self._idr_base + poc, qp)
+        with trace.scope("aq_map"):
+            qp_map = self._aq_map(y, qp)      # scalar when AQ off
+        if qp_off is not None and np.any(qp_off != 0):
+            if self.p.rc_mode == "crf":
+                # CRF budgets the cuTree pull-down at the mbtree
+                # offset the rate factor was raised by (ratecontrol.cpp
+                # :223): distribute around the mean, with the mean
+                # itself capped at (1-qcomp)*13.5 — otherwise content
+                # whose lookahead saturates propagation (our -7 clip
+                # everywhere) blows straight through the calibration
+                mean_off = float(qp_off.mean())
+                budget = (1.0 - self.p.qcomp) * 13.5
+                shift = mean_off + min(-mean_off, budget)
+                qp_off = np.rint(qp_off - shift).astype(np.int32)
+            base = qp_map if not np.isscalar(qp_map) else \
+                np.full(qp_off.shape, qp_map, np.int32)
+            qp_map = np.clip(base + qp_off, self.p.qp_min,
+                             min(51, self.p.qp_max)).astype(np.int32)
         recon = self.recon
         dev = self.device
         dirs = mvs1 = None

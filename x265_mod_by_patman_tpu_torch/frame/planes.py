@@ -66,8 +66,12 @@ def dev_i32(x, device) -> torch.Tensor:
             else torch.device(device.type, torch.cuda.current_device())
         got = x._devs.get(key)
         if got is None:
-            got = torch.from_numpy(np.ascontiguousarray(
-                x.view(np.ndarray))).to(key).to(torch.int32)
+            host = np.ascontiguousarray(x.view(np.ndarray))
+            if not host.flags.writeable:
+                # read-only input (a y4m frame read by np.frombuffer):
+                # torch.from_numpy wants a writable buffer
+                host = host.copy()
+            got = torch.from_numpy(host).to(key).to(torch.int32)
             x._devs[key] = got
         return got
     return torch.from_numpy(np.ascontiguousarray(

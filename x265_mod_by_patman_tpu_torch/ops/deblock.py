@@ -453,7 +453,7 @@ def _qp_edge_maps(qp, h, w, log2_ctu=5):
         return qp, qp
     dev = qp.device
     ctu = 1 << log2_ctu
-    ar = lambda a, b=None: torch.arange(a, b, device=dev)
+    ar = lambda *a: torch.arange(*a, device=dev)
     gv = (ar(h // 4) * 4) // ctu
     ex = ar(1, w // 8) * 8
     cxp = torch.clip((ex - 1) // ctu, 0, qp.shape[1] - 1)
@@ -480,7 +480,7 @@ def _chroma_qp_edge_maps(qp, hc, wc, off_cb, off_cr, log2_ctu=5):
         return (qc(qp, off_cb), qc(qp, off_cr),
                 qc(qp, off_cb), qc(qp, off_cr))
     ctu = 1 << log2_ctu
-    ar = lambda a, b=None: torch.arange(a, b, device=dev)
+    ar = lambda *a: torch.arange(*a, device=dev)
     rows = (ar(hc) << 1) // ctu
     exc = ar(1, wc // 8) * 16
     cxp = torch.clip((exc - 1) // ctu, 0, qp.shape[1] - 1)

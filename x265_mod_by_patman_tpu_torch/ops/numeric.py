@@ -17,8 +17,12 @@ import torch
 
 
 def ieinsum(eq: str, *ops) -> torch.Tensor:
-    """Exact int32 einsum (JAX's preferred_element_type=int32)."""
-    r = torch.einsum(eq, *[o.to(torch.float64) for o in ops])
+    """Exact int32 einsum (JAX's preferred_element_type=int32).  Any
+    contraction order is exact here, so opt_einsum's path search (a
+    host cost on every call, larger than the small products it orders)
+    is skipped: the operands contract left to right."""
+    with torch.backends.opt_einsum.flags(enabled=False):
+        r = torch.einsum(eq, *[o.to(torch.float64) for o in ops])
     return torch.round(r).to(torch.int64).to(torch.int32)
 
 
