@@ -24,7 +24,9 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    could take for the same work, from the published peak rates and the
    card's own SM clock and SM count), the share of the bound reached,
    the plain version's time and, for K2, one PyTorch advanced-indexing
-   call's time;
+   call's time.  K1 again at both shapes on park at 10 and 12 bits
+   (times 4 or 16, dithered) and K2 (size 23) on a 12-bit plane, exact,
+   with their device times beside the 8-bit ones;
 3. main path: a 6-frame 1920x1080 8-bit 4:2:0 clip (the `park`
    generator of tools/make_clips.py) through the port's Encoder on the
    card at the repo defaults (CQP 32, 4 B-frames with b-adapt 2 and the
@@ -43,20 +45,38 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    JAX reference encoder and the in-repo decoder.  The CRF case is also
    written as y4m under build/ and encoded by the port's CLI
    (`python -m x265_mod_by_patman_tpu_torch.cli`) in a subprocess on
-   the card: its .hevc must equal the in-process cuda bytes;
-5. the rate-control path: the same 1080p clip as phase 3 under CRF 28
-   with AQ 2 and the cuTree lookahead (rc_lookahead at its default);
-   prints, besides what phase 3 prints, each picture's frame QP and the
-   min/mean/max of the per-CTU QP map it coded, the aq_map, cutree_push
-   and cutree_pop spans and the launches split into lookahead, cuTree
-   and analysis; checks the recon quality and that the per-CTU QP map
-   varies on at least one picture.
+   the card: its .hevc must equal the in-process cuda bytes.  Then, at
+   10 and 12 bits: Main10 at the repo defaults (6 frames) with HDR10
+   signalling, HDR10+ metadata and a Dolby Vision RPU file written
+   under build/; Main10 CRF 28 + AQ 2 + cuTree under a 150 kbit /
+   150 kb/s VBV with HRD (8 frames; a picture must re-encode, and the
+   CPB model holds on the parsed timing SEIs), also through the CLI on
+   a 10-bit y4m; 12-bit I P P.  Each case's CPU encode runs in a worker
+   process while its card encode runs here, and the CLI subprocesses
+   run beside the cases that follow them;
+5. the rate-control path: the same 1080p clip as phase 3, cut to 3
+   frames (I P B), under CRF 28 with AQ 2 and the cuTree lookahead
+   (rc_lookahead at its default); prints, besides what phase 3 prints,
+   each picture's frame QP and the min/mean/max of the per-CTU QP map
+   it coded, the aq_map, cutree_push and cutree_pop spans and the
+   launches split into lookahead, cuTree and analysis; checks the recon
+   quality and that the per-CTU QP map varies on at least one picture;
+6. the Main10 delivery path: phase 3's 6 frames at 10 bits (park times
+   4 plus a seeded dither in [-2, 2]) under CRF 28 + AQ 2 + cuTree, a
+   1000 kbit / 1000 kb/s VBV at 25 fps, HRD and HDR10 signalling
+   (colour description, mastering display, content light level);
+   prints per picture its seconds, bits, frame QP, per-CTU QP range,
+   pipeline runs (more than one where the row-level VBV re-encoded it),
+   VBV fullness and PSNR-Y at peak 1023, the launches split as above
+   and the peak device memory; fails on a VBV underflow, an AU that
+   misses its CPB removal time, a decode order other than phase 3's,
+   or a per-CTU QP map that never varies.
 
-Phases 3 and 5 each set the kernel counts to 0 just before their encode
-and read them just after.  Each phase prints its seconds.
+Phases 3, 5 and 6 each set the kernel counts to 0 just before their
+encode and read them just after.  Each phase prints its seconds.
 
-Prints the kernels' JSON line (launches from phase 5, and per path), the
-card line, and as its last line
+Prints the kernels' JSON line (launches from phase 6, this slice's
+path, and per path), the card line, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is
 then non-zero and no result line is printed.
 """
@@ -108,6 +128,21 @@ def park_frames(w: int, h: int, n: int):
     stores them)."""
     frames = _load_clips().make_park(w, h, n)
     return [tuple(p.astype(np.uint8) for p in f) for f in frames]
+
+
+def deep(plane, bd: int, rng):
+    """An 8-bit plane at bit depth bd: times 2^(bd-8), plus a seeded
+    integer dither in [-2^(bd-9), 2^(bd-9)] ([-2, 2] at 10 bits),
+    clipped to [0, 2^bd - 1].  It stands in for real deep content."""
+    d = 1 << (bd - 9)
+    v = plane.astype(np.int32) * (1 << (bd - 8)) + rng.integers(
+        -d, d + 1, plane.shape)
+    return np.clip(v, 0, (1 << bd) - 1).astype(np.uint16)
+
+
+def deep_frames(frames, bd: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [tuple(deep(p, bd, rng) for p in f) for f in frames]
 
 
 def call_ms(fn, iters: int = 20, warm: int = 3) -> float:
@@ -289,6 +324,25 @@ def phase_k1(dev, rng, card: str, clock_hz: float):
     for lam_t in (0, lam):
         _check_k1((flat, flat, x0, y0, pm(b), pm(b), lam_t, n, r),
                   "constant plane (ties)", res)
+    # the same two shapes on 10- and 12-bit samples (park times 4 or 16,
+    # dithered): the kernel's fp32 sums stay exact while n^2 * max < 2^24
+    times = {8: (res["ms"], lat_ms)}
+    for bd in (10, 12):
+        o_d, r_d = (t(pad(deep(f[k][0], bd, rng)).astype(np.int32))
+                    for k in (1, 0))
+        big = (r_d, o_d, x0, y0, zero, zero, lam << (bd - 8), n, r)
+        _check_k1(big, f"1080p park at {bd} bits, main path", res)
+        lo = (t(lowres_plane(r_d.cpu().numpy())),
+              t(lowres_plane(o_d.cpu().numpy())), lx0, ly0, lz, lz,
+              LOOKAHEAD_LAMBDA_X256, N, SEARCH_RANGE)
+        _check_k1(lo, f"544x960 lowres park at {bd} bits, lattice", res)
+        times[bd] = (time_ms(lambda: full_search(*big)),
+                     time_ms(lambda: full_search(*lo)))
+    print("K1 device time per call by sample depth (8 / 10 / 12 bits): "
+          f"B={b} n={n} r={r} " + " / ".join(
+              f"{times[k][0]:.4f}" for k in (8, 10, 12)) + " ms; lattice "
+          f"B={lb} n={N} " + " / ".join(
+              f"{times[k][1]:.4f}" for k in (8, 10, 12)) + f" ms ({card})")
     return res
 
 
@@ -324,6 +378,12 @@ def phase_k2(dev, rng, card: str):
         if size == 23:
             res.update(ms=ms, plain_ms=plain, bound_ms=bound,
                        bound_by="bytes", library_ms=lib)
+            p12 = t(rng.integers(0, 4096, (h, w), dtype=np.int32))
+            _check_k2(p12, ys, xs, size, "frame, 12-bit samples", res)
+            ms12 = time_ms(lambda: window_gather(p12, ys, xs, size))
+            print(f"K2 device time per call by sample depth (8 / 12 "
+                  f"bits): B={nb} size={size} {ms:.4f} / {ms12:.4f} ms "
+                  f"({card})")
     # the lookahead lattice's windows on the 544x960 lowres plane: the
     # source blocks (size 8) at the block origins, MC (15) and subpel
     # (17) reads at blocks displaced by up to +-17 px, as mc_batch /
@@ -366,10 +426,10 @@ def phase_k2(dev, rng, card: str):
     return res
 
 
-def psnr(a, b) -> float:
+def psnr(a, b, peak: int = 255) -> float:
     d = a.astype(np.float64) - b.astype(np.float64)
     mse = float((d * d).mean())
-    return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+    return 99.0 if mse == 0 else 10 * np.log10(float(peak) ** 2 / mse)
 
 
 def vcl_nal_type(au: bytes) -> int:
@@ -409,7 +469,8 @@ def lowres_sums_exact(frames, dev) -> None:
     """The lookahead sums each frame's 8160 lowres intra costs in float32
     (fixed pairwise order); below 2**24 that sum is exact in any order,
     so the card, the CPU and the reference agree.  Prints each frame's
-    sum against the exact integer sum."""
+    sum against the exact integer sum (informational: at 10 bits the
+    sums may pass 2**24, where only the order fixes the rounding)."""
     from x265_mod_by_patman_tpu_torch.analysis.lookahead import LowresStore
     from x265_mod_by_patman_tpu_torch.frame.planes import as_devplane
     h, w = FRAME_HW
@@ -429,11 +490,12 @@ def lowres_sums_exact(frames, dev) -> None:
 def drive(enc, frames):
     """Encode `frames` through `enc` on the card with the kernel counts
     set to 0 just before and read just after.  Times each picture (card
-    synchronised around _encode_picture), records the per-CTU QP map it
-    coded (the map _derived_qp_map receives) and the trace spans it ran,
-    and splits each kernel's launches into the slicetype lookahead
+    synchronised around _encode_picture) and records the trace spans it
+    ran, and splits each kernel's launches into the slicetype lookahead
     (SlicetypeLookahead._eval_triples), cuTree (CuTreeLookahead._cost_vs)
-    and analysis (the rest)."""
+    and analysis (the rest).  Each encoded frame carries the per-CTU QP
+    map it coded (`qp_map`, a scalar without AQ) and its pipeline runs
+    (more than one where the row-level VBV re-encoded it)."""
     from x265_mod_by_patman_tpu_torch.analysis.lookahead import \
         CuTreeLookahead
     from x265_mod_by_patman_tpu_torch.analysis.slicetype import \
@@ -441,12 +503,12 @@ def drive(enc, frames):
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
     from x265_mod_by_patman_tpu_torch.utils import trace
-    pics, qp_maps = [], []
+    pics = []
     split = {"lookahead": dict.fromkeys(kernels.KERNELS, 0),
              "cutree": dict.fromkeys(kernels.KERNELS, 0)}
-    originals = (Encoder._encode_picture, Encoder._derived_qp_map,
-                 SlicetypeLookahead._eval_triples, CuTreeLookahead._cost_vs)
-    encode_picture, derived_qp_map, eval_triples, cost_vs = originals
+    originals = (Encoder._encode_picture, SlicetypeLookahead._eval_triples,
+                 CuTreeLookahead._cost_vs)
+    encode_picture, eval_triples, cost_vs = originals
 
     def timed_picture(self, *a, **k):
         torch.cuda.synchronize()
@@ -456,10 +518,6 @@ def drive(enc, frames):
         torch.cuda.synchronize()
         pics.append((time.perf_counter() - t0, trace._events[ev0:]))
         return f
-
-    def recording_qp_map(self, qp_map, r, slice_qp=0):
-        qp_maps.append(np.asarray(qp_map))
-        return derived_qp_map(self, qp_map, r, slice_qp)
 
     def counted(what, fn):
         def wrapper(self, *a):
@@ -471,7 +529,6 @@ def drive(enc, frames):
         return wrapper
 
     Encoder._encode_picture = timed_picture
-    Encoder._derived_qp_map = recording_qp_map
     SlicetypeLookahead._eval_triples = counted("lookahead", eval_triples)
     CuTreeLookahead._cost_vs = counted("cutree", cost_vs)
     try:
@@ -488,29 +545,32 @@ def drive(enc, frames):
         counts = kernels.counts()
         spans = trace._events[ev0:]
     finally:
-        (Encoder._encode_picture, Encoder._derived_qp_map,
-         SlicetypeLookahead._eval_triples, CuTreeLookahead._cost_vs) = \
-            originals
-    return dict(out=out, pics=pics, qp_maps=qp_maps, counts=counts,
+        (Encoder._encode_picture, SlicetypeLookahead._eval_triples,
+         CuTreeLookahead._cost_vs) = originals
+    return dict(out=out, pics=pics, counts=counts,
                 split=split, spans=spans, total=total,
                 peak=torch.cuda.max_memory_allocated())
 
 
-def report_drive(run, frames, w, h, what):
+def report_drive(run, frames, w, h, what, peak=255):
     """Print a drive()'s pictures, spans, launches and memory; checks the
     recon quality and that both kernels launched."""
     out, pics, n = run["out"], run["pics"], len(frames)
     print(f"{what}: decode order "
           + " ".join(f"{f.slice_type}{f.disp}" for f in out))
-    for i, (f, (s, _ev), qm) in enumerate(zip(out, pics, run["qp_maps"])):
-        q = psnr(frames[f.disp][0], f.recon[0][:h, :w])
+    for i, (f, (s, _ev)) in enumerate(zip(out, pics)):
+        q = psnr(frames[f.disp][0], f.recon[0][:h, :w], peak)
+        qm = np.asarray(f.qp_map)
         aq = sum(e["dur"] for e in _ev if e.get("ph") == "X"
                  and e["name"] == "aq_map") / 1e3
+        vbv = f.stats.get("vbv_fill_pct")
         print(f"picture {i} {f.slice_type} (display {f.disp}, NAL "
               f"{vcl_nal_type(f.bitstream)}, QP {f.qp}, CTU QP "
               f"min/mean/max {qm.min()}/{qm.mean():.2f}/{qm.max()}): "
-              f"{s:.3f} s, {f.bits} bits, PSNR-Y {q:.2f} dB, aq_map "
-              f"{aq:.1f} ms")
+              f"{s:.3f} s, {f.bits} bits, PSNR-Y {q:.2f} dB (peak "
+              f"{peak}), aq_map {aq:.1f} ms, pipeline runs "
+              f"{f.pipeline_runs}"
+              + ("" if vbv is None else f", vbv_fill_pct {vbv}"))
         if not q > 28.0:
             raise AssertionError(f"picture {i}: recon PSNR {q:.2f} dB")
     for t in ("I", "P", "B"):
@@ -553,7 +613,8 @@ def report_drive(run, frames, w, h, what):
 
 
 def phase_main(dev, w=1920, h=1080, n=6):
-    """The 1080p default encode on the card; returns launch counts."""
+    """The 1080p default encode on the card; returns launch counts and the
+    decode order."""
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     from x265_mod_by_patman_tpu_torch.params import default_params
     frames = park_frames(w, h, n)
@@ -562,14 +623,15 @@ def phase_main(dev, w=1920, h=1080, n=6):
                  f"main path {w}x{h} at the repo defaults")
     check_minigops(run["out"])
     lowres_sums_exact(frames, dev)
-    return run["counts"]
+    return run["counts"], [(f.slice_type, f.disp) for f in run["out"]]
 
 
-def phase_rc(dev, w=1920, h=1080, n=6):
+def phase_rc(dev, w=1920, h=1080, n=3):
     """The 1080p rate-control path on the card: the repo defaults under
     CRF 28 with AQ 2 and the cuTree lookahead (rc_lookahead at its
-    default, so every cuTree pop of this clip runs in the flush);
-    returns launch counts."""
+    default, so every cuTree pop of this clip runs in the flush), cut to
+    3 frames (I, P, B) to keep the script's time; returns launch
+    counts."""
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     from x265_mod_by_patman_tpu_torch.params import default_params
     frames = park_frames(w, h, n)
@@ -583,21 +645,59 @@ def phase_rc(dev, w=1920, h=1080, n=6):
                  f"rate-control path {w}x{h}, CRF 28, AQ 2, cuTree "
                  f"(rc_lookahead {enc.p.rc_lookahead})")
     check_minigops(run["out"])
-    if not any(qm.min() < qm.max() for qm in run["qp_maps"]):
+    if not any(np.min(f.qp_map) < np.max(f.qp_map) for f in run["out"]):
         raise AssertionError("the per-CTU QP map never varied")
     return run["counts"]
 
 
-def cli_params(w: int, h: int, n: int, opts):
+def phase_main10(dev, order3, w=1920, h=1080, n=6):
+    """The Main10 delivery path at full width on the card: 1080p park at
+    10 bits (times 4, dithered), CRF 28 + AQ 2 + cuTree under a 1000 kbit
+    / 1000 kb/s VBV at 25 fps with HRD timing SEIs and HDR10 signalling,
+    with parameters built as the CLI builds them.  Checks no VBV
+    underflow, the CPB model on the parsed timing SEIs, the decode order
+    of phase 3's 6 frames of the same clip (phase 5 runs 3), and a
+    per-CTU QP map that varies; returns launch counts."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
+    frames = deep_frames(park_frames(w, h, n), 10, 2026)
+    opts = (("crf", "28"), ("aq-mode", "2"), ("vbv-bufsize", "1000"),
+            ("vbv-maxrate", "1000"), ("hrd", "")) + HDR10_OPTS
+    params = cli_params(w, h, n, opts, 10)
+    enc = Encoder(params, dev)
+    if enc._cutree is None or not enc.sps.hrd or enc.rc.vbv_buffer <= 0:
+        raise AssertionError("the delivery path lacks cuTree, HRD or VBV")
+    run = drive(enc, frames)
+    report_drive(run, frames, w, h, f"Main10 delivery path {w}x{h}, CRF "
+                 "28, AQ 2, cuTree, VBV 1000/1000, HRD, HDR10", peak=1023)
+    out = run["out"]
+    print(f"pipeline runs per picture: {[f.pipeline_runs for f in out]}; "
+          f"VBV underflows {enc.rc.vbv_underflows}")
+    if enc.rc.vbv_underflows:
+        raise AssertionError(f"{enc.rc.vbv_underflows} VBV underflows")
+    check_hrd(b"".join(f.bitstream for f in out), out,
+              cli_params(w, h, n, opts, 10))
+    order = [(f.slice_type, f.disp) for f in out]
+    if order != order3:
+        raise AssertionError(f"decode order {order} differs from phase "
+                             f"3's {order3}")
+    if not any(np.min(f.qp_map) < np.max(f.qp_map) for f in out):
+        raise AssertionError("the per-CTU QP map never varied")
+    lowres_sums_exact(frames, dev)
+    return run["counts"]
+
+
+def cli_params(w: int, h: int, n: int, opts, bit_depth: int = 8):
     """Parameters built as the CLI builds them for an n-frame y4m at
-    25 fps (cli.py: defaults, the y4m's rate and length, --qp 32, CQP,
-    then each option through EncoderParams.parse)."""
+    25 fps (cli.py: defaults, the y4m's rate, length and bit depth, --qp
+    32, CQP, then each option through EncoderParams.parse)."""
     from x265_mod_by_patman_tpu_torch.params import default_params
     p = default_params(w, h)
     p.fps_num, p.fps_denom, p.total_frames = 25, 1, n
+    if bit_depth > 8:
+        p.internal_bit_depth = bit_depth
     p.qp, p.rc_mode = 32, "cqp"
     for k, v in opts:
-        p.parse(k, v)
+        p.parse(k, v or "1")
     return p
 
 
@@ -605,26 +705,78 @@ def cli_params(w: int, h: int, n: int, opts):
 # also run through the CLI on the card
 RC_AGREE = ((8, (("crf", "28"), ("aq-mode", "2"), ("rc-lookahead", "4"))),
             (6, (("bitrate", "300"), ("aq-mode", "1"))))
+# the Main10 delivery case at 416x240: CRF + AQ 2 + cuTree under a VBV cap
+# low enough that the I picture re-encodes, with HRD timing; also run
+# through the CLI on a 10-bit y4m on the card
+MAIN10_AGREE = (8, (("crf", "28"), ("aq-mode", "2"), ("rc-lookahead", "4"),
+                    ("vbv-bufsize", "150"), ("vbv-maxrate", "150"),
+                    ("hrd", "")))
+# HDR10 signalling (phases 4 and 6)
+HDR10_OPTS = (("colorprim", "9"), ("transfer", "16"), ("colormatrix", "9"),
+              ("master-display", "G(13250,34500)B(7500,3000)R(34000,16000)"
+                                 "WP(15635,16450)L(10000000,1)"),
+              ("max-cll", "1000,400"))
+# one HDR10+ record in the JSON format the --dhdr10-info option reads
+HDR10PLUS_RECORD = {
+    "NumberOfWindows": 1,
+    "TargetedSystemDisplayMaximumLuminance": 400,
+    "LuminanceParameters": {
+        "AverageRGB": 1200,
+        "MaxScl": [12000, 11000, 9000],
+        "LuminanceDistributions": {
+            "DistributionIndex": [1, 5, 10, 25, 50, 75, 90, 95, 99],
+            "DistributionValues": [10, 300, 900, 2000, 4000, 6000,
+                                   8000, 9000, 9900]}},
+    "BezierCurveData": {
+        "KneePointX": 100, "KneePointY": 200,
+        "Anchors": [102, 205, 307, 410, 512, 614, 717, 819, 922]},
+}
 
 
-def _agree(frames, what, p_gpu, p_cpu):
+def _cpu_worker_init():
+    """Phase 4's CPU encoder process: leaves two cores to the card's
+    encode in the parent, and records no trace."""
+    from x265_mod_by_patman_tpu_torch.utils import trace
+    trace._path = None
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) - 2))
+
+
+def _cpu_encode(params, frames):
+    """One encode on the CPU (in the worker process): the stream, each
+    picture's bytes and the seconds it took."""
     from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
+    t0 = time.perf_counter()
+    s, e = encode_sequence(params, frames, "cpu")
+    return s, [f.bitstream for f in e], time.perf_counter() - t0
+
+
+def cpu_pool():
+    """Phase 4's one CPU encoder process: the CPU side of each agreement
+    case runs there while the card's side runs here."""
+    import concurrent.futures
+    import multiprocessing
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init)
+
+
+def _agree(pool, frames, what, p_gpu, p_cpu):
+    from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
+    pending = pool.submit(_cpu_encode, p_cpu, frames)
     t0 = time.perf_counter()
     s_gpu, e_gpu = encode_sequence(p_gpu, frames, "cuda")
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    s_cpu, e_cpu = encode_sequence(p_cpu, frames, "cpu")
-    t_cpu = time.perf_counter() - t0
+    s_cpu, b_cpu, t_cpu = pending.result()
     what += " " + " ".join(f"{f.slice_type}{f.qp}" for f in e_gpu)
     print(f"agree {what}: cuda {len(s_gpu)} B in {t_gpu:.2f} s, "
-          f"cpu {len(s_cpu)} B in {t_cpu:.2f} s")
+          f"cpu {len(s_cpu)} B in {t_cpu:.2f} s (in parallel)")
     if s_gpu != s_cpu:
-        for i, (a, b) in enumerate(zip(e_gpu, e_cpu)):
-            if a.bitstream != b.bitstream:
+        for i, (a, b) in enumerate(zip(e_gpu, b_cpu)):
+            if a.bitstream != b:
                 k = next((j for j, (x, y) in enumerate(
-                    zip(a.bitstream, b.bitstream)) if x != y),
-                    min(len(a.bitstream), len(b.bitstream)))
+                    zip(a.bitstream, b)) if x != y),
+                    min(len(a.bitstream), len(b)))
                 print(f"first difference: picture {i} "
                       f"({a.slice_type}, display {a.disp}) byte {k}")
                 break
@@ -634,56 +786,207 @@ def _agree(frames, what, p_gpu, p_cpu):
 
 
 def phase_agree(w=416, h=240):
+    with cpu_pool() as pool:
+        agree_all(pool, w, h)
+
+
+def agree_all(pool, w: int, h: int):
     """The same clip on cuda and on cpu must give identical bytes: CQP
     (I P P, and the repo defaults), CRF with AQ 2 and cuTree, ABR with
-    AQ 1.  The CRF case is then run through the CLI in a subprocess on
-    the card, whose .hevc must equal the in-process cuda bytes."""
+    AQ 1, and the deep cases of agree_deep.  The CRF case is also run
+    through the CLI in a subprocess on the card, whose .hevc must equal
+    the in-process cuda bytes."""
     from x265_mod_by_patman_tpu_torch.params import default_params
     for n, kw in ((3, dict(bframes=0)), (6, {})):
         frames = park_frames(w, h, n)
-        _s, e = _agree(frames, f"{w}x{h} x{n} CQP", default_params(w, h, **kw),
-                       default_params(w, h, **kw))
+        _s, e = _agree(pool, frames, f"{w}x{h} x{n} CQP",
+                       default_params(w, h, **kw), default_params(w, h, **kw))
         if not kw and "B" not in [f.slice_type for f in e]:
             raise AssertionError("the default encode made no B picture")
     streams = []
     for n, opts in RC_AGREE:
         frames = park_frames(w, h, n)
-        s, e = _agree(frames, f"{w}x{h} x{n} " + " ".join(
+        s, e = _agree(pool, frames, f"{w}x{h} x{n} " + " ".join(
             f"--{k} {v}" for k, v in opts), cli_params(w, h, n, opts),
             cli_params(w, h, n, opts))
         if not any(f.slice_type == "B" for f in e):
             raise AssertionError("no B picture under rate control")
         streams.append((frames, s))
-    from x265_mod_by_patman_tpu_torch.io.y4m import VideoInfo, Y4MWriter
     (n, opts), (frames, s_gpu) = RC_AGREE[0], streams[0]
+    checks = [cli_on_card(frames, opts, s_gpu, f"smoke_{w}x{h}")]
+    try:
+        agree_deep(pool, w, h, checks)
+    finally:
+        for check in checks:
+            check()
+
+
+def cli_on_card(frames, opts, s_gpu, name: str, bit_depth: int = 8):
+    """Write `frames` as a y4m under build/ and start the port's CLI on it
+    in a subprocess on the card, which runs beside the phase's next
+    cases.  Returns the check to call later: it waits for the CLI, whose
+    .hevc must equal `s_gpu`."""
+    from x265_mod_by_patman_tpu_torch.io.y4m import VideoInfo, Y4MWriter
+    h, w = frames[0][0].shape
+    n = len(frames)
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
-    src = os.path.join(build, f"smoke_{w}x{h}.y4m")
-    dst = os.path.join(build, f"smoke_{w}x{h}_cli.hevc")
-    wr = Y4MWriter(src, VideoInfo(w, h, 25, 1, total_frames=n))
+    src = os.path.join(build, f"{name}.y4m")
+    dst = os.path.join(build, f"{name}_cli.hevc")
+    wr = Y4MWriter(src, VideoInfo(w, h, 25, 1, bit_depth=bit_depth,
+                                  total_frames=n))
     for f in frames:
         wr.write(*f)
     wr.close()
     cmd = [sys.executable, "-m", f"{PKG}.cli", "--input", src, "-o", dst,
            "--frames", str(n), "--no-progress"]
     for k, v in opts:
-        cmd += [f"--{k}", v]
+        cmd += [f"--{k}"] + ([v] if v else [])
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=ROOT)
-    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=600)
-    print(f"CLI on the card ({' '.join(cmd[1:])}): exit {res.returncode} "
-          f"in {time.perf_counter() - t0:.2f} s; "
-          f"{res.stderr.strip().splitlines()[-1] if res.stderr else ''}")
-    if res.returncode != 0:
-        raise AssertionError("the CLI failed: " + res.stderr[-2000:])
-    with open(dst, "rb") as f:
-        got = f.read()
-    if got != s_gpu:
-        raise AssertionError(f"the CLI's .hevc ({len(got)} B) differs from "
-                             f"the in-process cuda bytes ({len(s_gpu)} B)")
-    print(f"the CLI's .hevc equals the in-process cuda bytes "
-          f"({len(got)} B)")
+    env.pop("X265TPU_TRACE", None)        # the CLI records no trace
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+    def check():
+        try:
+            _out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        print(f"CLI on the card ({' '.join(cmd[1:])}): exit "
+              f"{proc.returncode} after {time.perf_counter() - t0:.2f} s "
+              f"(beside the cases that followed); "
+              f"{err.strip().splitlines()[-1] if err else ''}")
+        if proc.returncode != 0:
+            raise AssertionError("the CLI failed: " + err[-2000:])
+        with open(dst, "rb") as f:
+            got = f.read()
+        if got != s_gpu:
+            raise AssertionError(f"the CLI's .hevc ({len(got)} B) differs "
+                                 f"from the in-process cuda bytes "
+                                 f"({len(s_gpu)} B)")
+        print(f"the CLI's .hevc equals the in-process cuda bytes "
+              f"({len(got)} B)")
+    return check
+
+
+def timing_seis(stream: bytes):
+    """(initial_cpb_removal_delay, offset) of each buffering-period SEI
+    and (au_cpb_removal_delay_minus1, pic_dpb_output_delay) of each
+    picture-timing SEI, in stream order."""
+    from x265_mod_by_patman_tpu_torch.bitstream.bitreader import BitReader
+    from x265_mod_by_patman_tpu_torch.bitstream.headers import (
+        HRD_AU_LEN, HRD_DPB_LEN, HRD_INIT_LEN)
+    from x265_mod_by_patman_tpu_torch.bitstream.nal import (
+        remove_emulation, split_annexb)
+    from x265_mod_by_patman_tpu_torch.bitstream.sei import parse_sei
+    bps, pts = [], []
+    for u in split_annexb(stream):
+        if not u or (u[0] >> 1) & 0x3F != 39:       # prefix SEI
+            continue
+        for ptype, payload in parse_sei(remove_emulation(u[2:])):
+            br = BitReader(payload)
+            if ptype == 0:
+                br.ue()
+                br.flag()
+                br.flag()
+                br.u(HRD_AU_LEN)
+                bps.append((br.u(HRD_INIT_LEN), br.u(HRD_INIT_LEN)))
+            elif ptype == 1:
+                pts.append((br.u(HRD_AU_LEN), br.u(HRD_DPB_LEN)))
+    return bps, pts
+
+
+def check_hrd(stream: bytes, out, params) -> None:
+    """The CPB model of the repo's HRD test on the parsed buffering-
+    period / picture-timing values: one buffering period, one picture
+    timing per AU, and every AU's last bit arriving (at the signalled
+    bit rate) before its removal time."""
+    from x265_mod_by_patman_tpu_torch.bitstream.headers import (
+        build_sps_info, hrd_signaled)
+    bps, pts = timing_seis(stream)
+    if len(bps) != 1 or len(pts) != len(out):
+        raise AssertionError(f"HRD SEIs: {len(bps)} buffering periods, "
+                             f"{len(pts)} picture timings for {len(out)} "
+                             "AUs")
+    rate, _cpb = hrd_signaled(build_sps_info(params.validate()))
+    fps = params.fps_num / params.fps_denom
+    arrival, removal_bp, worst = 0.0, bps[0][0] / 90000.0, float("inf")
+    for i, f in enumerate(out):
+        arrival += f.bits / rate
+        removal = removal_bp if i == 0 else removal_bp + (pts[i][0] + 1) / fps
+        worst = min(worst, removal - arrival)
+        if arrival > removal + 1e-9:
+            raise AssertionError(f"CPB underflow at AU {i}: arrival "
+                                 f"{arrival:.6f} s > removal {removal:.6f} s")
+    print(f"HRD: CPB arrival/removal holds for {len(out)} AUs (least "
+          f"slack {worst * 1e3:.3f} ms; signalled {rate} bit/s; initial "
+          f"removal delay {bps[0][0]} / 90 kHz)")
+
+
+def nal_types(stream: bytes):
+    from x265_mod_by_patman_tpu_torch.bitstream.nal import split_annexb
+    return [(u[0] >> 1) & 0x3F for u in split_annexb(stream) if u]
+
+
+def hdr_side_files(n: int):
+    """An HDR10+ JSON (n records) and a Dolby Vision RPU file (n Annex-B
+    UNSPECIFIED(62) NALs) under build/, in the formats --dhdr10-info and
+    --dolby-vision-rpu read."""
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    jf = os.path.join(build, "smoke_hdr10plus.json")
+    with open(jf, "w") as f:
+        json.dump({"SceneInfo": [HDR10PLUS_RECORD] * n}, f)
+    rpu = os.path.join(build, "smoke_dovi.rpu")
+    with open(rpu, "wb") as f:
+        f.write(b"".join(b"\x00\x00\x00\x01\x7c\x01"
+                         + bytes([0x10 + i, 0xAA, i]) for i in range(n)))
+    return jf, rpu
+
+
+def agree_deep(pool, w: int, h: int, checks):
+    """Phase 4's 10- and 12-bit cases, cuda against cpu: Main10 at the
+    repo defaults (CQP, 6 frames) with HDR10 signalling, HDR10+ metadata
+    and a Dolby Vision RPU file written under build/; Main10 CRF 28 +
+    AQ 2 + cuTree under a 150 kbit / 150 kb/s VBV with HRD (8 frames;
+    a picture must re-encode), also through the CLI on a 10-bit y4m;
+    and 12-bit I P P."""
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    jf, rpu = hdr_side_files(6)
+    opts = HDR10_OPTS + (("dhdr10-info", jf), ("dolby-vision-rpu", rpu),
+                         ("dolby-vision-profile", "8.1"))
+    frames = deep_frames(park_frames(w, h, 6), 10, 10)
+    s, e = _agree(pool, frames, f"{w}x{h} x6 Main10 CQP, HDR10 + HDR10+ + "
+                  "Dolby Vision RPU", cli_params(w, h, 6, opts, 10),
+                  cli_params(w, h, 6, opts, 10))
+    if "B" not in [f.slice_type for f in e]:
+        raise AssertionError("the Main10 default encode made no B picture")
+    types = nal_types(s)
+    print(f"HDR stream: {types.count(62)} RPU NALs, "
+          f"{len(timing_seis(s)[1])} picture timings, NAL types {types}")
+    if types.count(62) != 6:
+        raise AssertionError(f"expected 6 RPU NALs, got {types.count(62)}")
+    n, opts = MAIN10_AGREE
+    frames = deep_frames(park_frames(w, h, n), 10, 10)
+    s_vbv, e = _agree(pool, frames, f"{w}x{h} x{n} Main10 " + " ".join(
+        f"--{k} {v}" for k, v in opts), cli_params(w, h, n, opts, 10),
+        cli_params(w, h, n, opts, 10))
+    runs = [f.pipeline_runs for f in e]
+    print(f"pipeline runs per picture (Main10 VBV + HRD, decode order): "
+          f"{runs}; vbv_fill_pct "
+          f"{[f.stats.get('vbv_fill_pct') for f in e]}")
+    if max(runs) < 2:
+        raise AssertionError("no picture re-encoded under the VBV cap")
+    check_hrd(s_vbv, e, cli_params(w, h, n, opts, 10))
+    checks.append(cli_on_card(frames, opts, s_vbv,
+                              f"smoke_{w}x{h}_main10", 10))
+    frames = deep_frames(park_frames(w, h, 3), 12, 12)
+    _agree(pool, frames, f"{w}x{h} x3 12-bit I P P",
+           default_params(w, h, bframes=0, internal_bit_depth=12),
+           default_params(w, h, bframes=0, internal_bit_depth=12))
 
 
 def main() -> int:
@@ -718,7 +1021,7 @@ def main() -> int:
            "window_gather": phase_k2(dev, rng, cap)}
     print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    counts_cqp = phase_main(dev)
+    counts_cqp, order3 = phase_main(dev)
     print(f"phase 3 main path: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_agree()
@@ -726,15 +1029,19 @@ def main() -> int:
     t0 = time.perf_counter()
     counts = phase_rc(dev)
     print(f"phase 5 rate-control path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts_m10 = phase_main10(dev, order3)
+    print(f"phase 6 Main10 delivery path: {time.perf_counter() - t0:.2f} s")
     src = {"full_search": ("full_search.cu", "x265_mod_by_patman_tpu/ops/"
                            "pallas/sad.py:67"),
            "window_gather": ("window_gather.cu", "x265_mod_by_patman_tpu/"
                              "ops/pallas/gather.py:82")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{cu}",
-         "replaces": rep, "launches": counts[name],
+         "replaces": rep, "launches": counts_m10[name],
          "launches_by_path": {"cqp_defaults": counts_cqp[name],
-                              "crf_aq_cutree": counts[name]},
+                              "crf_aq_cutree": counts[name],
+                              "main10_vbv_hrd": counts_m10[name]},
          **res[name]}
         for name, (cu, rep) in src.items()]}
     print(json.dumps(line))

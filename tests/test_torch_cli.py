@@ -93,10 +93,15 @@ def test_api_nals_equal_jax(scenario):
 
 
 def test_api_device_and_bit_depths():
-    a8 = tapi.api_get(8)
-    assert a8.param_default_preset("medium").internal_bit_depth == 8
-    with pytest.raises(NotImplementedError, match="bit depths above 8"):
-        tapi.api_get(10)
+    for bd in (8, 10, 12):
+        a = tapi.api_get(bd)
+        assert a.param_default_preset("medium").internal_bit_depth == bd
+    assert tapi.api_get(16) is None
+    p = tapi.param_alloc()
+    tapi.param_parse(p, "input-res", "96x64")
+    p.internal_csp = 2                  # 4:2:2 stays unported
+    with pytest.raises(NotImplementedError, match="4:2:2"):
+        tapi.encoder_open(p, "cpu")
     p = tapi.param_alloc()
     tapi.param_parse(p, "input-res", "96x64")
     assert tapi.encoder_open(p, "cpu").enc.device.type == "cpu"
@@ -134,8 +139,8 @@ def test_cli_output_equals_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("extra,name", [
     (["--abr-ladder", "ladder.txt"], "--abr-ladder"),
-    (["--vbv-bufsize", "800", "--vbv-maxrate", "400"], "--vbv-bufsize"),
-    (["--vbv-bufsize", "800", "--vbv-maxrate", "400", "--hrd"], "--hrd"),
+    (["--rect"], "--rect"),
+    (["--lossless"], "--lossless"),
     (["--frame-threads", "2"], "--frame-threads"),
 ])
 def test_cli_rejects_unported_options(tmp_path, extra, name):

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on a card (skipped without one): each kernel
 against its plain PyTorch twin on the same device tensors, the launch
 counters, the lookahead lattice, B analysis and cuTree's lowres inter
-costs on the card against the CPU, and card encodes (CQP, and CRF with
-AQ and cuTree) that must give the CPU's bytes.  The GPU
+costs on the card against the CPU, K1 on 12-bit planes and its fp32
+bound, and card encodes (CQP, CRF with AQ and cuTree, and Main10 CRF
+under a VBV with HRD) that must give the CPU's bytes.  The GPU
 machine has no JAX, which tests/conftest.py imports, so run them there
 with `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
 
@@ -180,4 +181,48 @@ def test_card_crf_aq_cutree_encode_equals_cpu(dev):
     s_gpu, e_gpu = encode_sequence(p(), frames, dev)
     s_cpu, _ = encode_sequence(p(), frames, "cpu")
     assert "B" in [f.slice_type for f in e_gpu]
+    assert s_gpu == s_cpu
+
+
+@pytest.mark.parametrize("n,top", [(8, 4095), (16, 4095)])
+def test_full_search_kernel_on_12bit_planes_and_its_bound(dev, n, top):
+    """12-bit samples stay exact in the kernel's fp32 sums (n^2 * 4095 <
+    2^24); a plane whose n^2 * max reaches 2^24 is refused."""
+    rng = np.random.default_rng(n)
+    h, w = 72, 130
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    ref = t(rng.integers(0, top + 1, (h, w), dtype=np.int32))
+    org = t(rng.integers(0, top + 1, (h, w), dtype=np.int32))
+    x0 = t(rng.integers(-n, w, 20, dtype=np.int32))
+    y0 = t(rng.integers(-n, h, 20, dtype=np.int32))
+    z = torch.zeros_like(x0)
+    got = full_search(ref, org, x0, y0, z, z, 700, n, 16)
+    exp = full_search_plain(ref, org, x0, y0, z, z, 700, n, 16)
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    big = torch.full_like(ref, (1 << 24) // (n * n))
+    with pytest.raises(ValueError, match="2\\^24"):
+        full_search(big, org, x0, y0, z, z, 700, n, 16)
+
+
+def test_card_main10_vbv_hrd_encode_equals_cpu(dev):
+    """Main10 CRF 28 with AQ 2 and cuTree under a VBV with HRD, tight
+    enough that pictures re-encode."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    rng = np.random.default_rng(5)
+    world = rng.integers(0, 1024, (80, 128)).astype(np.int32)
+    world = (world + np.roll(world, 1, 0) + np.roll(world, 1, 1)) // 3
+    # noise from frame 3 on busts the buffer
+    frames = [(world[i:i + 64, 3 * i:3 * i + 96].astype(np.uint16)
+               if i < 3 else rng.integers(0, 1024, (64, 96)).astype(
+                   np.uint16),
+               np.full((32, 48), 400 + i, np.uint16),
+               np.full((32, 48), 560 - i, np.uint16)) for i in range(6)]
+    p = lambda: default_params(96, 64, rc_mode="crf", crf=28.0, aq_mode=2,
+                               internal_bit_depth=10, vbv_bufsize=60,
+                               vbv_maxrate=60, hrd=True)
+    s_gpu, e_gpu = encode_sequence(p(), frames, dev)
+    s_cpu, _ = encode_sequence(p(), frames, "cpu")
+    assert max(f.pipeline_runs for f in e_gpu) > 1
     assert s_gpu == s_cpu

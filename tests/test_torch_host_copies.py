@@ -1,9 +1,11 @@
 """The port's own copies of the reference's jax-free host modules
 (params, bitstream, entropy, rc, constants, frame.zscan, utils.trace,
-the CLI's io and metrics modules, the native C entropy engine, the host
-half of analysis.weightp) must stay
-verbatim: each copy's source equals the reference's once the package name
-is substituted.  The native loader is the one module that differs (it
+the CLI's io and metrics modules, bitstream.hdr10plus, the native C
+entropy engine, the host half of analysis.weightp) must stay verbatim:
+each copy's source equals the reference's once the package name is
+substituted, and so must the host blocks copied into encoder/top.py's
+rewritten methods (the Dolby Vision RPU split, the HDR10+ and HRD
+SEIs).  The native loader is the one module that differs (it
 builds under build/ with a per-process temporary name); its bindings
 from get_lib() on are still verbatim.  The port's native engine must
 give the pure-Python engine's bytes.
@@ -34,7 +36,8 @@ VERBATIM = (
     "entropy/residual.py", "rc/ratecontrol.py", "frame/zscan.py",
     "utils/trace.py", "native/entropy_kernels.c", "io/__init__.py",
     "io/y4m.py", "io/script_input.py", "io/gop_output.py",
-    "io/reconplay.py", "utils/metrics.py", "utils/vmaf.py")
+    "io/reconplay.py", "utils/metrics.py", "utils/vmaf.py",
+    "bitstream/hdr10plus.py")
 
 
 def _read(pkg: str, rel: str) -> str:
@@ -67,6 +70,33 @@ def test_weightp_host_functions_are_verbatim():
         assert port_f[name] == ref_f[name], name
     assert port_a == ref_a                      # LUMA_DENOM
     assert "weighted_plane" in port_f and "weighted_plane_jnp" not in port_f
+
+
+def _block(src: str, start: str, end: str) -> str:
+    """The lines of `src` from the one holding `start` through the one
+    holding `end` (its first occurrence after `start`)."""
+    i = src.rindex("\n", 0, src.index(start)) + 1
+    j = src.index("\n", src.index(end, i)) + 1
+    return src[i:j]
+
+
+@pytest.mark.parametrize("start,end", [
+    # the Dolby Vision RPU side file split into per-picture NALs
+    ("# Dolby Vision RPU passthrough", "self._rpus.append(data[s0:e])"),
+    # the per-picture HDR10+ SEI
+    ("if self._dhdr10:", "write_dhdr10_sei(self._dhdr10[disp_i]))"),
+    # pic_struct, and the HRD buffering-period / picture-timing SEIs
+    ("# interlace signaling (reference frameencoder.cpp",
+     "write_pic_timing(pic_struct=pic_struct))"),
+    # the per-picture RPU NAL after the slice
+    ("if self._rpus:", "out += self._rpus[min(disp_i"),
+])
+def test_encoder_host_blocks_are_verbatim(start, end):
+    """Host blocks of encoder/top.py's Encoder that sit inside methods the
+    port rewrites (__init__, _encode_picture) are copied unchanged."""
+    rel = "encoder/top.py"
+    assert _block(_read(PORT, rel), start, end) == \
+        _block(_read(REF, rel), start, end)
 
 
 def test_native_engine_equals_python_engine(tmp_path, monkeypatch):

@@ -17,8 +17,8 @@ targets can change mid-stream; anything that would change the written
 headers is rejected.
 
 The encoder runs on the device given to encoder_open ("cuda" unless the
-caller asks for "cpu"; no fallback when the card is missing).  The port
-encodes 8-bit only, so api_get() raises for deeper bit depths.
+caller asks for "cpu"; no fallback when the card is missing).  api_get()
+returns a namespace for 8, 10 and 12 bits, the depths the encoder takes.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ from .params import EncoderParams, default_params, PRESETS
 from .encoder.top import Encoder, EncodedFrame, _unsupported
 
 VERSION = "0.2-tpu"
-MAX_BIT_DEPTH = 8
+MAX_BIT_DEPTH = 12
 
 # NAL unit types (spec 7.4.2.2)
 NAL_UNIT_CODED_SLICE_TRAIL = 1
@@ -360,10 +360,8 @@ class _Api:
 
 def api_get(bit_depth: int = 8) -> _Api:
     """Multilib dispatch analog (x265_api_get): returns the API bound
-    to the requested internal bit depth; the port encodes 8-bit only
-    and raises for deeper ones, as its encoder does."""
-    if bit_depth > MAX_BIT_DEPTH:
-        raise NotImplementedError("not ported: bit depths above 8")
-    if bit_depth != 8:
+    to the requested internal bit depth (8, 10 or 12, the depths the
+    encoder takes), or None if unsupported."""
+    if bit_depth not in (8, 10, 12):
         return None
     return _Api(bit_depth)

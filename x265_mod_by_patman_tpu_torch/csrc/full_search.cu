@@ -25,8 +25,11 @@
 //  * Several blocks per CTA (7 at r = 16: 231 of 256 threads busy, 73 KB
 //    of shared memory, 3 CTAs per SM).  Their (n+2r)^2 windows and n^2
 //    sources are staged into shared memory straight from the planes,
-//    with per-coordinate clamping, as fp32: sums of at most 16^2 * 255
-//    are exact, and the inner loop needs no conversion (16-bit samples
+//    with per-coordinate clamping, as fp32, and the SADs accumulate in
+//    fp32: a sum is exact while n^2 * (largest sample) < 2^24, which
+//    holds at n = 16 up to 12-bit samples (16^2 * 4095 = 1,048,320) and
+//    would hold only just at n = 64 (16,773,120); the wrapper raises
+//    beyond it.  The inner loop needs no conversion (16-bit samples
 //    would save shared memory that r = 16 does not need).  The staging
 //    issues the loads of several rows before it stores any; it is the
 //    kernel's fixed cost beside the arithmetic.  No window tensor and no

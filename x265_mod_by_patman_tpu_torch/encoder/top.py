@@ -11,11 +11,13 @@ C CABAC engine, ``rc``).
 
 Scope: the default encode — I, P and B pictures with the b-adapt
 lookahead, the B pyramid, open-GOP CRA keyframes with RASL leaders and
-scenecut by the lookahead's cost ratio — in 4:2:0 8-bit, under CQP, CRF
-or ABR with one or two passes, adaptive quantisation (modes 1-4), the
-cuTree lookahead (or, in pass 2, its pass-1 offsets played back), zones
-and a qpfile.  Options of the reference outside that scope raise
-NotImplementedError naming the option.  Host-only helpers (slice syntax
+scenecut by the lookahead's cost ratio — in 4:2:0 at 8, 10 or 12 bits,
+under CQP, CRF or ABR with one or two passes, adaptive quantisation
+(modes 1-4), the cuTree lookahead (or, in pass 2, its pass-1 offsets
+played back), zones, a qpfile, a VBV with the row-level re-encode, the
+HRD timing SEIs, HDR10+ metadata and Dolby Vision RPU pass-through.
+Options of the reference outside that scope raise NotImplementedError
+naming the option.  Host-only helpers (slice syntax
 assembly, headers, QP chain, AQ map, zones, stats, TMVP motion store,
 adaptive rate tables) are copied from the reference, since its module
 imports jax, without the rect, NxN, weighted-B and 4:2:2 branches that
@@ -94,7 +96,7 @@ class _RawIR:
 class EncodedFrame:
     poc: int
     bitstream: bytes              # Annex-B NALs of this AU
-    recon: tuple                  # (y, u, v) uint8 planes
+    recon: tuple                  # (y, u, v) uint8 / uint16 planes
     bits: int = 0
     md5: bytes = b""
     slice_type: str = "I"
@@ -103,6 +105,8 @@ class EncodedFrame:
     stats: dict = dataclasses.field(default_factory=dict)
     # per-frame encoder stats (x265 FrameStats / --csv-log-level 2
     # analog): CU-type distribution, MV stats, VBV fullness
+    pipeline_runs: int = 1        # 1 + row-level VBV re-encodes
+    qp_map: object = None         # coded per-CTU QPs (scalar without)
 
 
 
@@ -116,24 +120,18 @@ def _unsupported(p: EncoderParams) -> List[str]:
         (p.mcstf, "--mcstf"),
         (p.analysis_save or p.analysis_load, "analysis save/load"),
         (p.mesh_tile_rows > 1, "mesh_tile_rows > 1"),
-        (p.vbv_bufsize > 0 or p.vbv_maxrate > 0,
-         "VBV (--vbv-bufsize/--vbv-maxrate)"),
-        (p.hrd, "--hrd"),
         # the reference's frame-parallel B defers rate-control feedback
         # across the window, which the port's sequential B encode does
         # not reproduce (same bytes under CQP only)
         (p.frame_parallel_window > 1 and p.rc_mode != "cqp",
          "--frame-threads > 1 with CRF/ABR"),
         (p.internal_csp != 1, "4:2:2 / 4:4:4 chroma"),
-        (p.internal_bit_depth != 8, "bit depths above 8"),
         (p.nxn_intra, "--nxn-intra"), (p.lossless, "--lossless"),
         (p.scaling_list != "off", "--scaling-list"),
         (p.nr_intra or p.nr_inter, "--nr-intra/--nr-inter"),
         (p.rdoq_level > 0 and p.sign_hide, "--sign-hide with RDOQ"),
         (getattr(p, "cutree_share_write", "") or
          getattr(p, "cutree_share_read", ""), "cuTree share"),
-        (p.dhdr10_info, "--dhdr10-info"),
-        (getattr(p, "dolby_vision_rpu", ""), "--dolby-vision-rpu"),
     )
     out.extend(name for cond, name in checks if cond)
     return out
@@ -152,7 +150,8 @@ class Encoder:
         if bad:
             raise NotImplementedError("not ported: " + ", ".join(bad))
         self.device = resolve(device)
-        self.pix_dtype = np.uint8
+        self.pix_dtype = np.uint8 if self.p.internal_bit_depth == 8 \
+            else np.uint16
         self.cshift = 1
         self.sps = build_sps_info(self.p)
         self.pps = build_pps_info(self.p)
@@ -234,10 +233,11 @@ class Encoder:
         # lookahead-fed rate control (reference rateEstimateQscale
         # consumes lowres satd costs, ratecontrol.cpp:2101): the
         # slicetype lattice supplies frame complexities whenever RC
-        # needs them (CRF/ABR/2-pass) or b-adapt wants the DP
+        # needs them (CRF/ABR/2-pass/VBV) or b-adapt wants the DP
         self._la_rc = self.p.keyframe_max > 1 and (
             (self.bframes > 0 and self.p.b_adapt > 0)
-            or self.p.rc_mode in ("crf", "abr"))
+            or self.p.rc_mode in ("crf", "abr")
+            or (self.p.vbv_bufsize > 0 and self.p.vbv_maxrate > 0))
         self.rc = RateControl(self.p.rc_mode, self.p.qp, self.p.crf,
                               self.p.bitrate_kbps,
                               self.p.fps_num / max(1, self.p.fps_denom),
@@ -246,6 +246,9 @@ class Encoder:
                               cu_tree=self._cutree is not None,
                               lookahead_units=self._la_rc,
                               bframes=self.bframes)
+        if self.p.vbv_bufsize > 0 and self.p.vbv_maxrate > 0:
+            self.rc.set_vbv(self.p.vbv_bufsize, self.p.vbv_maxrate,
+                            self.p.vbv_init)
         if self.p.pass_num == 2:
             from ..rc.ratecontrol import read_stats_file
             self.rc.load_pass1(read_stats_file(self.p.stats_file))
@@ -253,7 +256,9 @@ class Encoder:
         self._cplx_avg = 0.0
         self._idr_base = 0
         self._slicetype = None            # lazy (needs padded geometry)
-        self._enc_order = 0
+        self._enc_order = 0               # decode-order AU counter (HRD)
+        self._last_bp_order = 0           # last buffering-period AU
+        self._last_row_bits = None        # WPP substream bits (row VBV)
         self._last_anchor_disp = -1
         self._keyint_min = params.keyframe_min if params.keyframe_min > 0 \
             else max(1, min(params.keyframe_max // 10,
@@ -274,6 +279,29 @@ class Encoder:
                 elif k == "b":
                     bf = float(vv)
             self._zones.append((s0, e0, qov, bf))
+        self._dhdr10 = None
+        if self.p.dhdr10_info:
+            from ..bitstream.hdr10plus import load_dhdr10_json
+            self._dhdr10 = load_dhdr10_json(self.p.dhdr10_info)
+        # Dolby Vision RPU passthrough (reference frameencoder.cpp:1281
+        # emits each picture's RPU as an UNSPECIFIED(62) NAL after the
+        # slice): the side file is concatenated Annex-B RPU NALs, one
+        # per display-order picture
+        self._rpus: List[bytes] = []
+        if getattr(self.p, "dolby_vision_rpu", ""):
+            data = open(self.p.dolby_vision_rpu, "rb").read()
+            starts = []
+            i = 0
+            while i < len(data) - 3:
+                if data[i:i + 3] == b"\x00\x00\x01":
+                    starts.append(i)
+                    i += 3
+                else:
+                    i += 1
+            for k, st in enumerate(starts):
+                e = starts[k + 1] if k + 1 < len(starts) else len(data)
+                s0 = st - 1 if st > 0 and data[st - 1] == 0 else st
+                self._rpus.append(data[s0:e])
         # qpfile: display idx -> (ftype, qp)
         self._qpfile: Dict[int, tuple] = {}
         if self.p.qpfile:
@@ -400,7 +428,20 @@ class Encoder:
                 nz = nz[:2 * nzs[0].shape[0]].reshape(
                     nzs[0].shape[0], 2, -1).any(1)
             nzs.append(nz)
-        return nzs[0] | nzs[1] | nzs[2]
+        nz = nzs[0] | nzs[1] | nzs[2]
+        i32 = r.get("inter32")
+        if i32 is not None:
+            # TU32 regions code their residual as one TU32 (their per-16
+            # levels are zero): the syntax codes cu_qp_delta there, so
+            # the decoder's QP chain sees them.  The reference omits
+            # this, and its deblocking then uses the inherited QP where
+            # the decoder uses the signalled one (ROADMAP §3).
+            any32 = i32["nzy"] | i32["nzu"] | i32["nzv"]
+            up = np.repeat(np.repeat(any32, 2, 0), 2, 1)
+            h2, w2 = min(up.shape[0], nz.shape[0]), min(up.shape[1],
+                                                        nz.shape[1])
+            nz[:h2, :w2] |= up[:h2, :w2]
+        return nz
 
     # -- headers -------------------------------------------------------------
     def headers(self) -> bytes:
@@ -749,8 +790,11 @@ class Encoder:
         rc_type = ftype
         if ftype == "B" and b_refs is not None and not b_refs[3]:
             rc_type = "b"                 # non-referenced B
-        # the VBV lookahead (frame_qp's third argument) is not ported
-        qp = self.rc.frame_qp(rc_type, complexity, None)
+        # VBV lookahead: complexities of the frames already queued
+        # behind this one (mini-GOP queue + lookahead buffer)
+        upcoming = [q[2] for q in self._queue][:16] \
+            if self.rc.vbv_buffer > 0 else None
+        qp = self.rc.frame_qp(rc_type, complexity, upcoming)
         qp = self._zone_qp(self._idr_base + poc, qp)
         with trace.scope("aq_map"):
             qp_map = self._aq_map(y, qp)      # scalar when AQ off
@@ -878,28 +922,65 @@ class Encoder:
                 temporal_id = 1
                 nal_unit = NAL_TSA_R
 
-        with trace.scope("wavefront", type=ftype):
-            r = recon_fn(qp_map)
-            self._post_wavefront(r)
-        ms = r.get("modes_sel", modes)
-        dqp_map = self._derived_qp_map(qp_map, r, qp)
-        with trace.scope("loopfilter", type=ftype):
-            self._deblock(r, inter_mask, mvs, mvs1, dirs, ref_pocs,
-                          dqp_map, recon, ref_sel, split32,
-                          ref_sel1=ref_sel1)
-            self._force_levels(r)
-            sao_maps = self._sao(r, y, u, v, qp) if p.sao else None
-        with trace.scope("entropy", type=ftype):
-            slice_rbsp = self._encode_slice(
-                ms, inter_mask, mvs, mvs1, dirs, r, ftype, poc, qp,
-                ref_pocs, sao_maps, ref_sel, keep_pocs, qp_map, wp_l0,
-                split32, mode32, wp_chroma, nal_unit, ref_sel1=ref_sel1)
-        with trace.scope("recon_fetch", type=ftype):
-            self._finalize_recon(r)
+        def run_pipeline(qpm):
+            with trace.scope("wavefront", type=ftype):
+                r = recon_fn(qpm)
+                self._post_wavefront(r)
+            # in-wavefront RD mode selection: syntax codes the winners
+            ms = r.get("modes_sel", modes)
+            dqp_map = self._derived_qp_map(qpm, r, qp)
+            with trace.scope("loopfilter", type=ftype):
+                self._deblock(r, inter_mask, mvs, mvs1, dirs, ref_pocs,
+                              dqp_map, recon, ref_sel, split32,
+                              ref_sel1=ref_sel1)
+                self._force_levels(r)
+                sao_maps = self._sao(r, y, u, v, qp) if p.sao else None
+            with trace.scope("entropy", type=ftype):
+                rbsp = self._encode_slice(
+                    ms, inter_mask, mvs, mvs1, dirs, r, ftype, poc, qp,
+                    ref_pocs, sao_maps, ref_sel, keep_pocs, qpm, wp_l0,
+                    split32, mode32, wp_chroma, nal_unit,
+                    ref_sel1=ref_sel1)
+            with trace.scope("recon_fetch", type=ftype):
+                self._finalize_recon(r)
+            return r, sao_maps, rbsp
+
+        r, sao_maps, slice_rbsp = run_pipeline(qp_map)
+        runs = 1
+        # row-level VBV: when the coded frame would underflow the CPB,
+        # raise QP from the first over-budget CTU row on and re-encode
+        # (reference rowVbvRateControl + row re-encode,
+        # ratecontrol.cpp:3034 / frameencoder.cpp:1990)
+        if self.rc.vbv_buffer > 0 and self.pps.cu_qp_delta_enabled:
+            for retry in range(3):
+                adj = self.rc.row_vbv_plan(
+                    slice_rbsp if isinstance(slice_rbsp, list)
+                    else [slice_rbsp],
+                    self._last_row_bits, retry)
+                if adj is None:
+                    break
+                r0_adj, dq = adj
+                base = qp_map if not np.isscalar(qp_map) else np.full(
+                    (self.sps.pic_height_in_ctus,
+                     self.sps.pic_width_in_ctus), qp_map, np.int32)
+                base = base.copy()
+                base[r0_adj:] = np.clip(base[r0_adj:] + dq, self.p.qp_min,
+                                        min(51, self.p.qp_max))
+                qp_map = base
+                with trace.scope("vbv_reencode", type=ftype, retry=retry):
+                    r, sao_maps, slice_rbsp = run_pipeline(qp_map)
+                runs += 1
         with trace.scope("md5"):
             md5 = plane_md5(r["recon_y"], r["recon_u"], r["recon_v"],
                             bit_depth=self.sps.bit_depth)
         out = b""
+        if self._dhdr10:
+            from ..bitstream.hdr10plus import write_dhdr10_sei
+            from ..bitstream.nal import NAL_PREFIX_SEI
+            disp_i = self._idr_base + poc
+            if disp_i < len(self._dhdr10):
+                out += annexb(NAL_PREFIX_SEI,
+                              write_dhdr10_sei(self._dhdr10[disp_i]))
         if p.aud:
             from ..bitstream.nal import NAL_AUD
             bw_aud = BitWriter()
@@ -909,14 +990,44 @@ class Encoder:
         if not self._headers_sent or (p.repeat_headers and ftype == "I"):
             out += self.headers()
             self._headers_sent = True
+        # interlace signaling (reference frameencoder.cpp:803-830):
+        # pic_struct per AU when the VUI declared frame_field_info
+        pic_struct = None
         if p.interlace:
+            disp_ix = self._idr_base + poc
+            if p.interlace == 1:                 # tff
+                pic_struct = 2 if (disp_ix & 1) else 1
+            else:                                # bff
+                pic_struct = 1 if (disp_ix & 1) else 2
+        if self.sps.hrd:
+            # HRD timing SEIs (reference initHRD/hrdFullness,
+            # ratecontrol.cpp:934/2694): buffering period on IDR, pic
+            # timing on every AU
+            from ..bitstream.sei import (write_buffering_period,
+                                         write_pic_timing)
+            from ..bitstream.headers import hrd_signaled
+            from ..bitstream.nal import NAL_PREFIX_SEI
+            br, cpb = hrd_signaled(self.sps)
+            if ftype == "I":
+                fill = min(self.rc.vbv_fullness, cpb)
+                delay = min(int(round(90000.0 * fill / br)),
+                            (1 << 24) - 1)
+                offset = min(int(round(90000.0 * (cpb - fill) / br)),
+                             (1 << 24) - 1)
+                out += annexb(NAL_PREFIX_SEI,
+                              write_buffering_period(delay, offset))
+                self._last_bp_order = self._enc_order
+            au_delay_m1 = max(0, self._enc_order - self._last_bp_order
+                              - 1)
+            dpb_delay = (self.sps.num_reorder_pics
+                         + (self._idr_base + poc) - self._enc_order)
+            out += annexb(NAL_PREFIX_SEI,
+                          write_pic_timing(au_delay_m1,
+                                           max(0, dpb_delay),
+                                           pic_struct=pic_struct))
+        elif pic_struct is not None:
             from ..bitstream.sei import write_pic_timing
             from ..bitstream.nal import NAL_PREFIX_SEI
-            disp_ix = self._idr_base + poc
-            if p.interlace == 1:
-                pic_struct = 2 if (disp_ix & 1) else 1
-            else:
-                pic_struct = 1 if (disp_ix & 1) else 2
             out += annexb(NAL_PREFIX_SEI,
                           write_pic_timing(pic_struct=pic_struct))
         self._enc_order += 1
@@ -928,11 +1039,15 @@ class Encoder:
         if p.decoded_picture_hash:
             out += annexb(NAL_SUFFIX_SEI, write_decoded_picture_hash(md5),
                           temporal_id=temporal_id)
+        if self._rpus:
+            disp_i = self._idr_base + poc
+            out += self._rpus[min(disp_i, len(self._rpus) - 1)]
         frame = EncodedFrame(poc, out,
                              (r["recon_y"], r["recon_u"], r["recon_v"]),
                              bits=len(out) * 8, md5=md5, slice_type=ftype,
                              qp=qp, disp=self._idr_base + poc,
-                             stats=self._frame_stats(r, inter_mask, mvs))
+                             stats=self._frame_stats(r, inter_mask, mvs),
+                             pipeline_runs=runs, qp_map=qp_map)
         self.rc.update(rc_type, qp, frame.bits, complexity)
         if self.sps.temporal_mvp and (ftype in ("I", "P") or b_is_ref):
             self._col_store[poc] = self._build_col_motion(
@@ -948,9 +1063,13 @@ class Encoder:
         return frame
 
     def _frame_stats(self, r, inter_mask, mvs) -> dict:
-        """Per-frame CU/MV stats (the x265 FrameStats subset the
+        """Per-frame CU/MV/VBV stats (the x265 FrameStats subset the
         --csv-log-level 2 CSV reports, encoder.cpp writeLog)."""
         st: dict = {}
+        rc = self.rc
+        if getattr(rc, "vbv_buffer", 0):
+            st["vbv_fill_pct"] = round(
+                100.0 * rc.vbv_fullness / rc.vbv_buffer, 2)
         lv_any = None
         for key in ("lev_y", "lev_u", "lev_v"):
             lv = r[key]
@@ -1026,6 +1145,8 @@ class Encoder:
             return
         du, dv = r["recon_u"], r["recon_v"]
         host = pack_recon(dy, du, dv, self.sps.bit_depth).cpu().numpy()
+        if host.dtype == np.int16:
+            host = host.view(np.uint16)
         o1 = dy.shape[0] * dy.shape[1]
         o2 = o1 + du.shape[0] * du.shape[1]
         r["recon_y"] = attach_dev(host[:o1].reshape(dy.shape),
@@ -1627,7 +1748,8 @@ class Encoder:
             row_irs.append(ir)
 
         if not use_wpp:
-            bw =write_slice_header(sh, sps, pps)
+            self._last_row_bits = None
+            bw = write_slice_header(sh, sps, pps)
             states = init_states(slice_type, qp)
             bins, ctx = row_irs[0].arrays()
             encode_ir_to_writer(bw, bins, ctx, states)
@@ -1671,6 +1793,7 @@ class Encoder:
         self._publish_est(slice_type,
                           {"end": states.copy(),
                            "rows": np.stack(row_start_states)})
+        self._last_row_bits = [len(s) * 8 for s in substreams]
         bw = write_slice_header(sh, sps, pps)
         for s in substreams:
             bw.write_bytes(s)

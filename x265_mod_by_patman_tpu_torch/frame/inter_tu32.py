@@ -194,6 +194,7 @@ def prepare_inter_tu32(y, u, v, mc, region_mask, qp_map, recon,
     mc_y2 = mc_y.copy()
     mc_u2 = mc_u.copy()
     mc_v2 = mc_v.copy()
+    dt = np.uint8 if recon.bd == 8 else np.uint16
     for i, (ry, rx) in enumerate(zip(ys, xs)):
         if not use32[i]:
             continue
@@ -217,6 +218,6 @@ def prepare_inter_tu32(y, u, v, mc, region_mask, qp_map, recon,
                 recu[i][8 * zy:8 * zy + 8, 8 * zx:8 * zx + 8]
             mc_v2[2 * ry + zy, 2 * rx + zx] = \
                 recv[i][8 * zy:8 * zy + 8, 8 * zx:8 * zx + 8]
-    st["spliced"] = (y2.astype(np.uint8), u2.astype(np.uint8),
-                     v2.astype(np.uint8), (t(mc_y2), t(mc_u2), t(mc_v2)))
+    st["spliced"] = (y2.astype(dt), u2.astype(dt), v2.astype(dt),
+                     (t(mc_y2), t(mc_u2), t(mc_v2)))
     return st

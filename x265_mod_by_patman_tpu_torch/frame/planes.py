@@ -48,11 +48,12 @@ def pack_levels(ly, lu, lv):
 
 
 def pack_recon(dy, du, dv, bd: int):
-    """Three int32 recon planes -> one flat pixel-width buffer."""
-    if bd != 8:
-        raise NotImplementedError("bit depths above 8 are not ported")
+    """Three int32 recon planes -> one flat pixel-width buffer: uint8 at
+    8 bits, else int16 (torch's uint16 has few CUDA ops; samples below
+    2^12 fit, and the host views the buffer as uint16)."""
+    dt = torch.uint8 if bd == 8 else torch.int16
     return torch.cat([dy.reshape(-1), du.reshape(-1),
-                      dv.reshape(-1)]).to(torch.uint8)
+                      dv.reshape(-1)]).to(dt)
 
 
 def dev_i32(x, device) -> torch.Tensor:
@@ -67,7 +68,10 @@ def dev_i32(x, device) -> torch.Tensor:
         got = x._devs.get(key)
         if got is None:
             host = np.ascontiguousarray(x.view(np.ndarray))
-            if not host.flags.writeable:
+            if host.dtype == np.uint16:
+                # torch's uint16 has few CUDA ops: widen on the host
+                host = host.astype(np.int32)
+            elif not host.flags.writeable:
                 # read-only input (a y4m frame read by np.frombuffer):
                 # torch.from_numpy wants a writable buffer
                 host = host.copy()

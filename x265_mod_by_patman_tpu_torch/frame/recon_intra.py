@@ -602,11 +602,10 @@ class IntraReconstructor:
         return self.materialize(out) if materialize else out
 
     def materialize(self, rd: dict) -> dict:
-        if self.bd != 8:
-            raise NotImplementedError("bit depths above 8 are not ported")
+        dt = np.uint8 if self.bd == 8 else np.uint16
         out = {}
         for k in ("recon_y", "recon_u", "recon_v"):
-            out[k] = rd[k].cpu().numpy().astype(np.uint8)
+            out[k] = rd[k].cpu().numpy().astype(dt)
         for k in ("lev_y", "lev_u", "lev_v"):
             out[k] = rd[k].cpu().numpy()
         if "modes_sel" in rd:

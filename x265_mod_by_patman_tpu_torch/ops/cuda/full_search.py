@@ -18,6 +18,7 @@ from .gather import window_gather_plain
 
 I32 = torch.int32
 KERNEL_N = (8, 16)       # block sizes the CUDA kernel is instantiated for
+EXACT_SUM = 1 << 24      # fp32 holds every integer SAD below this
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,6 +103,15 @@ def full_search(ref, orig, x0, y0, pred_mv_x, pred_mv_y, lambda_x256: int,
         raise ValueError(f"full_search: unsupported device {ref.device}")
     if n not in KERNEL_N:
         raise ValueError(f"the full_search kernel takes n in {KERNEL_N}")
+    if not torch.cuda.is_current_stream_capturing():
+        # the kernel sums absolute differences in fp32 (full_search.cu):
+        # exact while n^2 * (largest sample) < 2^24.  A CUDA graph under
+        # capture cannot read the planes back; it records the launch
+        # only, and its replays run on the planes of the capture.
+        top = int(torch.maximum(ref.max(), orig.max()))
+        if n * n * top >= EXACT_SUM:
+            raise ValueError(f"full_search: n^2 * {top} reaches 2^24; "
+                             "fp32 SAD sums would no longer be exact")
     b = x0.shape[0]
     h, w = ref.shape
     mx, my, cost = (torch.empty(b, dtype=I32, device=ref.device)
