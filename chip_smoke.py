@@ -26,20 +26,26 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    the plain version's time and, for K2, one PyTorch advanced-indexing
    call's time.  K1 again at both shapes on park at 10 and 12 bits
    (times 4 or 16, dithered) and K2 (size 23) on a 12-bit plane, exact,
-   with their device times beside the 8-bit ones;
-3. main path: a 6-frame 1920x1080 8-bit 4:2:0 clip (the `park`
-   generator of tools/make_clips.py) through the port's Encoder on the
-   card at the repo defaults (CQP 32, 4 B-frames with b-adapt 2 and the
-   pyramid, open GOP, scenecut); checks that the decode order holds B
-   pictures and a referenced B in every mini-GOP of 3 or more B's, that
-   both kernels launched during the encode, and the recon quality;
+   with their device times beside the 8-bit ones.  K1 at the --preset
+   slow --hme shapes (phase_k1_slow): the analysis search at r = 32 on
+   1080p and on a 2160p row band around HME window centres, the rect
+   PUs' 8x8 sub-block search on the band's stacked references, the HME
+   tier on quarter-res planes and the lookahead's hme_seeds on the
+   quarter-of-lowres planes, each exact and timed against its bound;
+3. main path: a 3-frame (I P B) 1920x1080 8-bit
+   4:2:0 clip (the `park` generator of tools/make_clips.py) through the
+   port's Encoder on the card at the repo defaults (CQP 32, 4 B-frames
+   with b-adapt 2 and the pyramid, open GOP, scenecut); checks that the
+   decode order holds a B picture, that both kernels launched during
+   the encode, and the recon quality;
    prints seconds per I, P and B picture, the lookahead's trace spans,
    each kernel's launches split into lookahead, cuTree and analysis,
    bits per frame and peak device memory, and whether the lowres
    intra-cost sums (float32, fixed pairwise order) stayed exact;
 4. the 416x240 park clip encoded on "cuda" and on "cpu" must give
    byte-identical streams: CQP as I P P (bframes=0, 3 frames) and at the
-   repo defaults (6 frames), CRF 28 with AQ 2 and cuTree (rc_lookahead
+   repo defaults (6 frames; a referenced B in every mini-GOP of 3 or
+   more B's), CRF 28 with AQ 2 and cuTree (rc_lookahead
    4, 8 frames, so cuTree pops inside the stream) and ABR 300 kb/s with
    AQ 1 (6 frames); the CPU path is what the test suite holds to the
    JAX reference encoder and the in-repo decoder.  The CRF case is also
@@ -51,9 +57,13 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    under build/; Main10 CRF 28 + AQ 2 + cuTree under a 150 kbit /
    150 kb/s VBV with HRD (8 frames; a picture must re-encode, and the
    CPB model holds on the parsed timing SEIs), also through the CLI on
-   a 10-bit y4m; 12-bit I P P.  Each case's CPU encode runs in a worker
-   process while its card encode runs here, and the CLI subprocesses
-   run beside the cases that follow them;
+   a 10-bit y4m; 12-bit I P P.  Then BASELINE config 3 at 416x240 (10
+   bits, --preset medium --bitrate 300 --rdoq-level 2 --b-pyramid,
+   HDR10; 6 frames) and --preset slow --hme --crf 24 --rc-lookahead 8
+   under a 70/70 VBV that binds (8 frames; a picture must re-encode and
+   rect PUs occur).  Each case's CPU encode runs in a worker process
+   while its card encode runs here, and the CLI subprocesses run beside
+   the cases that follow them;
 5. the rate-control path: the same 1080p clip as phase 3, cut to 3
    frames (I P B), under CRF 28 with AQ 2 and the cuTree lookahead
    (rc_lookahead at its default); prints, besides what phase 3 prints,
@@ -61,7 +71,7 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    it coded, the aq_map, cutree_push and cutree_pop spans and the
    launches split into lookahead, cuTree and analysis; checks the recon
    quality and that the per-CTU QP map varies on at least one picture;
-6. the Main10 delivery path: phase 3's 6 frames at 10 bits (park times
+6. the Main10 delivery path: phase 3's 3 frames at 10 bits (park times
    4 plus a seeded dither in [-2, 2]) under CRF 28 + AQ 2 + cuTree, a
    1000 kbit / 1000 kb/s VBV at 25 fps, HRD and HDR10 signalling
    (colour description, mastering display, content light level);
@@ -70,13 +80,28 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    VBV fullness and PSNR-Y at peak 1023, the launches split as above
    and the peak device memory; fails on a VBV underflow, an AU that
    misses its CPB removal time, a decode order other than phase 3's,
-   or a per-CTU QP map that never varies.
+   or a per-CTU QP map that never varies;
+7. the UHD slow path (run after phase 4, before 5 and 6): 3 frames (I P
+   B) of 3840x2160 park as BASELINE config 4, parameters built as the
+   CLI builds them (--preset slow --hme --rc-lookahead 40 --crf 24
+   --vbv-bufsize 25000 --vbv-maxrate 25000, 60 fps): row-banded
+   analysis, rect PUs, HME, RDOQ with sign hiding, --me star; prints
+   what phase 6 prints, the analysis bands, the share of inter 16x16
+   blocks coded as rect PUs and the launches with the HME tier counted;
+   fails on a decode order other than I P B, a VBV underflow, no rect
+   PU on any picture or a recon below 28 dB.
 
-Phases 3, 5 and 6 each set the kernel counts to 0 just before their
+Every stream of phases 3-7 is decoded with the port's own decoder in
+two worker processes on the host while the card runs the next phases;
+each picture must equal the card's recon and carry a matching MD5 SEI.
+
+Phases 3, 5, 6 and 7 each set the kernel counts to 0 just before their
 encode and read them just after.  Each phase prints its seconds.
 
-Prints the kernels' JSON line (launches from phase 6, this slice's
-path, and per path), the card line, and as its last line
+Prints the kernels' JSON line (launches from phase 7, this slice's
+path, and per path; K1's times at the analysis shape n = 16, r = 32,
+every slow-path shape under "shapes"), the card line, and as its last
+line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is
 then non-zero and no result line is printed.
 """
@@ -87,6 +112,7 @@ import sys
 sys.modules["jax"] = None           # the port must run without JAX ...
 sys.modules["x265_mod_by_patman_tpu"] = None    # ... and its package
 
+import functools  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -346,6 +372,128 @@ def phase_k1(dev, rng, card: str, clock_hz: float):
     return res
 
 
+UHD_HW = (2160, 3840)
+
+
+@functools.lru_cache(maxsize=None)
+def uhd_frames(n: int):
+    """The first n frames of the 3840x2160 park clip (phases 2 and 7)."""
+    return park_frames(UHD_HW[1], UHD_HW[0], n)
+
+
+def _k1_shape(name, args, card, clock_hz, res, centers=None):
+    """Check K1 at one shape (exact, with and without window centres),
+    time it and report it beside its bound and its plain version."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda.full_search import (
+        full_search, full_search_plain)
+    kw = {} if centers is None else dict(center_x=centers[0],
+                                         center_y=centers[1])
+    _check_k1(args, name, res)
+    if centers is not None:
+        got = full_search(*args, **kw)
+        ref = full_search_plain(*args, **kw)
+        err = max(int((g.long() - e.long()).abs().max())
+                  for g, e in zip(got, ref))
+        print(f"K1 full_search {name}, HME window centres: max_abs_err="
+              f"{err}")
+        if not all(torch.equal(g, e) for g, e in zip(got, ref)):
+            raise AssertionError(f"full_search differs: {name} centres")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+    b, n, r = args[2].shape[0], args[7], args[8]
+    ms = time_ms(lambda: full_search(*args, **kw))
+    plain = time_ms(lambda: full_search_plain(*args, **kw), per_graph=1,
+                    reps=3)
+    bound = k1_bound_ms(b, n, r, clock_hz)
+    h, w = args[0].shape
+    shape = f"{name} B={b} n={n} r={r} plane={h}x{w}"
+    _report("K1", shape, ms, call_ms(lambda: full_search(*args, **kw)),
+            bound, plain, card)
+    return dict(shape=shape, ms=ms, bound_ms=bound, plain_ms=plain,
+                share=bound / ms)
+
+
+def phase_k1_slow(dev, rng, card: str, clock_hz: float):
+    """K1 at the shapes of the --preset slow --hme path at 2160p, against
+    its plain version (exact) and timed: the analysis search (n = 16,
+    r = 32 of --me star) on a 1080p and on a 2160p row band, around HME
+    window centres; the rect PUs' 8x8 sub-block search (n = 8, r = 32)
+    on a 2160p band's references stacked with the HME pads; the HME
+    tier (n = 8, r = 32) on the band's quarter-res planes; the
+    lookahead's hme_seeds (n = 8, r = 16) on the quarter-of-lowres
+    planes.  Returns the analysis shape's numbers and every shape's."""
+    from x265_mod_by_patman_tpu_torch.analysis import inter_mode as im
+    from x265_mod_by_patman_tpu_torch.analysis.lookahead import (
+        LOOKAHEAD_LAMBDA_X256, N, SEARCH_RANGE, lowres_plane)
+    from x265_mod_by_patman_tpu_torch.ops.me import half_res
+    res = {"max_abs_err": 0}
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    lam = int(round(im.lambda_qp(32)[0] * 256))
+    shapes = []
+    # one 2160p row band as _banded_analysis cuts it (halo included)
+    f = uhd_frames(3)
+    sr = 32
+    r0, r1, ht, hb = im._analysis_bands(_UhdSps(), 16, sr)[1]
+    y0, y1 = (r0 - ht) * 16, (r1 + hb) * 16
+    band = lambda k: t(f[k][0][y0:y1].astype(np.int32))
+    cur, ref0, ref1 = band(1), band(0), band(2)
+    bh, bw = cur.shape
+    grid = lambda hh, ww, n: im._grid(hh // n, ww // n, n, dev)
+    # the analysis search at 1080p and on the band, zero centres, then
+    # around the band's HME centres
+    h1, w1 = FRAME_HW
+    f1 = park_frames(w1, 1080, 2)
+    pad = lambda p: np.pad(p, ((0, h1 - p.shape[0]), (0, 0)), mode="edge")
+    o1, q1 = t(pad(f1[1][0]).astype(np.int32)), t(pad(f1[0][0])
+                                                  .astype(np.int32))
+    x0, y0_ = grid(h1, w1, 16)
+    z = torch.zeros_like(x0)
+    shapes.append(_k1_shape("1080p park, analysis --me star",
+                            (q1, o1, x0, y0_, z, z, lam, 16, sr), card,
+                            clock_hz, res))
+    main = shapes[-1]
+    bx, by = grid(bh, bw, 16)
+    zb = torch.zeros_like(bx)
+    ctr = im._hme_center_fullres(ref0, cur, bh // 16, bw // 16, lam, sr)
+    shapes.append(_k1_shape("2160p band, analysis --me star --hme",
+                            (ref0, cur, bx, by, zb, zb, lam, 16, sr), card,
+                            clock_hz, res, ctr))
+    # rect: 8x8 sub-blocks on two references stacked with the HME pads
+    m_pad = 6 * sr + 12
+    tall, strip = im._stack_refs([ref0, ref1], m_pad)
+    otall = im._stack_refs([cur, cur], m_pad)[0]
+    sx4, sy4 = im._sub4(bx, by)
+    rsel4 = t(rng.integers(0, 2, sx4.shape[0]).astype(np.int32))
+    z4 = torch.zeros_like(sx4)
+    shapes.append(_k1_shape("2160p band, rect 8x8 sub-blocks, stacked refs",
+                            (tall, otall, sx4, sy4 + rsel4 * strip + m_pad,
+                             z4, z4, lam, 8, sr), card, clock_hz, res))
+    # the HME tier on the band's quarter-res planes
+    q = half_res
+    rq, oq = q(q(ref0)), q(q(cur))
+    qx, qy = grid(bh // 32 * 8, bw // 32 * 8, 8)
+    zq = torch.zeros_like(qx)
+    shapes.append(_k1_shape("2160p band, HME tier on 1/4-res planes",
+                            (rq, oq, qx, qy, zq, zq, lam, 8, sr), card,
+                            clock_hz, res))
+    # the lookahead's hme_seeds on the quarter-of-lowres planes of 2160p
+    lo = [t(lowres_plane(np.pad(f[k][0], ((0, 16), (0, 0)), mode="edge")))
+          for k in (0, 1)]
+    lq = [q(a) for a in lo]
+    lh, lw = lo[0].shape
+    sx, sy = grid(lh // N // 2 * N, lw // N // 2 * N, N)
+    zs = torch.zeros_like(sx)
+    shapes.append(_k1_shape("2160p lowres, lookahead hme_seeds",
+                            (lq[0], lq[1], sx, sy, zs, zs,
+                             LOOKAHEAD_LAMBDA_X256, N, SEARCH_RANGE), card,
+                            clock_hz, res))
+    return res, main, shapes
+
+
+class _UhdSps:
+    """The geometry _analysis_bands reads of a 3840x2160 picture."""
+    width, height = UHD_HW[1], UHD_HW[0]
+
+
 def phase_k2(dev, rng, card: str):
     """K2 against its plain version at every main-path size, on the frame
     plane (chroma sizes on the chroma plane) and on stacked references."""
@@ -465,15 +613,16 @@ def check_minigops(enc) -> None:
                                  "referenced B")
 
 
-def lowres_sums_exact(frames, dev) -> None:
-    """The lookahead sums each frame's 8160 lowres intra costs in float32
-    (fixed pairwise order); below 2**24 that sum is exact in any order,
-    so the card, the CPU and the reference agree.  Prints each frame's
-    sum against the exact integer sum (informational: at 10 bits the
-    sums may pass 2**24, where only the order fixes the rounding)."""
+def lowres_sums_exact(frames, dev, hw=FRAME_HW) -> None:
+    """The lookahead sums each frame's lowres intra costs (8160 at 1080p,
+    32640 at 2160p) in float32 (fixed pairwise order); below 2**24 that
+    sum is exact in any order, so the card, the CPU and the reference
+    agree.  Prints each frame's sum against the exact integer sum
+    (informational: at 10 bits or 2160p the sums may pass 2**24, where
+    only the order fixes the rounding).  hw: the CTU-padded luma size."""
     from x265_mod_by_patman_tpu_torch.analysis.lookahead import LowresStore
     from x265_mod_by_patman_tpu_torch.frame.planes import as_devplane
-    h, w = FRAME_HW
+    h, w = hw
     st = LowresStore(w, h, dev)
     rows = []
     for d, (y, _u, _v) in enumerate(frames):
@@ -503,12 +652,21 @@ def drive(enc, frames):
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
     from x265_mod_by_patman_tpu_torch.utils import trace
+    from x265_mod_by_patman_tpu_torch.analysis import (inter_mode,
+                                                       lookahead, slicetype)
     pics = []
-    split = {"lookahead": dict.fromkeys(kernels.KERNELS, 0),
-             "cutree": dict.fromkeys(kernels.KERNELS, 0)}
+    split = {k: dict.fromkeys(kernels.KERNELS, 0)
+             for k in ("lookahead", "cutree", "hme_analysis",
+                       "hme_lookahead")}
     originals = (Encoder._encode_picture, SlicetypeLookahead._eval_triples,
                  CuTreeLookahead._cost_vs)
     encode_picture, eval_triples, cost_vs = originals
+    # the HME tier: the analysis' quarter-res search and the lookahead's
+    # hme_seeds (the lattice and cuTree call it through their modules)
+    hme_fns = ((inter_mode, "_hme_center_fullres", "hme_analysis"),
+               (lookahead, "hme_seeds", "hme_lookahead"),
+               (slicetype, "hme_seeds", "hme_lookahead"))
+    hme_orig = [getattr(m, a) for m, a, _ in hme_fns]
 
     def timed_picture(self, *a, **k):
         torch.cuda.synchronize()
@@ -520,9 +678,9 @@ def drive(enc, frames):
         return f
 
     def counted(what, fn):
-        def wrapper(self, *a):
+        def wrapper(*a, **k):
             before = kernels.counts()
-            got = fn(self, *a)
+            got = fn(*a, **k)
             for name, c in kernels.counts().items():
                 split[what][name] += c - before[name]
             return got
@@ -531,6 +689,8 @@ def drive(enc, frames):
     Encoder._encode_picture = timed_picture
     SlicetypeLookahead._eval_triples = counted("lookahead", eval_triples)
     CuTreeLookahead._cost_vs = counted("cutree", cost_vs)
+    for (m, a, what), fn in zip(hme_fns, hme_orig):
+        setattr(m, a, counted(what, fn))
     try:
         ev0 = len(trace._events)
         torch.cuda.reset_peak_memory_stats()
@@ -547,6 +707,8 @@ def drive(enc, frames):
     finally:
         (Encoder._encode_picture, SlicetypeLookahead._eval_triples,
          CuTreeLookahead._cost_vs) = originals
+        for (m, a, _), fn in zip(hme_fns, hme_orig):
+            setattr(m, a, fn)
     return dict(out=out, pics=pics, counts=counts,
                 split=split, spans=spans, total=total,
                 peak=torch.cuda.max_memory_allocated())
@@ -602,17 +764,22 @@ def report_drive(run, frames, w, h, what, peak=255):
           f"{total:.3f} s; fps {n / total:.3f}; bits per frame "
           f"{8 * sum(len(f.bitstream) for f in out) / n:.0f}; "
           f"max_memory_allocated {run['peak'] / 2**20:.0f} MiB")
-    la, ct = run["split"]["lookahead"], run["split"]["cutree"]
+    sp = run["split"]
+    la, ct = sp["lookahead"], sp["cutree"]
+    hme = lambda k: "" if not (sp["hme_analysis"][k] or
+                               sp["hme_lookahead"][k]) else \
+        (f"; HME tier: analysis {sp['hme_analysis'][k]}, lookahead and "
+         f"cuTree {sp['hme_lookahead'][k]}")
     print("kernel launches during the encode: " + ", ".join(
         f"{k} {c} (lookahead {la[k]}, cuTree {ct[k]}, analysis "
-        f"{c - la[k] - ct[k]})" for k, c in run["counts"].items()))
+        f"{c - la[k] - ct[k]}{hme(k)})" for k, c in run["counts"].items()))
     for name, c in run["counts"].items():
         if c <= 0:
             raise AssertionError(f"{name} never launched on the path: "
                                  f"{what}")
 
 
-def phase_main(dev, w=1920, h=1080, n=6):
+def phase_main(dev, w=1920, h=1080, n=3):
     """The 1080p default encode on the card; returns launch counts and the
     decode order."""
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
@@ -621,6 +788,7 @@ def phase_main(dev, w=1920, h=1080, n=6):
     run = drive(Encoder(default_params(w, h), dev), frames)
     report_drive(run, frames, w, h,
                  f"main path {w}x{h} at the repo defaults")
+    decode_later(f"phase 3, {w}x{h} defaults", run["out"])
     check_minigops(run["out"])
     lowres_sums_exact(frames, dev)
     return run["counts"], [(f.slice_type, f.disp) for f in run["out"]]
@@ -644,19 +812,20 @@ def phase_rc(dev, w=1920, h=1080, n=3):
     report_drive(run, frames, w, h,
                  f"rate-control path {w}x{h}, CRF 28, AQ 2, cuTree "
                  f"(rc_lookahead {enc.p.rc_lookahead})")
+    decode_later(f"phase 5, {w}x{h} CRF + AQ 2 + cuTree", run["out"])
     check_minigops(run["out"])
     if not any(np.min(f.qp_map) < np.max(f.qp_map) for f in run["out"]):
         raise AssertionError("the per-CTU QP map never varied")
     return run["counts"]
 
 
-def phase_main10(dev, order3, w=1920, h=1080, n=6):
+def phase_main10(dev, order3, w=1920, h=1080, n=3):
     """The Main10 delivery path at full width on the card: 1080p park at
     10 bits (times 4, dithered), CRF 28 + AQ 2 + cuTree under a 1000 kbit
     / 1000 kb/s VBV at 25 fps with HRD timing SEIs and HDR10 signalling,
     with parameters built as the CLI builds them.  Checks no VBV
     underflow, the CPB model on the parsed timing SEIs, the decode order
-    of phase 3's 6 frames of the same clip (phase 5 runs 3), and a
+    of phase 3's frames of the same clip (I P B), and a
     per-CTU QP map that varies; returns launch counts."""
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     frames = deep_frames(park_frames(w, h, n), 10, 2026)
@@ -670,6 +839,7 @@ def phase_main10(dev, order3, w=1920, h=1080, n=6):
     report_drive(run, frames, w, h, f"Main10 delivery path {w}x{h}, CRF "
                  "28, AQ 2, cuTree, VBV 1000/1000, HRD, HDR10", peak=1023)
     out = run["out"]
+    decode_later(f"phase 6, {w}x{h} Main10 delivery", out)
     print(f"pipeline runs per picture: {[f.pipeline_runs for f in out]}; "
           f"VBV underflows {enc.rc.vbv_underflows}")
     if enc.rc.vbv_underflows:
@@ -686,15 +856,77 @@ def phase_main10(dev, order3, w=1920, h=1080, n=6):
     return run["counts"]
 
 
-def cli_params(w: int, h: int, n: int, opts, bit_depth: int = 8):
+# BASELINE config 4 (tools/bench_configs.py make_params(4)) as CLI options
+UHD_OPTS = (("hme", ""), ("rc-lookahead", "40"), ("crf", "24"),
+            ("vbv-bufsize", "25000"), ("vbv-maxrate", "25000"))
+
+
+def phase_uhd(dev, w=UHD_HW[1], h=UHD_HW[0], n=3):
+    """The UHD slow path at full width on the card: 2160p park, 3 frames
+    (I P B), with parameters built as the CLI builds them for BASELINE
+    config 4 (--preset slow --hme --rc-lookahead 40 --crf 24 --vbv-bufsize
+    25000 --vbv-maxrate 25000) at 60 fps.  Prints what phase 6 prints,
+    the analysis bands, each picture's share of inter 16x16 blocks coded
+    as rect PUs, and the launches with the HME tier counted; fails on a
+    decode order other than I P B, a VBV underflow, no rect PU on any
+    picture or a recon below 28 dB.  Returns launch counts."""
+    from x265_mod_by_patman_tpu_torch.analysis.inter_mode import \
+        _analysis_bands
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
+    frames = uhd_frames(n)
+    params = cli_params(w, h, n, UHD_OPTS, preset="slow", fps=60)
+    enc = Encoder(params, dev)
+    p = enc.p
+    bands = _analysis_bands(enc.sps, 16, enc._me_range)
+    print(f"UHD slow path: rd {p.rd_level}, rdoq {p.rdoq_level}, sign hide "
+          f"{p.sign_hide}, psy-rdoq {p.psy_rdoq}, rect {p.rect}, amp "
+          f"{p.amp}, hme {p.hme}, --me {p.search_method} (r = "
+          f"{enc._me_range}), subme {p.subpel_refine}, refs {enc.max_refs}, "
+          f"bframes {p.bframes}, rc-lookahead {p.rc_lookahead}, cuTree "
+          f"{enc._cutree is not None}, VBV {p.vbv_bufsize}/{p.vbv_maxrate} "
+          f"at {p.fps_num} fps; analysis bands "
+          f"{0 if bands is None else len(bands)} {bands}")
+    if not (p.rect and p.hme and bands and enc._me_range == 32
+            and p.rdoq_level == 2 and p.sign_hide and enc.rc.vbv_buffer > 0):
+        raise AssertionError("the UHD slow path lacks rect, HME, bands, "
+                             "star search, RDOQ + sign hiding or the VBV")
+    run = drive(enc, frames)
+    report_drive(run, frames, w, h, f"UHD slow path {w}x{h}, --preset slow "
+                 "--hme, CRF 24, VBV 25000/25000 at 60 fps")
+    out = run["out"]
+    decode_later(f"phase 7, {w}x{h} --preset slow --hme", out)
+    rect = [f.stats.get("cu_rect_pct", 0.0) for f in out]
+    inter = [f.stats.get("cu_inter_pct", 0.0) for f in out]
+    print("share of inter 16x16 blocks coded as rect PUs per picture: "
+          + ", ".join(f"{f.slice_type}{f.disp} "
+                      f"{(r / i if i else 0.0):.4f}"
+                      for f, r, i in zip(out, rect, inter)))
+    print(f"pipeline runs per picture: {[f.pipeline_runs for f in out]}; "
+          f"VBV underflows {enc.rc.vbv_underflows}")
+    order = [(f.slice_type, f.disp) for f in out]
+    if order != [("I", 0), ("P", 2), ("B", 1)]:
+        raise AssertionError(f"decode order {order}, not I0 P2 B1")
+    if enc.rc.vbv_underflows:
+        raise AssertionError(f"{enc.rc.vbv_underflows} VBV underflows")
+    if not any(r > 0 for r in rect):
+        raise AssertionError("no rect PU on any picture")
+    lowres_sums_exact(frames, dev, (h + (-h) % 64, w))
+    return run["counts"]
+
+
+def cli_params(w: int, h: int, n: int, opts, bit_depth: int = 8,
+               preset=None, fps: int = 25):
     """Parameters built as the CLI builds them for an n-frame y4m at
-    25 fps (cli.py: defaults, the y4m's rate, length and bit depth, --qp
-    32, CQP, then each option through EncoderParams.parse)."""
+    `fps` (cli.py: defaults, the y4m's rate, length and bit depth, the
+    --preset, --qp 32, CQP, then each option through
+    EncoderParams.parse)."""
     from x265_mod_by_patman_tpu_torch.params import default_params
     p = default_params(w, h)
-    p.fps_num, p.fps_denom, p.total_frames = 25, 1, n
+    p.fps_num, p.fps_denom, p.total_frames = fps, 1, n
     if bit_depth > 8:
         p.internal_bit_depth = bit_depth
+    if preset:
+        p.apply_preset(preset)
     p.qp, p.rc_mode = 32, "cqp"
     for k, v in opts:
         p.parse(k, v or "1")
@@ -750,6 +982,73 @@ def _cpu_encode(params, frames):
     return s, [f.bitstream for f in e], time.perf_counter() - t0
 
 
+def _decode_worker_init():
+    """A decode process: one thread, no trace."""
+    from x265_mod_by_patman_tpu_torch.utils import trace
+    trace._path = None
+    torch.set_num_threads(1)
+
+
+def _decode_check(what, stream, expected):
+    """In a decode process: decode `stream` with the port's decoder;
+    every picture must equal the card's recon (expected: (poc, md5, y, u,
+    v) per picture) and carry a matching MD5 SEI."""
+    from x265_mod_by_patman_tpu_torch.decoder.decoder import Decoder
+    t0 = time.perf_counter()
+    pics = Decoder().decode(stream)
+    if len(pics) != len(expected):
+        raise AssertionError(f"{what}: decoded {len(pics)} pictures of "
+                             f"{len(expected)}")
+    by_poc = {e[0]: e for e in expected}
+    for pic in pics:
+        _poc, md5, *planes = by_poc[pic.poc]
+        if not pic.sei_md5 == pic.md5 == md5:
+            raise AssertionError(f"{what}: picture {pic.poc} MD5 mismatch")
+        for a, b in zip((pic.y, pic.u, pic.v), planes):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{what}: picture {pic.poc} differs "
+                                     "from the card's recon")
+    return (f"decoded on the host: {what}: {len(pics)} pictures equal the "
+            f"card's recon, MD5 SEIs match ({time.perf_counter() - t0:.1f}"
+            " s)")
+
+
+class Decodes:
+    """Every stream of the run, decoded with the port's decoder in two
+    worker processes on the host while the card runs the next phases (a
+    2160p picture takes over a minute there)."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=2, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_decode_worker_init)
+        self.pending = []
+
+    def submit(self, what, stream, frames):
+        expected = [(f.poc, f.md5) + tuple(
+            np.array(p, copy=True).view(np.ndarray) for p in f.recon)
+            for f in frames]
+        self.pending.append(self.pool.submit(_decode_check, what, stream,
+                                             expected))
+
+    def finish(self):
+        t0 = time.perf_counter()
+        for fut in self.pending:
+            print(fut.result())
+        print(f"host decodes: {len(self.pending)} streams; waited "
+              f"{time.perf_counter() - t0:.2f} s after the last phase")
+
+
+DECODES = None          # set by main(): every phase submits its streams
+
+
+def decode_later(what, out):
+    """Queue the stream of `out` (EncodedFrames in decode order)."""
+    DECODES.submit(what, b"".join(f.bitstream for f in out), out)
+
+
 def cpu_pool():
     """Phase 4's one CPU encoder process: the CPU side of each agreement
     case runs there while the card's side runs here."""
@@ -782,6 +1081,7 @@ def _agree(pool, frames, what, p_gpu, p_cpu):
                 break
         raise AssertionError(f"cuda and cpu streams differ: {what}")
     print(f"cuda and cpu streams are byte-identical: {what}")
+    DECODES.submit(what, s_gpu, e_gpu)
     return s_gpu, e_gpu
 
 
@@ -801,8 +1101,9 @@ def agree_all(pool, w: int, h: int):
         frames = park_frames(w, h, n)
         _s, e = _agree(pool, frames, f"{w}x{h} x{n} CQP",
                        default_params(w, h, **kw), default_params(w, h, **kw))
-        if not kw and "B" not in [f.slice_type for f in e]:
-            raise AssertionError("the default encode made no B picture")
+        if not kw:
+            # the B pyramid (phase 3 runs only I P B)
+            check_minigops(e)
     streams = []
     for n, opts in RC_AGREE:
         frames = park_frames(w, h, n)
@@ -816,6 +1117,7 @@ def agree_all(pool, w: int, h: int):
     checks = [cli_on_card(frames, opts, s_gpu, f"smoke_{w}x{h}")]
     try:
         agree_deep(pool, w, h, checks)
+        agree_slow(pool, w, h)
     finally:
         for check in checks:
             check()
@@ -989,6 +1291,79 @@ def agree_deep(pool, w: int, h: int, checks):
            default_params(w, h, bframes=0, internal_bit_depth=12))
 
 
+# BASELINE config 3 at 416x240 (ABR scaled to the size) and the slow
+# preset with HME under CRF and a VBV that binds (phase 4)
+CONFIG3_AGREE = (6, (("bitrate", "300"), ("rdoq-level", "2"),
+                     ("b-pyramid", "")) + HDR10_OPTS, "medium")
+SLOW_AGREE = (8, (("hme", ""), ("crf", "24"), ("rc-lookahead", "8"),
+                  ("vbv-bufsize", "70"), ("vbv-maxrate", "70")), "slow")
+
+
+def agree_slow(pool, w: int, h: int):
+    """Phase 4's cases of this slice's options, cuda against cpu: BASELINE
+    config 3 at 10 bits (--preset medium: sign hiding under RDOQ 2, the
+    B pyramid, ABR 300 kb/s, HDR10) and --preset slow --hme under CRF 24
+    with an 8-frame VBV that binds (a picture must re-encode); each
+    stream must use the tools it names."""
+    n, opts, preset = CONFIG3_AGREE
+    frames = deep_frames(park_frames(w, h, n), 10, 3)
+    p3 = lambda: cli_params(w, h, n, opts, 10, preset=preset)
+    if not (p3().validate().sign_hide and p3().rdoq_level == 2):
+        raise AssertionError("config 3 lacks sign hiding under RDOQ")
+    _s, e = _agree(pool, frames, f"{w}x{h} x{n} Main10 --preset {preset} "
+                   + " ".join(f"--{k} {v}" for k, v in opts[:3]) + " HDR10",
+                   p3(), p3())
+    if "B" not in [f.slice_type for f in e]:
+        raise AssertionError("config 3 made no B picture")
+    n, opts, preset = SLOW_AGREE
+    frames = park_frames(w, h, n)
+    ps = lambda: cli_params(w, h, n, opts, preset=preset)
+    _s, e = _agree(pool, frames, f"{w}x{h} x{n} --preset {preset} "
+                   + " ".join(f"--{k} {v}" for k, v in opts), ps(), ps())
+    runs = [f.pipeline_runs for f in e]
+    rect = [f.stats.get("cu_rect_pct", 0.0) for f in e]
+    print(f"slow preset: pipeline runs {runs}, cu_rect_pct {rect}")
+    if max(runs) < 2:
+        raise AssertionError("no picture re-encoded under the VBV cap")
+    if not any(r > 0 for r in rect):
+        raise AssertionError("no rect PU in the slow-preset stream")
+
+
+def run_phases(dev, rng, cap: str, clock: float):
+    """Phases 2-7; phase 7 runs before 5 and 6, so that its 2160p
+    pictures decode on the host while the card runs them.  Returns the
+    launch counts per path and the kernels' numbers."""
+    t0 = time.perf_counter()
+    k1, main_shape, shapes = phase_k1_slow(dev, rng, cap, clock)
+    res = {"full_search": phase_k1(dev, rng, cap, clock),
+           "window_gather": phase_k2(dev, rng, cap)}
+    fs = res["full_search"]
+    fs["max_abs_err"] = max(fs["max_abs_err"], k1["max_abs_err"])
+    # the line's K1 numbers are this slice's analysis shape (n = 16,
+    # r = 32), every shape's beside them
+    fs.update(ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
+              bound_ms=main_shape["bound_ms"], shape=main_shape["shape"],
+              shapes=shapes)
+    print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
+    counts = {}
+    t0 = time.perf_counter()
+    counts["cqp_defaults"], order3 = phase_main(dev)
+    print(f"phase 3 main path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_agree()
+    print(f"phase 4 agreement: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts["uhd_slow"] = phase_uhd(dev)
+    print(f"phase 7 UHD slow path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts["crf_aq_cutree"] = phase_rc(dev)
+    print(f"phase 5 rate-control path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts["main10_vbv_hrd"] = phase_main10(dev, order3)
+    print(f"phase 6 Main10 delivery path: {time.perf_counter() - t0:.2f} s")
+    return counts, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -1016,32 +1391,21 @@ def main() -> int:
           f"({build.library_path().relative_to(ROOT)})")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2026)
-    t0 = time.perf_counter()
-    res = {"full_search": phase_k1(dev, rng, cap, clock),
-           "window_gather": phase_k2(dev, rng, cap)}
-    print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    counts_cqp, order3 = phase_main(dev)
-    print(f"phase 3 main path: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    phase_agree()
-    print(f"phase 4 agreement: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    counts = phase_rc(dev)
-    print(f"phase 5 rate-control path: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    counts_m10 = phase_main10(dev, order3)
-    print(f"phase 6 Main10 delivery path: {time.perf_counter() - t0:.2f} s")
+    global DECODES
+    DECODES = Decodes()
+    try:
+        counts, res = run_phases(dev, rng, cap, clock)
+        DECODES.finish()
+    finally:
+        DECODES.pool.shutdown(cancel_futures=True)
     src = {"full_search": ("full_search.cu", "x265_mod_by_patman_tpu/ops/"
                            "pallas/sad.py:67"),
            "window_gather": ("window_gather.cu", "x265_mod_by_patman_tpu/"
                              "ops/pallas/gather.py:82")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{cu}",
-         "replaces": rep, "launches": counts_m10[name],
-         "launches_by_path": {"cqp_defaults": counts_cqp[name],
-                              "crf_aq_cutree": counts[name],
-                              "main10_vbv_hrd": counts_m10[name]},
+         "replaces": rep, "launches": counts["uhd_slow"][name],
+         "launches_by_path": {k: c[name] for k, c in counts.items()},
          **res[name]}
         for name, (cu, rep) in src.items()]}
     print(json.dumps(line))

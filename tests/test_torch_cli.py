@@ -139,7 +139,7 @@ def test_cli_output_equals_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("extra,name", [
     (["--abr-ladder", "ladder.txt"], "--abr-ladder"),
-    (["--rect"], "--rect"),
+    (["--amp"], "--amp"),
     (["--lossless"], "--lossless"),
     (["--frame-threads", "2"], "--frame-threads"),
 ])

@@ -2,8 +2,9 @@
 against its plain PyTorch twin on the same device tensors, the launch
 counters, the lookahead lattice, B analysis and cuTree's lowres inter
 costs on the card against the CPU, K1 on 12-bit planes and its fp32
-bound, and card encodes (CQP, CRF with AQ and cuTree, and Main10 CRF
-under a VBV with HRD) that must give the CPU's bytes.  The GPU
+bound, K1 around HME window centres, and card encodes (CQP, CRF with AQ
+and cuTree, Main10 CRF under a VBV with HRD, and --preset slow --hme
+in row bands) that must give the CPU's bytes.  The GPU
 machine has no JAX, which tests/conftest.py imports, so run them there
 with `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
 
@@ -225,4 +226,62 @@ def test_card_main10_vbv_hrd_encode_equals_cpu(dev):
     s_gpu, e_gpu = encode_sequence(p(), frames, dev)
     s_cpu, _ = encode_sequence(p(), frames, "cpu")
     assert max(f.pipeline_runs for f in e_gpu) > 1
+    assert s_gpu == s_cpu
+
+
+@pytest.mark.parametrize("n,r", [(16, 32), (8, 32), (8, 16)])
+def test_full_search_kernel_with_window_centres_equals_plain(dev, n, r):
+    """HME window centres (up to +-5 r, so windows clamp on every edge)
+    at the slow path's shapes."""
+    rng = np.random.default_rng(n + r)
+    h, w, b = 96, 160, 37
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    ref = t(rng.integers(0, 256, (h, w), dtype=np.int32))
+    org = t(rng.integers(0, 256, (h, w), dtype=np.int32))
+    x0 = t(rng.integers(-n, w, b, dtype=np.int32))
+    y0 = t(rng.integers(-n, h, b, dtype=np.int32))
+    cx = t(rng.integers(-5 * r, 5 * r + 1, b, dtype=np.int32))
+    cy = t(rng.integers(-5 * r, 5 * r + 1, b, dtype=np.int32))
+    z = torch.zeros_like(x0)
+    kernels.reset_counts()
+    got = full_search(ref, org, x0, y0, z, z, 400, n, r, cx, cy)
+    assert kernels.counts()["full_search"] == 1
+    exp = full_search_plain(ref, org, x0, y0, z, z, 400, n, r, cx, cy)
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+
+
+def test_card_slow_preset_encode_equals_cpu(dev):
+    """--preset slow --hme (rect PUs, RDOQ with sign hiding, star search)
+    under CRF with a VBV, in row bands: the card gives the CPU's bytes."""
+    from x265_mod_by_patman_tpu_torch.analysis import inter_mode
+    from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
+    from x265_mod_by_patman_tpu_torch.params import default_params
+
+    def bands(sps, block, sr):
+        nby = sps.height // block
+        if nby * (sps.width // block) <= 16:
+            return None
+        return [(r0, min(nby, r0 + 2), min(1, r0), min(1, nby - r0 - 2))
+                for r0 in range(0, nby, 2)]
+
+    rng = np.random.default_rng(6)
+    world = rng.integers(0, 256, (112, 200)).astype(np.int32)
+    world = (world + np.roll(world, 1, 0) + np.roll(world, 1, 1)) // 3
+    frames = [(world[2 * i:2 * i + 96, 9 * i:9 * i + 128].astype(np.uint8),
+               np.full((48, 64), 120, np.uint8),
+               np.full((48, 64), 130, np.uint8)) for i in range(6)]
+
+    def p():
+        q = default_params(128, 96, rc_mode="crf", crf=24.0)
+        q.apply_preset("slow")
+        q.hme, q.rc_lookahead, q.vbv_bufsize, q.vbv_maxrate = True, 8, 80, 80
+        return q
+    orig = inter_mode._analysis_bands
+    inter_mode._analysis_bands = bands
+    try:
+        s_gpu, _ = encode_sequence(p(), frames, dev)
+        s_cpu, _ = encode_sequence(p(), frames, "cpu")
+    finally:
+        inter_mode._analysis_bands = orig
     assert s_gpu == s_cpu

@@ -44,11 +44,9 @@ def test_port_stream_equals_jax_and_decodes(case):
 
 @pytest.mark.parametrize("kw,name", [
     (dict(bframes=4, weightb=True), "--weightb"),
-    (dict(bframes=0, rect=True), "--rect"),
     (dict(bframes=0, amp=True), "--amp"),
     (dict(bframes=0, search_method="sea"), "--me sea"),
-    (dict(bframes=0, hme=True), "--hme"), (dict(bframes=0, mcstf=True),
-                                           "--mcstf"),
+    (dict(bframes=0, mcstf=True), "--mcstf"),
     (dict(bframes=0, internal_csp=2), "4:2:2"),
     (dict(bframes=0, rc_mode="crf", frame_parallel_window=2),
      "--frame-threads"),
@@ -60,3 +58,14 @@ def test_port_stream_equals_jax_and_decodes(case):
 def test_unported_options_raise(kw, name):
     with pytest.raises(NotImplementedError, match=name):
         ttop.Encoder(default_params(96, 64, **kw), "cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(bframes=0, rect=True), dict(bframes=0, hme=True),
+    dict(bframes=0, rdoq_level=2, sign_hide=True),
+])
+def test_slow_preset_options_are_accepted(kw):
+    """--rect, --hme and sign hiding under RDOQ are ported (their
+    streams are held to the reference in tests/test_torch_slow.py)."""
+    enc = ttop.Encoder(default_params(96, 64, **kw), "cpu")
+    assert all(getattr(enc.p, k) == v for k, v in kw.items())

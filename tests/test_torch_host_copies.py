@@ -1,7 +1,8 @@
 """The port's own copies of the reference's jax-free host modules
 (params, bitstream, entropy, rc, constants, frame.zscan, utils.trace,
 the CLI's io and metrics modules, bitstream.hdr10plus, the native C
-entropy engine, the host half of analysis.weightp) must stay verbatim:
+entropy engine, the host half of analysis.weightp, the validation
+decoder and the numpy goldens it imports) must stay verbatim:
 each copy's source equals the reference's once the package name is
 substituted, and so must the host blocks copied into encoder/top.py's
 rewritten methods (the Dolby Vision RPU split, the HDR10+ and HRD
@@ -37,7 +38,25 @@ VERBATIM = (
     "utils/trace.py", "native/entropy_kernels.c", "io/__init__.py",
     "io/y4m.py", "io/script_input.py", "io/gop_output.py",
     "io/reconplay.py", "utils/metrics.py", "utils/vmaf.py",
-    "bitstream/hdr10plus.py")
+    "bitstream/hdr10plus.py", "decoder/__init__.py", "decoder/decoder.py")
+
+# the numpy goldens decoder/decoder.py imports from the reference's
+# jax-importing ops modules, with the helpers they call, copied unchanged
+# into the port's counterpart modules under the same names
+DECODER_GOLDENS = (
+    ("ops/interp.py", ("_filt1d_ref", "mc_block_ref", "mc_block_ref_14",
+                       "bi_combine_ref", "wp_apply_ref",
+                       "wp_bi_combine_ref")),
+    ("ops/intra.py", ("substitute_refs", "filter_refs",
+                      "strong_smoothing_condition", "_refs_from_s",
+                      "intra_pred_ref", "predict_block_ref")),
+    ("ops/transform.py", ("_rshift_round", "idct_ref", "dequant_ref")),
+    ("ops/deblock.py", ("_clip3", "_filter_luma_edge_ref",
+                        "deblock_luma_ref", "deblock_chroma_ref",
+                        "chroma_on_maps")),
+    ("ops/sao.py", ("sao_apply_ref", "SaoParams")),
+    ("frame/recon_intra.py", ("chroma_qp",)),
+)
 
 
 def _read(pkg: str, rel: str) -> str:
@@ -48,6 +67,20 @@ def _read(pkg: str, rel: str) -> str:
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_host_module_is_a_verbatim_copy(rel):
     assert _read(PORT, rel) == _read(REF, rel).replace(REF, PORT)
+
+
+def _top_defs(src):
+    tree = ast.parse(src)
+    return {n.name: ast.get_source_segment(src, n) for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+
+@pytest.mark.parametrize("rel,name", [(rel, name)
+                                      for rel, names in DECODER_GOLDENS
+                                      for name in names])
+def test_decoder_golden_is_verbatim(rel, name):
+    assert _top_defs(_read(PORT, rel))[name] == \
+        _top_defs(_read(REF, rel))[name]
 
 
 def test_native_loader_bindings_are_verbatim():

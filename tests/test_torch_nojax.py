@@ -31,10 +31,20 @@ for i in range(6):
 wr.close()
 assert cli.main(["--input", out + "/in.y4m", "-o", out + "/out.hevc",
                  "--crf", "28", "--aq-mode", "2", "--no-progress",
-                 "--csv", out + "/log.csv", "--device", "cpu"]) == 0
+                 "--csv", out + "/log.csv", "--recon", out + "/rec.y4m",
+                 "--device", "cpu"]) == 0
 types = [r.split(",")[1] for r in open(out + "/log.csv").read().split()[1:]]
 assert types[:2] == ["I", "P"] and "B" in types, types
 assert len(open(out + "/out.hevc", "rb").read()) > 100
+from x265_mod_by_patman_tpu_torch.decoder.decoder import Decoder
+from x265_mod_by_patman_tpu_torch.io.y4m import Y4MReader
+pics = Decoder().decode(open(out + "/out.hevc", "rb").read())
+recs = list(Y4MReader(out + "/rec.y4m"))
+assert len(pics) == len(recs) == 6, (len(pics), len(recs))
+for pic, rec in zip(sorted(pics, key=lambda p: p.poc), recs):
+    assert pic.sei_md5 == pic.md5
+    for a, b in zip((pic.y, pic.u, pic.v), rec):
+        assert np.array_equal(a, b)
 assert not any(m.split(".")[0] in ("jax", "x265_mod_by_patman_tpu")
                for m, v in sys.modules.items() if v is not None)
 print("OK", types)

@@ -202,9 +202,23 @@ def test_cutree_pop_sequence_matches_reference(scene):
     assert pops == len(frames) and not len(tl)
 
 
-def test_cutree_rejects_hme():
-    with pytest.raises(NotImplementedError, match="--hme"):
-        tla.CuTreeLookahead(W, H, 32, hme=True, device=CPU)
+def test_cutree_hme_pop_sequence_matches_reference():
+    """cuTree with the HME tier (hme_seeds centring the lowres search):
+    a scene panning 20 px a frame, every frame pushed, then popped."""
+    rng = np.random.default_rng(9)
+    big = rng.integers(0, 256, (H, W + 200)).astype(np.uint8)
+    frames = [np.ascontiguousarray(big[:, 20 * i:20 * i + W])
+              for i in range(8)]
+    jl = jla.CuTreeLookahead(W, H, 32, hme=True)
+    tl = tla.CuTreeLookahead(W, H, 32, hme=True, device=CPU)
+    for y in frames:
+        jl.push(y)
+        tl.push(y)
+    pops = 0
+    while len(jl):
+        np.testing.assert_array_equal(tl.pop(), jl.pop())
+        pops += 1
+    assert pops == len(frames) and not len(tl)
 
 
 # -- AQ ------------------------------------------------------------------------

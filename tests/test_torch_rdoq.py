@@ -61,6 +61,36 @@ def test_rdoq_levels_match_reference(log2n, c_idx, mode):
     np.testing.assert_array_equal(got, exp)
 
 
+@pytest.mark.parametrize("log2n,c_idx", [(2, 0), (3, 1), (4, 0), (5, 0)])
+@pytest.mark.parametrize("mode", ["static", "est", "table", "psy"])
+def test_rdoq_sign_hide_matches_reference(log2n, c_idx, mode):
+    """RDOQ-integrated sign hiding (sign_hide=True): the parity flips
+    pick the same level as the reference, ties to the first minimum."""
+    coef = _coefs(log2n, seed=7)
+    b = coef.shape[0]
+    imask = np.arange(b) % 3 != 0
+    qp = np.full(b, 27, np.int32)
+    qp[::4] = 33
+    kw_j, kw_t = {}, {}
+    it = None if mode == "static" else 2
+    if mode == "table":
+        tab = bits_table_from_states(init_states(2, 27)).astype(np.float32)
+        kw_j["bits_table"] = jnp.asarray(tab)
+        kw_t["bits_table"] = _t(tab)
+    if mode == "psy":
+        kw_j["psy_rdoq"] = jnp.float32(1.0)
+        kw_t["psy_rdoq"] = 1.0
+    args_j = (jnp.asarray(coef), jnp.asarray(imask), jnp.asarray(qp), log2n,
+              8, c_idx, None if it is None else jnp.int32(it))
+    exp = np.asarray(jr.rdoq_levels(*args_j, sign_hide=True, **kw_j))
+    plain = np.asarray(jr.rdoq_levels(*args_j, **kw_j))
+    got = to_numpy(tr.rdoq_levels(_t(coef), _t(imask), _t(qp), log2n, 8,
+                                  c_idx, it, sign_hide=True, **kw_t))
+    np.testing.assert_array_equal(got, exp)
+    if log2n >= 3:
+        assert (exp != plain).any()           # hiding fired somewhere
+
+
 @pytest.mark.parametrize("log2n,c_idx", [(2, 0), (3, 1), (4, 0), (4, 2),
                                          (5, 0)])
 def test_tb_bits_est_matches_reference(log2n, c_idx):

@@ -2,14 +2,19 @@
 region homogenization + inter/intra decision + MC prediction (port of
 x265_mod_by_patman_tpu/analysis/inter_mode.py).
 
-lambda_qp, _scale_mv_np, temporal_merge_field and _b_tmvp_field are host
-functions copied unchanged from the reference (its module imports jax).
-The reference's tile-row banding, rect/AMP, SEA, HME and weighted-B
-branches are not ported; the TPU-only _chain scheduling barriers have no
-counterpart.
+lambda_qp, _scale_mv_np, temporal_merge_field, _b_tmvp_field,
+WINDOW_NBY_LIMIT and _analysis_bands are host functions copied unchanged
+from the reference (its module imports jax).  Frames above 9000 16x16
+blocks (4K) are analysed in row bands on sliced sub-planes
+(_banded_analysis), HME seeds the full search (_hme_center_fullres) and
+rect PUs (2NxN / Nx2N) are searched on 8x8 sub-blocks, as in the
+reference.  Its AMP, SEA, mesh-sharded (shard_map slab) and weighted-B
+branches are not ported; the TPU-only _chain scheduling barriers and
+lane chunking have no counterpart.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Tuple
 
@@ -20,8 +25,8 @@ from ..frame.planes import dev_i32
 from ..frame.zscan import frame_avail_masks
 from ..ops.cost import satd_batch
 from ..ops.interp import bi_combine, mc_batch, mc_batch_14, wp_apply_batch
-from ..ops.me import (_org_blocks, full_search_batch, mv_bits,
-                      subpel_refine_batch)
+from ..ops.me import (_org_blocks, full_search_batch, half_res,
+                      hme_upsample, mv_bits, subpel_refine_batch)
 from ..ops.numeric import fsum
 from ..ops.transform import dct_batch, dequant_dyn, idct_batch, quant_dyn
 from .intra_mode import _mode_costs
@@ -127,6 +132,26 @@ def _stack_refs(planes, m: int):
     return tall, padded[0].shape[0]
 
 
+_SUBB_H = torch.tensor([0, 0, 1, 1], dtype=I32)   # PU1's sub-blocks, 2NxN
+_SUBB_V = torch.tensor([0, 1, 0, 1], dtype=I32)   # and Nx2N
+
+
+def _sub4(bx, by):
+    """Origins of each 16-block's four 8x8 sub-blocks, in k-order
+    (dy, dx) = (0, 0), (0, 8), (8, 0), (8, 8): (4B,) x and y."""
+    dx = torch.tensor([0, 8, 0, 8], dtype=I32, device=bx.device)
+    dy = torch.tensor([0, 0, 8, 8], dtype=I32, device=bx.device)
+    return ((bx[:, None] + dx[None]).reshape(-1),
+            (by[:, None] + dy[None]).reshape(-1))
+
+
+def _from_sub4(p, sz: int):
+    """(4B, sz/2, sz/2) sub-block predictions in k-order -> (B, sz, sz)."""
+    half = sz // 2
+    return p.reshape(-1, 2, 2, half, half).permute(0, 1, 3, 2, 4) \
+        .reshape(-1, sz, sz)
+
+
 def _rd_resid_cost(org, pred, qp_b, log2n: int, bd: int, lam2):
     """Transform-domain RD of one motion option's luma residual: returns
     (coded_cost_sans_syntax, zero_residual_sse) per block (float32).
@@ -147,16 +172,34 @@ def _rd_resid_cost(org, pred, qp_b, log2n: int, bd: int, lam2):
     return sse_c + lam2 * bits, sse_z
 
 
+def _hme_center_fullres(ry, oy, nby: int, nbx: int, lam256: int,
+                        sr: int):
+    """Quarter-res HME tier for the main per-ref search (see the
+    reference): 8x8 blocks on 1/4-res planes, each covering a 2x2 group
+    of 16-blocks, full-search +-sr (K1); the MVs become FULLPEL window
+    centres of the 16-blocks, extending the range to ~5*sr."""
+    rq, oq = half_res(half_res(ry)), half_res(half_res(oy))
+    gh, gw = max(nby // 2, 1), max(nbx // 2, 1)
+    x0, y0 = _grid(gh, gw, 8, ry.device)
+    zero = torch.zeros_like(x0)
+    mvx, mvy, _ = full_search_batch(rq, oq, x0, y0, zero, zero, lam256, 8,
+                                    sr)
+    return (hme_upsample((mvx >> 2) * 4, gh, gw, nby, nbx),
+            hme_upsample((mvy >> 2) * 4, gh, gw, nby, nbx))
+
+
 def _me_one_ref(oy, ry, bx, by, n: int, lam256: int, search_range: int,
-                bit_depth: int = 8, subme: int = 2, org=None):
+                bit_depth: int = 8, subme: int = 2, org=None, hme=None):
     """Full search (K1) + subpel against one reference, zero-pred
-    regularized.  Returns (mvx, mvy, cost, org) int32; `org` (the
-    (B, n, n) source blocks) is gathered here unless the caller passes
-    it, as a P frame does once for all its references.  The reference's
-    lane chunking is TPU-only; its SEA and HME options are not ported."""
+    regularized.  hme: optional (cx, cy) FULLPEL window centres from
+    the quarter-res tier.  Returns (mvx, mvy, cost, org) int32; `org`
+    (the (B, n, n) source blocks) is gathered here unless the caller
+    passes it, as a P frame does once for all its references."""
     pz = torch.zeros_like(bx)
-    imx, imy, _ = full_search_batch(ry, oy, bx, by, pz, pz, lam256, n,
-                                    search_range)
+    imx, imy, _ = full_search_batch(
+        ry, oy, bx, by, pz, pz, lam256, n, search_range,
+        center_x=None if hme is None else hme[0],
+        center_y=None if hme is None else hme[1])
     if org is None:
         org = _org_blocks(oy, bx, by, n)
     mvx, mvy, cost = subpel_refine_batch(ry, oy, bx, by, imx, imy, pz, pz,
@@ -164,8 +207,74 @@ def _me_one_ref(oy, ry, bx, by, n: int, lam256: int, search_range: int,
     return mvx, mvy, cost, org
 
 
-MAX_BLOCKS = 9000        # the reference bands larger frames
-                         # (_analysis_bands); 1080p has 8040 blocks
+WINDOW_NBY_LIMIT = 32     # block rows per banded analysis dispatch:
+                          # the 4K cores measured 6.5 (P) / 13 (B) GiB
+                          # of HLO temps whole-frame (tools/mem_probe);
+                          # sequential row bands cap the working set
+                          # like the reference's CTU-row processing
+                          # (frameencoder.cpp:1638)
+
+
+def _analysis_bands(sps, block: int, search_range: int):
+    """None (whole-frame fits), or a list of
+    (r0, r1, halo_top_rows, halo_bot_rows) block-row bands."""
+    nby = sps.height // block
+    nbx = sps.width // block
+    if nby * nbx <= 9000:        # 1080p (8040 blocks) stays one dispatch
+        return None
+    halo = -(-(search_range + 24) // block) + 1
+    per = max(4, (WINDOW_NBY_LIMIT - 2 * halo) & ~3)
+    bands = []
+    r0 = 0
+    while r0 < nby:
+        r1 = min(nby, r0 + per)
+        bands.append((r0, r1, min(halo, r0), min(halo, nby - r1)))
+        r0 = r1
+    return bands
+
+
+def _banded_analysis(fn, bands, sps, block, plane_args, col_field,
+                     grid_outs, device):
+    """Run `fn` per row band on sliced sub-planes and concatenate the
+    block-grid outputs (the reference's _banded_analysis).  plane_args:
+    name -> (y, u, v) planes or a list of them; col_field: the
+    full-frame TMVP tuple of (nby, nbx) arrays, or None.  Each band is
+    analysed as a frame of height y1 - y0, so its reads clamp at the
+    band's edges (decision-only: entropy derives the true candidates)."""
+    cs_y = 1                                    # 4:2:0 chroma rows
+
+    def dev_planes(t):
+        return tuple(dev_i32(a, device) for a in t)
+
+    devved = {name: [dev_planes(t) for t in val] if isinstance(val, list)
+              else dev_planes(val) for name, val in plane_args.items()}
+    outs = None
+    for (r0, r1, ht, hb) in bands:
+        y0 = (r0 - ht) * block
+        y1 = (r1 + hb) * block
+        sl = slice(y0, y1)
+        csl = slice(y0 >> cs_y, y1 >> cs_y)
+
+        def cut(t):
+            return (t[0][sl], t[1][csl], t[2][csl])
+
+        args = {name: [cut(t) for t in val] if isinstance(val, list)
+                else cut(val) for name, val in devved.items()}
+        sub_sps = dataclasses.replace(sps, height=y1 - y0)
+        tm = None
+        if col_field is not None:
+            tm = tuple(a[r0 - ht:r1 + hb] for a in col_field)
+        got = fn(sub_sps, args, tm)
+        got = [o[ht:ht + (r1 - r0)] if i in grid_outs else o
+               for i, o in enumerate(got)]
+        if outs is None:
+            outs = [[o] for o in got]
+        else:
+            for acc, o in zip(outs, got):
+                acc.append(o)
+    return [acc[0] if len(acc) == 1 else
+            torch.cat(acc, 0) if isinstance(acc[0], torch.Tensor) else
+            np.concatenate(acc, 0) for acc in outs]
 
 
 def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
@@ -174,28 +283,54 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
                     amp: bool = False, chroma_weights=None,
                     me_sea: bool = False, col=None, ref_pocs=None,
                     cur_poc: int = 0, pad_refs: int = 0,
-                    hme: bool = False, rounds=(2, 1)):
+                    hme: bool = False, rounds=(2, 1), _tmvp_field=None):
     """Multi-reference P analysis (see the reference's analyse_p_frame).
 
     refs: list of (ref_y, ref_u, ref_v) planes, L0 order (closest first).
     Returns (intra_modes, inter_mask, mvs, ref_sel, (mc_y, mc_u, mc_v),
-    part_map, mvs_b); the mc planes stay device tensors."""
-    if rect or amp:
-        raise NotImplementedError("rect/AMP partitions (--rect/--amp) are "
-                                  "not ported")
+    part_map, mvs_b); the mc planes stay device tensors.  part_map: 0
+    2Nx2N, 1 2NxN, 2 Nx2N; mvs_b: PU1's MV of a rect block.
+    _tmvp_field: set by _banded_analysis (the full-frame TMVP field cut
+    to the band, or () for none)."""
+    if amp:
+        raise NotImplementedError("AMP partitions (--amp) are not ported")
     if me_sea:
         raise NotImplementedError("--me sea is not ported")
-    if hme:
-        raise NotImplementedError("hierarchical ME (--hme) is not ported")
     if getattr(sps, "chroma_format_idc", 1) != 1:
         raise NotImplementedError("only 4:2:0 is ported")
     if block != 16:
         raise NotImplementedError("only 16x16 analysis blocks are ported")
-    if (sps.height // block) * (sps.width // block) > MAX_BLOCKS:
-        raise NotImplementedError(
-            "frames above 9000 16x16 blocks need the banded analysis "
-            "(_analysis_bands), which is not ported")
     device = torch.device(device)
+    bands = None if _tmvp_field is not None \
+        else _analysis_bands(sps, block, search_range)
+    if bands is not None:
+        field = None
+        if col is not None and ref_pocs is not None and ref_pocs[0]:
+            low_delay = all(rp <= cur_poc for lst_p in ref_pocs
+                            for rp in lst_p)
+            field = temporal_merge_field(
+                col, sps.height // block, sps.width // block, block,
+                sps.width, sps.height, sps.log2_ctu_size, 0,
+                ref_pocs[0][0], cur_poc, low_delay)
+
+        def run(sub_sps, args, tm):
+            out = analyse_p_frame(
+                args["cur"][0], args["cur"][1], args["cur"][2],
+                args["refs"], sub_sps, qp, device,
+                search_range=search_range, block=block, weights=weights,
+                subme=subme, rect=rect, chroma_weights=chroma_weights,
+                ref_pocs=ref_pocs, cur_poc=cur_poc, pad_refs=pad_refs,
+                hme=hme, rounds=rounds,
+                _tmvp_field=tm if tm is not None else ())
+            return list(out[:4]) + list(out[4]) + list(out[5:])
+
+        o = _banded_analysis(run, bands, sps, block,
+                             {"cur": (y, u, v), "refs": list(refs)},
+                             field, set(range(9)), device)
+        return (o[0], o[1], o[2], o[3],
+                _whole_frame_mc(o, refs, weights, chroma_weights, rect,
+                                hme, search_range, block, sps.bit_depth,
+                                device), o[7], o[8])
     bd = sps.bit_depth
     if weights is None:
         weights = [None] * len(refs)
@@ -215,8 +350,13 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
                               sps.log2_ctu_size, 0)
     lam, _ = lambda_qp(qp)
     lam256 = int(round(lam * 256)) << (bd - 8)
+    # rect PUs search on unweighted planes only (see the reference)
+    rect_eff = rect and not any(wp is not None for wp in weights)
     tmvp = None
-    if col is not None and ref_pocs is not None and ref_pocs[0]:
+    if _tmvp_field is not None:
+        if len(_tmvp_field):
+            tmvp = _tmvp_field
+    elif col is not None and ref_pocs is not None and ref_pocs[0]:
         low_delay = all(rp <= cur_poc for lst_p in ref_pocs
                         for rp in lst_p)
         tmvp = temporal_merge_field(
@@ -226,7 +366,8 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
     out = _p_core(oy, rys, rus, rvs, weights, chroma_weights,
                   torch.from_numpy(avail.reshape(-1, avail.shape[-1]))
                   .to(device), lam256, qp, search_range, block, bd,
-                  sps.log2_ctu_size, subme, tmvp, n_real, tuple(rounds))
+                  sps.log2_ctu_size, subme, tmvp, n_real, tuple(rounds),
+                  rect_eff, hme)
     modes, inter, mvs, rsel, mcy, mcu, mcv, part, mvs_b = out
     h = lambda a: a.cpu().numpy()
     return (h(modes), h(inter), h(mvs), h(rsel), (mcy, mcu, mcv), h(part),
@@ -235,9 +376,10 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
 
 def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
             qp: int, search_range: int, n: int, bd: int, log2_ctu: int,
-            subme: int, tmvp, n_real: int, rounds):
-    """Whole-frame P analysis on one device (the reference's _p_core for
-    an unbanded, rect-free call)."""
+            subme: int, tmvp, n_real: int, rounds, rect: bool = False,
+            hme: bool = False):
+    """P analysis of one frame or row band on one device (the
+    reference's _p_core for a call outside shard_map, without AMP)."""
     dev = oy.device
     h, w = oy.shape
     nbx = w // n
@@ -262,8 +404,12 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
     cands = []
     org = _org_blocks(oy, bx, by, n)
     for ry in ry_all:
+        ctr = None
+        if hme:
+            ctr = _hme_center_fullres(ry, oy, nby, nbx, lam256,
+                                      search_range)
         mvx, mvy, cost, _ = _me_one_ref(oy, ry, bx, by, n, lam256,
-                                        search_range, bd, subme, org)
+                                        search_range, bd, subme, org, ctr)
         satd = cost - ((lam256 * mv_bits(mvx, mvy)) >> 8)
         cands.append((mvx, mvy, satd))
 
@@ -277,8 +423,9 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
     pick = lambda a: torch.gather(a, 0, ref_sel.long()[None])[0]
     mvx, mvy, satd_me = pick(mvx_r), pick(mvy_r), pick(satd_r)
 
-    # 2. merge/AMVP candidate rounds
-    m_pad = search_range + 12
+    # 2. merge/AMVP candidate rounds; seeded (HME) MVs reach ~5*sr, and
+    # the tall-strip pad must cover them
+    m_pad = (6 * search_range + 12) if hme else (search_range + 12)
     tall, strip = _stack_refs(ry_all, m_pad)
     me_mvx, me_mvy, me_ref = mvx, mvy, ref_sel
     AV_A1, AV_A0, AV_B2, AV_B1, AV_B0 = n, n - 1, 2 * n, 3 * n, 3 * n + 1
@@ -408,9 +555,79 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
     for _ in range(rounds[1]):
         mvx, mvy, ref_sel, cost, cost_rd = cand_round(mvx, mvy, ref_sel,
                                                       rd=True)
-    part = torch.zeros(nb, dtype=I32, device=dev)
 
-    # 2c. motion homogenization over 32 (and, at CTU64, 64) regions
+    # 2b. rect PU candidates (2NxN / Nx2N): 8x8 sub-block ME on each
+    # block's chosen reference (K1 on the stacked planes), then PU costs
+    # from own + partner SATD pairings
+    part = torch.zeros(nb, dtype=I32, device=dev)
+    mvbx = torch.zeros(nb, dtype=I32, device=dev)
+    mvby = torch.zeros(nb, dtype=I32, device=dev)
+    if rect:
+        sx4, sy4 = _sub4(bx, by)
+        rsel4 = ref_sel.repeat_interleave(4)
+        otall = _stack_refs([oy] * nref, m_pad)[0]
+        ytall = sy4 + rsel4 * strip + m_pad
+        pz4 = torch.zeros(nb * 4, dtype=I32, device=dev)
+        im8x, im8y, _ = full_search_batch(tall, otall, sx4, ytall, pz4, pz4,
+                                          lam256, 8, search_range)
+        org8 = _org_blocks(oy, sx4, sy4, 8)
+        mv8x, mv8y, c8 = subpel_refine_batch(tall, otall, sx4, ytall, im8x,
+                                             im8y, pz4, pz4, lam256, 8, bd,
+                                             subme)
+        own = (c8 - ((lam256 * mv_bits(mv8x, mv8y)) >> 8)).reshape(nb, 4)
+
+        def cross_satd(perm):
+            px_ = mv8x.reshape(nb, 4)[:, perm].reshape(-1)
+            py_ = mv8y.reshape(nb, 4)[:, perm].reshape(-1)
+            pr = mc_batch(tall, sx4, ytall, px_, py_, 8, 0, bd)
+            return satd_batch(org8, pr).reshape(nb, 4)
+
+        crossH = cross_satd([1, 0, 3, 2])
+        crossV = cross_satd([2, 3, 0, 1])
+        m8 = (mv8x.reshape(nb, 4), mv8y.reshape(nb, 4))
+        pu_bits = (lam256 * (3 + ref_sel)) >> 8
+
+        def pu_best(sa, sb, ca, cb):
+            """PU of sub-blocks (a, b): ca = a's MV over both, cb = b's
+            MV; returns (cost, mvx, mvy)."""
+            cA = sa[0] + sb[0] + ((lam256 * mv_bits(
+                m8[0][:, ca], m8[1][:, ca])) >> 8) + pu_bits
+            cB = sa[1] + sb[1] + ((lam256 * mv_bits(
+                m8[0][:, cb], m8[1][:, cb])) >> 8) + pu_bits
+            useA = cA <= cB
+            return (torch.where(useA, cA, cB),
+                    torch.where(useA, m8[0][:, ca], m8[0][:, cb]),
+                    torch.where(useA, m8[1][:, ca], m8[1][:, cb]))
+
+        # 2NxN: top PU = subs (0, 1), bottom = (2, 3)
+        cT, mTx, mTy = pu_best((own[:, 0], crossH[:, 0]),
+                               (crossH[:, 1], own[:, 1]), 0, 1)
+        cBt, mBx, mBy = pu_best((own[:, 2], crossH[:, 2]),
+                                (crossH[:, 3], own[:, 3]), 2, 3)
+        costH = cT + cBt + ((lam256 * 2) >> 8)
+        # Nx2N: left PU = subs (0, 2), right = (1, 3)
+        cL, mLx, mLy = pu_best((own[:, 0], crossV[:, 0]),
+                               (crossV[:, 2], own[:, 2]), 0, 2)
+        cR, mRx, mRy = pu_best((own[:, 1], crossV[:, 1]),
+                               (crossV[:, 3], own[:, 3]), 1, 3)
+        costV = cL + cR + ((lam256 * 2) >> 8)
+        # a degenerate rect (both PUs one MV) is never picked
+        costH = torch.where((mTx == mBx) & (mTy == mBy), 1 << 30, costH)
+        costV = torch.where((mLx == mRx) & (mLy == mRy), 1 << 30, costV)
+        zero = torch.zeros_like(mvx)
+        cands = [(mvx, mvy, zero, zero, cost), (mTx, mTy, mBx, mBy, costH),
+                 (mLx, mLy, mRx, mRy, costV)]
+        allc = torch.stack([c[4] for c in cands])
+        idx = torch.argmin(allc, dim=0)
+        part = idx.to(I32)
+        cost = allc.amin(0)
+        pick = lambda f: torch.gather(torch.stack([c[f] for c in cands]),
+                                      0, idx[None])[0]
+        mvx, mvy = pick(0), pick(1)
+        mvbx, mvby = pick(2), pick(3)
+
+    # 2c. motion homogenization over 32 (and, at CTU64, 64) regions of
+    # 2Nx2N blocks
     def _region_uniform(mvx, mvy, ref_sel, cost, cost_rd, part, g):
         gh, gw = nby // g, nbx // g
         if gh == 0 or gw == 0 or n != 16:
@@ -506,9 +723,46 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
     # 4. decision: inter unless intra clearly wins
     use_inter = cost <= (intra_best + ((lam256 * 5) >> 8))
 
-    # 5. MC predictions of the chosen (ref, mv) per block; weighted refs
-    # take the exact 14-bit path
+    # 5. MC predictions of the chosen (ref, mv) per block
+    mc = [p.reshape(nby, nbx, p.shape[1], p.shape[2]) for p in _p_mc(
+        rys, rus, rvs, weights, chroma_weights, bx, by, mvx, mvy, ref_sel,
+        part, mvbx, mvby, n, bd, m_pad, rect, tall)]
+
+    mvs = torch.stack([mvx, mvy], -1).reshape(nby, nbx, 2).to(I32)
+    mvs_b = torch.stack([mvbx, mvby], -1).reshape(nby, nbx, 2).to(I32)
+    return (intra_modes.reshape(nby, nbx), use_inter.reshape(nby, nbx),
+            mvs, ref_sel.reshape(nby, nbx), mc[0], mc[1], mc[2],
+            part.reshape(nby, nbx), mvs_b)
+
+
+def _p_mc(rys, rus, rvs, weights, chroma_weights, bx, by, mvx, mvy,
+          ref_sel, part, mvbx, mvby, n: int, bd: int, m_pad: int,
+          rect: bool, tall=None):
+    """Final P predictions (B, sz, sz) of the planes' three components:
+    the chosen (ref, mv) per block from the per-ref planes (weighted refs
+    take the exact 14-bit path), and for rect blocks the per-sub-block
+    MC from the references stacked with `m_pad`-row pads (`tall`: the
+    stacked luma planes, when the caller holds them)."""
+    dev = bx.device
+    nref = len(rys)
     nc = n >> 1
+    if rect:
+        # per-sub-block final MVs: PU1 covers the bottom row (2NxN) or
+        # the right column (Nx2N) of the 2x2 sub-block grid
+        sx4, sy4 = _sub4(bx, by)
+        rsel4 = ref_sel.repeat_interleave(4)
+        if tall is None:
+            tall = _stack_refs(rys, m_pad)[0]
+        ytall = sy4 + rsel4 * (rys[0].shape[0] + 2 * m_pad) + m_pad
+        subB = torch.where(
+            (part == 1)[:, None], _SUBB_H.to(dev)[None, :],
+            torch.where((part == 2)[:, None], _SUBB_V.to(dev)[None, :], 0))
+        fmvx = torch.where(subB == 1, mvbx[:, None], mvx[:, None]).reshape(-1)
+        fmvy = torch.where(subB == 1, mvby[:, None], mvy[:, None]).reshape(-1)
+        m_c = m_pad // 2
+        strip_c = rus[0].shape[0] + 2 * m_c
+        tall_c = [None, _stack_refs(rus, m_c)[0], _stack_refs(rvs, m_c)[0]]
+        ytall_c = sy4 // 2 + rsel4 * strip_c + m_c
     mc = []
     for pi in range(3):
         sz = n if pi == 0 else nc
@@ -530,13 +784,69 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
                 pr = mc_batch(rp, bx_, by_, mvx, mvy, sz, pi, bd)
             sel = pr if sel is None else torch.where(
                 (ref_sel == r_i)[:, None, None], pr, sel)
-        mc.append(sel.reshape(nby, nbx, sz, sz))
+        if rect:
+            if pi == 0:
+                rp8 = mc_batch(tall, sx4, ytall, fmvx, fmvy, 8, 0, bd)
+            else:
+                rp8 = mc_batch(tall_c[pi], sx4 // 2, ytall_c, fmvx, fmvy,
+                               4, pi, bd)
+            sel = torch.where(((part > 0) & (part < 4))[:, None, None],
+                              _from_sub4(rp8, sz), sel)
+        mc.append(sel)
+    return mc
 
-    mvs = torch.stack([mvx, mvy], -1).reshape(nby, nbx, 2).to(I32)
-    mvs_b = torch.zeros((nby, nbx, 2), dtype=I32, device=dev)
-    return (intra_modes.reshape(nby, nbx), use_inter.reshape(nby, nbx),
-            mvs, ref_sel.reshape(nby, nbx), mc[0], mc[1], mc[2],
-            part.reshape(nby, nbx), mvs_b)
+
+def _grid(nby: int, nbx: int, n: int, device):
+    """(B,) x and y origins of the (nby, nbx) grid of n-blocks."""
+    bys, bxs = np.mgrid[0:nby, 0:nbx]
+    t = lambda a: torch.from_numpy((a.ravel() * n).astype(np.int32)) \
+        .to(device)
+    return t(bxs), t(bys)
+
+
+def _whole_frame_mc(o, refs, weights, chroma_weights, rect: bool,
+                    hme: bool, sr: int, n: int, bd: int, device):
+    """The final P predictions of a banded analysis (outputs `o` of the
+    band runs), read again from the whole-frame planes.  A band's own
+    MC clamps its reads at the band's edges, which differs from the
+    decoder's MC once a motion vector reaches past the band's halo (HME
+    centres reach ~5*sr; the halo is sr + 24 px and a block row); the
+    reference keeps the band's predictions, so its banded streams can
+    fail to decode, and this port departs from it there."""
+    nby, nbx = o[1].shape
+    refs = list(refs)
+    weights = list(weights or [None] * len(refs))
+    chroma_weights = list(chroma_weights or [None] * len(refs))
+    pl = [[dev_i32(r[i], device) for r in refs] for i in range(3)]
+    rect = rect and not any(wp is not None for wp in weights)
+    bx, by = _grid(nby, nbx, n, device)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device) \
+        .to(I32)
+    mvs, mvs_b = t(o[2]).reshape(-1, 2), t(o[8]).reshape(-1, 2)
+    m_pad = (6 * sr + 12) if hme else (sr + 12)
+    mc = _p_mc(*pl, weights, chroma_weights, bx, by, mvs[:, 0], mvs[:, 1],
+               t(o[3]).reshape(-1), t(o[7]).reshape(-1), mvs_b[:, 0],
+               mvs_b[:, 1], n, bd, m_pad, rect)
+    return tuple(p.reshape(nby, nbx, p.shape[1], p.shape[2]) for p in mc)
+
+
+def _whole_frame_mc_b(o, refs0, refs1, rect: bool, hme: bool, sr: int,
+                      n: int, bd: int, device):
+    """The final B predictions of a banded analysis, read again from the
+    whole-frame planes (see _whole_frame_mc)."""
+    nby, nbx = o[1].shape
+    pl = lambda rl: tuple([dev_i32(r[i], device) for r in rl]
+                          for i in range(3))
+    bx, by = _grid(nby, nbx, n, device)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device) \
+        .to(I32).reshape(-1)
+    fl = lambda a: t(a).reshape(-1, 2)
+    m0, m1, p0, p1 = fl(o[3]), fl(o[4]), fl(o[12]), fl(o[13])
+    m_pad = (6 * sr + 12) if hme else (sr + 12)
+    mc = _b_mc(pl(refs0), pl(refs1), bx, by, t(o[2]), m0[:, 0], m0[:, 1],
+               m1[:, 0], m1[:, 1], t(o[5]), t(o[6]), t(o[10]), t(o[11]),
+               p0[:, 0], p0[:, 1], p1[:, 0], p1[:, 1], n, bd, m_pad, rect)
+    return tuple(p.reshape(nby, nbx, p.shape[1], p.shape[2]) for p in mc)
 
 
 def _b_tmvp_field(col, sps, block, ref_pocs, cur_poc):
@@ -562,13 +872,91 @@ def _b_tmvp_field(col, sps, block, ref_pocs, cur_poc):
             np.asarray(m1x_), np.asarray(m1y_))
 
 
+def _b_mc(refs0, refs1, bx, by, dirs, mv0x, mv0y, mv1x, mv1y, ref0_f,
+          ref1_f, part, dirs_b, pu1_0x, pu1_0y, pu1_1x, pu1_1y, n: int,
+          bd: int, m_pad: int, rect: bool, talls=(None, None)):
+    """Final B predictions (B, sz, sz) of the three components: the chosen
+    (dir, ref, mv) per block from the per-ref planes with a select (so
+    edge clamping matches the decoder's spec MC), and for rect blocks the
+    per-sub-block uni MC from ref 0 of each PU's list, on the references
+    stacked with `m_pad`-row pads (`talls`: the stacked luma planes per
+    list, when the caller holds them).  refs0 / refs1: (y, u, v) plane
+    lists per list."""
+    r0ys, ru0s, rv0s = refs0
+    r1ys, ru1s, rv1s = refs1
+    dev = bx.device
+    if rect:
+        sx4, sy4 = _sub4(bx, by)
+        ytall = sy4 + m_pad                     # ref 0 of each list
+        tall0, tall1 = (t if t is not None else _stack_refs(p, m_pad)[0]
+                        for t, p in zip(talls, (r0ys, r1ys)))
+        # PU0 rides dirs and the CU's MV of its list; PU1 dirs_b and the
+        # PU1 MV of its list
+        p0l, p1l = dirs - 1, dirs_b - 1
+        p0x = torch.where(p0l == 0, mv0x, mv1x)
+        p0y = torch.where(p0l == 0, mv0y, mv1y)
+        p1x = torch.where(p1l == 0, pu1_0x, pu1_1x)
+        p1y = torch.where(p1l == 0, pu1_0y, pu1_1y)
+        subB = torch.where(
+            (part == 1)[:, None], _SUBB_H.to(dev)[None, :],
+            torch.where((part == 2)[:, None], _SUBB_V.to(dev)[None, :], 0))
+        s_l = torch.where(subB == 1, p1l[:, None], p0l[:, None]).reshape(-1)
+        s_x = torch.where(subB == 1, p1x[:, None], p0x[:, None]).reshape(-1)
+        s_y = torch.where(subB == 1, p1y[:, None], p0y[:, None]).reshape(-1)
+    is_bi = (dirs == 3)[:, None, None]
+    use_l0 = ((dirs == 1)[:, None, None]) | is_bi
+
+    def sel_ref_mc(planes, rsel_f, fn):
+        sel = None
+        for ridx, rp in enumerate(planes):
+            pr = fn(rp)
+            sel = pr if sel is None else torch.where(
+                (rsel_f == ridx)[:, None, None], pr, sel)
+        return sel
+
+    nc = n >> 1
+    mc = []
+    for (pls0, pls1, c_idx) in ((r0ys, r1ys, 0), (ru0s, ru1s, 1),
+                                (rv0s, rv1s, 2)):
+        sz = n if c_idx == 0 else nc
+        bx_ = bx if c_idx == 0 else bx >> 1
+        by_ = by if c_idx == 0 else by >> 1
+        per = lambda fn, p, mx, my: fn(p, bx_, by_, mx, my, sz, c_idx, bd)
+        b0 = sel_ref_mc(pls0, ref0_f,
+                        lambda p: per(mc_batch_14, p, mv0x, mv0y))
+        b1 = sel_ref_mc(pls1, ref1_f,
+                        lambda p: per(mc_batch_14, p, mv1x, mv1y))
+        u0 = sel_ref_mc(pls0, ref0_f, lambda p: per(mc_batch, p, mv0x, mv0y))
+        u1 = sel_ref_mc(pls1, ref1_f, lambda p: per(mc_batch, p, mv1x, mv1y))
+        sel = torch.where(is_bi, bi_combine(b0, b1, bd),
+                          torch.where(use_l0, u0, u1))
+        if rect:
+            # rect winners: per-sub-block uni MC from ref 0 of each sub's
+            # list, reassembled into the full block (MVs stay inside the
+            # strips' pad, so the stacked planes clamp as the spec does)
+            if c_idx == 0:
+                s0 = mc_batch(tall0, sx4, ytall, s_x, s_y, 8, 0, bd)
+                s1 = mc_batch(tall1, sx4, ytall, s_x, s_y, 8, 0, bd)
+            else:
+                m_c = m_pad // 2
+                ytc = (sy4 >> 1) + m_c
+                s0, s1 = (mc_batch(_stack_refs(pls, m_c)[0], sx4 >> 1, ytc,
+                                   s_x, s_y, 4, c_idx, bd)
+                          for pls in (pls0, pls1))
+            s8 = torch.where((s_l == 0)[:, None, None], s0, s1)
+            sel = torch.where(((part > 0) & (part < 4))[:, None, None],
+                              _from_sub4(s8, sz), sel)
+        mc.append(sel)
+    return mc
+
+
 def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
                     search_range: int = 16, block: int = 16,
                     subme: int = 2, weights_b=None, rect: bool = False,
                     me_sea: bool = False, amp: bool = False,
                     col=None, ref_pocs=None, cur_poc: int = 0,
                     pad_refs=(0, 0), hme: bool = False,
-                    rounds=(2, 2)):
+                    rounds=(2, 2), _tmvp_field=None):
     """B-frame analysis (see the reference's analyse_b_frame): per-list
     multi-reference ME, the bi-prediction test, merge/AMVP candidate
     rounds over (dir, mv0, ref0, mv1, ref1), region homogenization and
@@ -580,27 +968,22 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
     pad_refs: the reference pads each list to a fixed lane count to
     bound recompiles and masks the padded lanes so they never win; here
     the padded references are not searched at all, which gives the same
-    outputs.  Returns (intra_modes, inter_mask, dirs, mv_l0, mv_l1,
-    ref_sel0, ref_sel1, (mc_y, mc_u, mc_v), part, (dirs_b, mv0_b,
-    mv1_b)); the mc planes stay device tensors."""
+    outputs.  rect: 2NxN / Nx2N PUs with a per-PU list choice (uni-pred
+    per rect PU on ref 0 of the list).  Returns (intra_modes, inter_mask,
+    dirs, mv_l0, mv_l1, ref_sel0, ref_sel1, (mc_y, mc_u, mc_v), part,
+    (dirs_b, mv0_b, mv1_b)); the mc planes stay device tensors.
+    _tmvp_field: set by _banded_analysis (see analyse_p_frame)."""
     if weights_b is not None and any(wp is not None for wp in weights_b):
         raise NotImplementedError("weighted bi-prediction (--weightb) is "
                                   "not ported")
-    if rect or amp:
-        raise NotImplementedError("rect/AMP partitions (--rect/--amp) are "
-                                  "not ported")
+    if amp:
+        raise NotImplementedError("AMP partitions (--amp) are not ported")
     if me_sea:
         raise NotImplementedError("--me sea is not ported")
-    if hme:
-        raise NotImplementedError("hierarchical ME (--hme) is not ported")
     if getattr(sps, "chroma_format_idc", 1) != 1:
         raise NotImplementedError("only 4:2:0 is ported")
     if block != 16:
         raise NotImplementedError("only 16x16 analysis blocks are ported")
-    if (sps.height // block) * (sps.width // block) > MAX_BLOCKS:
-        raise NotImplementedError(
-            "frames above 9000 16x16 blocks need the banded analysis "
-            "(_analysis_bands), which is not ported")
 
     def _norm(rl):
         if len(rl) == 3 and getattr(rl[0], "ndim", 0) == 2:
@@ -609,6 +992,32 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
     refs0 = _norm(refs0)
     refs1 = _norm(refs1)
     device = torch.device(device)
+    bands = None if _tmvp_field is not None \
+        else _analysis_bands(sps, block, search_range)
+    if bands is not None:
+        field = None
+        if col is not None and ref_pocs is not None and ref_pocs[0]:
+            field = _b_tmvp_field(col, sps, block, ref_pocs, cur_poc)
+
+        def run(sub_sps, args, tm):
+            out = analyse_b_frame(
+                args["cur"][0], args["cur"][1], args["cur"][2],
+                args["refs0"], args["refs1"], sub_sps, qp, device,
+                search_range=search_range, block=block, subme=subme,
+                rect=rect, ref_pocs=ref_pocs, cur_poc=cur_poc,
+                pad_refs=pad_refs, hme=hme, rounds=rounds,
+                _tmvp_field=tm if tm is not None else ())
+            return (list(out[:7]) + list(out[7]) + [out[8]]
+                    + list(out[9]))
+
+        o = _banded_analysis(run, bands, sps, block,
+                             {"cur": (y, u, v), "refs0": list(refs0),
+                              "refs1": list(refs1)},
+                             field, set(range(14)), device)
+        return (o[0], o[1], o[2], o[3], o[4], o[5], o[6],
+                _whole_frame_mc_b(o, refs0, refs1, rect, hme, search_range,
+                                  block, sps.bit_depth, device), o[10],
+                (o[11], o[12], o[13]))
     bd = sps.bit_depth
     lam, _ = lambda_qp(qp)
     lam256 = int(round(lam * 256)) << (bd - 8)
@@ -622,7 +1031,11 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
         l1p = [-1 - i for i in range(len(refs1))]
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     tmvp = None
-    if col is not None and ref_pocs is not None and ref_pocs[0]:
+    if _tmvp_field is not None:
+        if len(_tmvp_field):
+            tmvp = tuple(t(np.ascontiguousarray(a).ravel()).to(I32)
+                         for a in _tmvp_field)
+    elif col is not None and ref_pocs is not None and ref_pocs[0]:
         # bi temporal merge candidate (both lists scaled independently,
         # spec 8.5.3.2.3/8)
         tmvp = tuple(t(a.ravel()).to(I32) for a in
@@ -633,7 +1046,7 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
                   t(avail.reshape(-1, avail.shape[-1])), lam256, qp,
                   search_range, block, bd, subme, sps.log2_ctu_size, tmvp,
                   t(np.asarray(l0p, np.int64)),
-                  t(np.asarray(l1p, np.int64)), tuple(rounds))
+                  t(np.asarray(l1p, np.int64)), tuple(rounds), rect, hme)
     (modes, inter, dirs, mv0, mv1, rs0, rs1, mcy, mcu, mcv, part,
      dirs_b, mv0_b, mv1_b) = out
     h = lambda a: a.cpu().numpy()
@@ -643,9 +1056,10 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
 
 def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
             qp: int, search_range: int, n: int, bd: int, subme: int,
-            log2_ctu: int, tmvp, poc0, poc1, rounds):
-    """Whole-frame B analysis on one device (the reference's _b_core for
-    an unbanded, unweighted, rect-free 4:2:0 call)."""
+            log2_ctu: int, tmvp, poc0, poc1, rounds, rect: bool = False,
+            hme: bool = False):
+    """B analysis of one frame or row band on one device (the
+    reference's _b_core for an unweighted 4:2:0 call without AMP)."""
     dev = oy.device
     h, w = oy.shape
     nbx, nby = w // n, h // n
@@ -662,8 +1076,10 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
     # (ref, mv) pick per list with ref_idx bin charges (x265
     # predInterSearch per-ref loop, search.cpp:2554); first minimum
     def list_me(planes):
-        cands = [_me_one_ref(oy, ry, bx, by, n, lam256, search_range, bd,
-                             subme, org) for ry in planes]
+        cands = [_me_one_ref(
+            oy, ry, bx, by, n, lam256, search_range, bd, subme, org,
+            _hme_center_fullres(ry, oy, nby, nbx, lam256, search_range)
+            if hme else None) for ry in planes]
         satd_r = torch.stack([c[2] - ((lam256 * mv_bits(c[0], c[1])) >> 8)
                               for c in cands])
         mvx_r = torch.stack([c[0] for c in cands])
@@ -680,7 +1096,7 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
     # stacked tall planes per list: one MC gather serves per-block ref
     # indices (candidate rounds, homogenization); the FINAL MC reads the
     # per-ref planes below so clamping matches the decoder's spec MC
-    m_pad = search_range + 12
+    m_pad = (6 * search_range + 12) if hme else (search_range + 12)
     tall0, strip0 = _stack_refs(r0ys, m_pad)
     tall1, strip1 = _stack_refs(r1ys, m_pad)
     off2 = 1 << (13 - bd)
@@ -933,11 +1349,110 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
     mv0x, mv0y, mv1x, mv1y = c0x, c0y, c1x, c1y
     ref0_f, ref1_f = r0f, r1f
 
+    # 2b. rect PU candidates (2NxN / Nx2N) with a per-PU list choice:
+    # 8x8 sub-block ME (K1) on ref 0 of each list, PU costs from own +
+    # partner SATD pairings per list, then the cheaper list per PU
+    part = torch.zeros(nb, dtype=I32, device=dev)
+    dirs_b = torch.zeros(nb, dtype=I32, device=dev)
+    pu1_0x = pu1_0y = pu1_1x = pu1_1y = torch.zeros_like(part)
+    if rect:
+        sx4, sy4 = _sub4(bx, by)
+        pz4 = torch.zeros(nb * 4, dtype=I32, device=dev)
+        org8 = _org_blocks(oy, sx4, sy4, 8)
+        ytall = sy4 + m_pad                     # ref 0 of each list
+        sub = []          # per list: (own, crossH, crossV, m8x, m8y)
+        for tl, nr in ((tall0, nref0), (tall1, nref1)):
+            ot = _stack_refs([oy] * nr, m_pad)[0]
+            i8x, i8y, _ = full_search_batch(tl, ot, sx4, ytall, pz4, pz4,
+                                            lam256, 8, search_range)
+            m8x, m8y, c8 = subpel_refine_batch(tl, ot, sx4, ytall, i8x,
+                                               i8y, pz4, pz4, lam256, 8,
+                                               bd, subme)
+            own = (c8 - ((lam256 * mv_bits(m8x, m8y)) >> 8)).reshape(nb, 4)
+
+            def cross_satd(perm, m8x=m8x, m8y=m8y, tl=tl):
+                pr = mc_batch(tl, sx4, ytall,
+                              m8x.reshape(nb, 4)[:, perm].reshape(-1),
+                              m8y.reshape(nb, 4)[:, perm].reshape(-1), 8,
+                              0, bd)
+                return satd_batch(org8, pr).reshape(nb, 4)
+
+            sub.append((own, cross_satd([1, 0, 3, 2]),
+                        cross_satd([2, 3, 0, 1]), m8x.reshape(nb, 4),
+                        m8y.reshape(nb, 4)))
+        # merge_flag + inter_pred_idc (2) + mvp_idx + ref_idx bins per
+        # uni rect PU
+        pu_bits = (lam256 * 4) >> 8
+
+        def pu_best_l(lst, horiz, first):
+            """Best (cost, mvx, mvy) of one rect PU on one list: the
+            PU's two sub-blocks covered by either sub's MV."""
+            own, crH, crV, m8x, m8y = sub[lst]
+            cr = crH if horiz else crV
+            if horiz:
+                a, b2 = (0, 1) if first else (2, 3)
+            else:
+                a, b2 = (0, 2) if first else (1, 3)
+            cA = own[:, a] + cr[:, b2] + \
+                ((lam256 * mv_bits(m8x[:, a], m8y[:, a])) >> 8) + pu_bits
+            cB = cr[:, a] + own[:, b2] + \
+                ((lam256 * mv_bits(m8x[:, b2], m8y[:, b2])) >> 8) + pu_bits
+            useA = cA <= cB
+            return (torch.where(useA, cA, cB),
+                    torch.where(useA, m8x[:, a], m8x[:, b2]),
+                    torch.where(useA, m8y[:, a], m8y[:, b2]))
+
+        def pu_best(horiz, first):
+            """argmin over the two lists: (cost, list, mvx, mvy)."""
+            c0, x0_, y0_ = pu_best_l(0, horiz, first)
+            c1, x1_, y1_ = pu_best_l(1, horiz, first)
+            use0 = c0 <= c1
+            return (torch.where(use0, c0, c1), torch.where(use0, 0, 1)
+                    .to(I32), torch.where(use0, x0_, x1_),
+                    torch.where(use0, y0_, y1_))
+
+        part_bins = (lam256 * 2) >> 8
+        cT, lT, xT, yT = pu_best(True, True)
+        cB_, lB, xB, yB = pu_best(True, False)
+        costH = cT + cB_ + part_bins
+        cL, lL, xL, yL = pu_best(False, True)
+        cR, lR, xR, yR = pu_best(False, False)
+        costV = cL + cR + part_bins
+        # a degenerate rect (both PUs one list and MV) is never picked
+        costH = torch.where((lT == lB) & (xT == xB) & (yT == yB), 1 << 30,
+                            costH)
+        costV = torch.where((lL == lR) & (xL == xR) & (yL == yR), 1 << 30,
+                            costV)
+        allc = torch.stack([inter_cost, costH, costV])
+        part = torch.argmin(allc, dim=0).to(I32)
+        inter_cost = allc.amin(0)
+        p0l = torch.where(part == 1, lT, lL)        # PU0 list
+        p0x = torch.where(part == 1, xT, xL)
+        p0y = torch.where(part == 1, yT, yL)
+        p1l = torch.where(part == 1, lB, lR)        # PU1 list
+        p1x = torch.where(part == 1, xB, xR)
+        p1y = torch.where(part == 1, yB, yR)
+        # PU0 motion replaces the 2Nx2N fields where rect wins; rect PUs
+        # ride ref 0 of their list
+        rw = part > 0
+        dirs = torch.where(rw, p0l + 1, dirs)
+        mv0x = torch.where(rw, torch.where(p0l == 0, p0x, 0), mv0x)
+        mv0y = torch.where(rw, torch.where(p0l == 0, p0y, 0), mv0y)
+        mv1x = torch.where(rw, torch.where(p0l == 1, p0x, 0), mv1x)
+        mv1y = torch.where(rw, torch.where(p0l == 1, p0y, 0), mv1y)
+        ref0_f = torch.where(rw, 0, ref0_f)
+        ref1_f = torch.where(rw, 0, ref1_f)
+        dirs_b = torch.where(rw, p1l + 1, 0)
+        pu1_0x = torch.where(rw & (p1l == 0), p1x, 0)
+        pu1_0y = torch.where(rw & (p1l == 0), p1y, 0)
+        pu1_1x = torch.where(rw & (p1l == 1), p1x, 0)
+        pu1_1y = torch.where(rw & (p1l == 1), p1y, 0)
+
     # 2c. motion homogenization across 32 (and 64) regions: adopt one
     # sub-block's (dir, mv0, ref0, mv1, ref1) for the region when the RD
     # loss is smaller than the CU-syntax saving
     def _b_region_uniform(dirs, m0x, m0y, m1x, m1y, r0m, r1m, cost,
-                          cost_rd, g):
+                          cost_rd, part, g):
         gh, gw = nby // g, nbx // g
         if gh == 0 or gw == 0 or n != 16:
             return dirs, m0x, m0y, m1x, m1y, r0m, r1m, cost, cost_rd
@@ -945,6 +1460,7 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
         crop = lambda a: f2(a)[:gh * g, :gw * g]
         rep2 = lambda a: a.repeat_interleave(g, 0).repeat_interleave(g, 1)
         gsum_f = lambda a: fsum(a.reshape(gh, g, gw, g), (1, 3))
+        ok = (crop(part) == 0).reshape(gh, g, gw, g).all(3).all(1)
         indiv_rd = gsum_f(crop(cost_rd))
         s = g // 2
 
@@ -1017,9 +1533,9 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
                                           mb3 + 1))
         (tot, rdd, rm0x, rm0y, rm1x, rm1y, rr0, rr1, sbc, gbits,
          blk_rd) = best
-        # tie-accepting compare with sub-CU syntax slack (see the P side);
-        # every block is 2Nx2N here, so every region may adopt
-        acc = tot <= indiv_rd + lam2 * 4.0
+        # tie-accepting compare with sub-CU syntax slack (see the P
+        # side); only regions of 2Nx2N blocks adopt
+        acc = ok & (tot <= indiv_rd + lam2 * 4.0)
         accb = rep2(acc)
         pb_bits = rep2(((lam256 * gbits) >> 8) // (g * g))
         out = [setc(a, torch.where(accb, rep2(r), crop(a)))
@@ -1033,53 +1549,28 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
 
     (dirs, mv0x, mv0y, mv1x, mv1y, ref0_f, ref1_f, inter_cost,
      cost_rd) = _b_region_uniform(dirs, mv0x, mv0y, mv1x, mv1y, ref0_f,
-                                  ref1_f, inter_cost, cost_rd, 2)
+                                  ref1_f, inter_cost, cost_rd, part, 2)
     if log2_ctu == 6:
         (dirs, mv0x, mv0y, mv1x, mv1y, ref0_f, ref1_f, inter_cost,
          cost_rd) = _b_region_uniform(dirs, mv0x, mv0y, mv1x, mv1y,
                                       ref0_f, ref1_f, inter_cost, cost_rd,
-                                      4)
+                                      part, 4)
 
     use_inter = inter_cost <= intra_best
     dirs = torch.where(use_inter, dirs, 0)
+    if rect:
+        part = torch.where(use_inter, part, 0)
+        dirs_b = torch.where(use_inter, dirs_b, 0)
 
-    # MC predictions of the chosen (dir, ref, mv) per block from the
-    # per-ref FULL planes with a select (not the tall stacks), so edge
-    # clamping matches the decoder's spec MC exactly
-    is_bi = (dirs == 3)[:, None, None]
-    use_l0 = ((dirs == 1)[:, None, None]) | is_bi
-
-    def sel_ref_mc(planes, rsel_f, fn):
-        sel = None
-        for ridx, rp in enumerate(planes):
-            pr = fn(rp)
-            sel = pr if sel is None else torch.where(
-                (rsel_f == ridx)[:, None, None], pr, sel)
-        return sel
-
-    nc = n >> 1
-    mc = []
-    for (pls0, pls1, c_idx) in ((r0ys, r1ys, 0), (ru0s, ru1s, 1),
-                                (rv0s, rv1s, 2)):
-        sz = n if c_idx == 0 else nc
-        bx_ = bx if c_idx == 0 else bx >> 1
-        by_ = by if c_idx == 0 else by >> 1
-        per = lambda fn, p, mx, my: fn(p, bx_, by_, mx, my, sz, c_idx, bd)
-        b0 = sel_ref_mc(pls0, ref0_f,
-                        lambda p: per(mc_batch_14, p, mv0x, mv0y))
-        b1 = sel_ref_mc(pls1, ref1_f,
-                        lambda p: per(mc_batch_14, p, mv1x, mv1y))
-        u0 = sel_ref_mc(pls0, ref0_f, lambda p: per(mc_batch, p, mv0x, mv0y))
-        u1 = sel_ref_mc(pls1, ref1_f, lambda p: per(mc_batch, p, mv1x, mv1y))
-        sel = torch.where(is_bi, bi_combine(b0, b1, bd),
-                          torch.where(use_l0, u0, u1))
-        mc.append(sel.reshape(nby, nbx, sz, sz))
+    mc = [p.reshape(nby, nbx, p.shape[1], p.shape[2]) for p in _b_mc(
+        (r0ys, ru0s, rv0s), (r1ys, ru1s, rv1s), bx, by, dirs, mv0x, mv0y,
+        mv1x, mv1y, ref0_f, ref1_f, part, dirs_b, pu1_0x, pu1_0y, pu1_1x,
+        pu1_1y, n, bd, m_pad, rect, (tall0, tall1))]
 
     f = lambda a: a.reshape(nby, nbx).to(I32)
     mv2 = lambda mx, my: torch.stack([mx, my], -1).reshape(nby, nbx, 2) \
         .to(I32)
-    z2 = torch.zeros((nby, nbx), dtype=I32, device=dev)    # 2Nx2N only
-    z3 = torch.zeros((nby, nbx, 2), dtype=I32, device=dev)
     return (f(intra_modes), use_inter.reshape(nby, nbx), f(dirs),
             mv2(mv0x, mv0y), mv2(mv1x, mv1y), f(ref0_f), f(ref1_f),
-            mc[0], mc[1], mc[2], z2, z2, z3, z3)
+            mc[0], mc[1], mc[2], f(part), f(dirs_b), mv2(pu1_0x, pu1_0y),
+            mv2(pu1_1x, pu1_1y))

@@ -25,7 +25,7 @@ from ..frame.planes import dev_i32
 from ..frame.zscan import s_vector_coords
 from ..ops.cost import satd_batch
 from ..ops.cuda.gather import window_gather
-from ..ops.me import _org_blocks, full_search_batch
+from ..ops.me import _org_blocks, full_search_batch, half_res, hme_upsample
 from ..ops.numeric import fsum
 from .intra_mode import _mode_costs
 
@@ -157,18 +157,41 @@ class LowresStore:
         self._marks.setdefault(consumer, 0)
 
 
-def _inter_costs(low, prev, nby: int, nbx: int):
-    """Integer full search vs the previous lowres + SATD at the best MV.
-    Returns (satd_cost, mv_x, mv_y) int32 (nby, nbx) on the planes'
-    device, MVs in lowres fullpel units."""
+def hme_seeds(low, prev, nby: int, nbx: int):
+    """1/2-of-lowres (1/4 source) HME tier (see the reference): full
+    search (K1) on the quarter planes, MVs upsampled as FULLPEL lowres
+    window centres for the half-res search.  Returns (cx, cy) int32
+    (nby * nbx,)."""
+    ql, qp = half_res(low), half_res(prev)
+    qnby, qnbx = max(nby // 2, 1), max(nbx // 2, 1)
+    dev = low.device
+    bys, bxs = np.mgrid[0:qnby, 0:qnbx]
+    x0 = torch.from_numpy((bxs.ravel() * N).astype(np.int32)).to(dev)
+    y0 = torch.from_numpy((bys.ravel() * N).astype(np.int32)).to(dev)
+    zero = torch.zeros_like(x0)
+    mvx, mvy, _ = full_search_batch(qp, ql, x0, y0, zero, zero,
+                                    LOOKAHEAD_LAMBDA_X256, N, SEARCH_RANGE)
+    return (hme_upsample((mvx >> 2) * 2, qnby, qnbx, nby, nbx),
+            hme_upsample((mvy >> 2) * 2, qnby, qnbx, nby, nbx))
+
+
+def _inter_costs(low, prev, nby: int, nbx: int, hme: bool = False):
+    """Integer full search vs the previous lowres (around the HME seeds
+    under hme) + SATD at the best MV.  Returns (satd_cost, mv_x, mv_y)
+    int32 (nby, nbx) on the planes' device, MVs in lowres fullpel
+    units."""
     dev = low.device
     bys, bxs = np.mgrid[0:nby, 0:nbx]
     x0 = torch.from_numpy((bxs.ravel() * N).astype(np.int32)).to(dev)
     y0 = torch.from_numpy((bys.ravel() * N).astype(np.int32)).to(dev)
     zero = torch.zeros_like(x0)
+    cx = cy = None
+    if hme:
+        cx, cy = hme_seeds(low, prev, nby, nbx)
     mvx, mvy, _ = full_search_batch(prev, low, x0, y0, zero, zero,
                                     LOOKAHEAD_LAMBDA_X256, N,
-                                    SEARCH_RANGE)
+                                    SEARCH_RANGE, center_x=cx,
+                                    center_y=cy)
     fx, fy = mvx >> 2, mvy >> 2
     # the prediction at the chosen MV, each coordinate clamped to the
     # plane (the reference's prev[clip(gy), clip(gx)])
@@ -221,9 +244,7 @@ class CuTreeLookahead:
                  hme: bool = False,
                  store: Optional[LowresStore] = None,
                  device="cuda") -> None:
-        if hme:
-            raise NotImplementedError("--hme: hierarchical ME is not "
-                                      "ported")
+        self.hme = bool(hme)
         self.store = store if store is not None \
             else LowresStore(pad_w, pad_h, device)
         self.store.register("cutree")
@@ -250,7 +271,8 @@ class CuTreeLookahead:
         got = e.costs.get(ref.disp)
         if got is None:
             c, fx, fy = torch.stack(_inter_costs(
-                e.low, ref.low, self.nby, self.nbx)).cpu().numpy()
+                e.low, ref.low, self.nby, self.nbx,
+                self.hme)).cpu().numpy()
             got = (c.astype(np.float64), fx, fy)
             e.costs[ref.disp] = got
         return got

@@ -8,7 +8,8 @@ decision round as one vmapped program over a lane count and a plane
 stack padded to powers of two, to bound XLA recompiles; padded lanes
 recompute lane 0 and are thrown away.  Here the triples run in a loop
 and each distinct (b, ref) motion search of a round runs once: K1 (the
-integer full search at n = 8, r = 16), then the qpel refinement (K2
+integer full search at n = 8, r = 16, around hme_seeds' window
+centres under --hme), then the qpel refinement (K2
 windows of 17) and the MC (K2 windows of 15) on the lowres planes.  A P
 triple (p1 == b) searches p0 only: the reference computes its p1 search
 and discards it.
@@ -23,10 +24,12 @@ import torch
 from ..ops.cost import satd_batch
 from ..ops.interp import mc_batch
 from ..ops.me import _org_blocks, full_search_batch, subpel_refine_batch
-from .lookahead import LOOKAHEAD_LAMBDA_X256, N, SEARCH_RANGE, LowresStore
+from .lookahead import (LOOKAHEAD_LAMBDA_X256, N, SEARCH_RANGE, LowresStore,
+                        hme_seeds)
 
 
-def _lattice_costs(low, intra, triples, nby: int, nbx: int):
+def _lattice_costs(low, intra, triples, nby: int, nbx: int,
+                   hme: bool = False):
     """Frame costs of (b, p0, p1) display-index triples.
 
     low / intra: disp -> (h, w) int32 lowres plane / (nby, nbx) int32
@@ -54,9 +57,13 @@ def _lattice_costs(low, intra, triples, nby: int, nbx: int):
         got = preds.get((b, ref))
         if got is None:
             cur, rp = low[b], low[ref]
+            cx = cy = None
+            if hme:
+                # 1/4-of-lowres HME tier seeds the window centre
+                cx, cy = hme_seeds(cur, rp, nby, nbx)
             mvx, mvy, _ = full_search_batch(
                 rp, cur, x0, y0, zero, zero, LOOKAHEAD_LAMBDA_X256, N,
-                SEARCH_RANGE)
+                SEARCH_RANGE, center_x=cx, center_y=cy)
             mvx, mvy, cost = subpel_refine_batch(
                 rp, cur, x0, y0, mvx, mvy, zero, zero,
                 LOOKAHEAD_LAMBDA_X256, N, 8, subme=2, org=org_of(b))
@@ -93,9 +100,7 @@ class SlicetypeLookahead:
                  scenecut_threshold: int = 40,
                  b_frame_bias: int = 0, hme: bool = False,
                  store: LowresStore = None, device="cuda") -> None:
-        if hme:
-            raise NotImplementedError("hierarchical ME (--hme) is not "
-                                      "ported")
+        self.hme = bool(hme)
         self.store = store if store is not None \
             else LowresStore(pad_w, pad_h, device)
         self.store.register("slicetype")
@@ -156,7 +161,8 @@ class SlicetypeLookahead:
         keys = {d for tr in todo for d in tr}
         low = {d: self.store.low(d) for d in keys}
         intra = {d: self.store.intra_dev(d) for d in keys}
-        costs = _lattice_costs(low, intra, todo, self.nby, self.nbx)
+        costs = _lattice_costs(low, intra, todo, self.nby, self.nbx,
+                               self.hme)
         for key, c in zip(todo, costs):
             if key[2] != key[0]:
                 # B-frame cost discount before any path/GOP comparison

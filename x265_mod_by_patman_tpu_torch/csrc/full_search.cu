@@ -13,6 +13,10 @@
 //     bits = 2*bit_length(|mvx-pmx|) + 1 + 2*bit_length(|mvy-pmy|) + 1,
 // with mv = 4 * (dx - r, dy - r), and returns the first minimum of cost
 // in (dy, dx) row-major order as (mv_x, mv_y, cost) int32 per block.
+// Optional per-block fullpel window centres (cx, cy) (the HME seeds of
+// the reference's full_search_batch center_x / center_y) shift the
+// window to (x0 + cx - r, y0 + cy - r) and every candidate's MV by
+// 4 * (cx, cy); the source block stays at (x0, y0).
 //
 // What bounds it on this card: arithmetic.  At the main path's n = 16,
 // r = 16 a block costs 1089 * 256 = 279K absolute differences, while its
@@ -93,7 +97,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 full_search_kernel(const int* __restrict__ ref, const int* __restrict__ orig,
                    int h, int w, const int* __restrict__ xs,
                    const int* __restrict__ ys, const int* __restrict__ pmx,
-                   const int* __restrict__ pmy, int lambda_x256,
+                   const int* __restrict__ pmy,
+                   const int* __restrict__ cxs, const int* __restrict__ cys,
+                   int lambda_x256,
                    int* __restrict__ out_mx, int* __restrict__ out_my,
                    int* __restrict__ out_cost, int batch, int r) {
   const Geometry g = geometry(N, r);
@@ -128,8 +134,9 @@ full_search_kernel(const int* __restrict__ ref, const int* __restrict__ orig,
       const int i = row - s * slot_rows;
       const bool is_win = i < g.wr;
       const int b = min(b0 + s, batch - 1);
-      const int y = is_win ? ys[b] - r + i : ys[b] + i - g.wr;
-      const int x = is_win ? xs[b] - r : xs[b];
+      const int ccx = cxs ? cxs[b] : 0, ccy = cys ? cys[b] : 0;
+      const int y = is_win ? ys[b] + ccy - r + i : ys[b] + i - g.wr;
+      const int x = is_win ? xs[b] + ccx - r : xs[b];
       const int* prow = (is_win ? ref : orig) + (size_t)clampi(y, h - 1) * w;
       off[k] = s * g.slot_floats +
                (is_win ? i * g.ws : g.slot_floats - N * N + (i - g.wr) * N);
@@ -187,14 +194,15 @@ full_search_kernel(const int* __restrict__ ref, const int* __restrict__ orig,
     }
     // Epilogue: the first minimum of this thread's strip, then the CTA's.
     const int px = pmx[b], py = pmy[b];
-    const int mvy = (dy - r) * 4;
+    const int ccx = cxs ? cxs[b] : 0, ccy = cys ? cys[b] : 0;
+    const int mvy = (dy - r + ccy) * 4;
     const int ybits = 2 * bit_length(mvy - py) + 1;
     unsigned long long best = ~0ull;
 #pragma unroll
     for (int k = 0; k < kStrip; ++k) {
       const int cx = chunk * kStrip + k;
       if (cx < g.cy) {
-        const int bits = 2 * bit_length((cx - r) * 4 - px) + 1 + ybits;
+        const int bits = 2 * bit_length((cx - r + ccx) * 4 - px) + 1 + ybits;
         const int cost = (int)acc[k] + ((lambda_x256 * bits) >> 8);
         const unsigned long long key =
             ((unsigned long long)((unsigned)cost ^ 0x80000000u) << 32) |
@@ -210,8 +218,9 @@ full_search_kernel(const int* __restrict__ ref, const int* __restrict__ orig,
     const int idx = (int)(key & 0xffffffffu);
     const int ky = idx / g.cy;
     const int kx = idx - ky * g.cy;
-    out_mx[b0 + tid] = (kx - r) * 4;
-    out_my[b0 + tid] = (ky - r) * 4;
+    const int b = b0 + tid;
+    out_mx[b] = (kx - r + (cxs ? cxs[b] : 0)) * 4;
+    out_my[b] = (ky - r + (cys ? cys[b] : 0)) * 4;
     out_cost[b0 + tid] = (int)((unsigned)(key >> 32) ^ 0x80000000u);
   }
 }
@@ -219,7 +228,8 @@ full_search_kernel(const int* __restrict__ ref, const int* __restrict__ orig,
 template <int N, int P>
 int launch_p(const Geometry& g, const int* ref, const int* orig, int h,
              int w, const int* xs, const int* ys, const int* pmx,
-             const int* pmy, int lambda_x256, int* out_mx, int* out_my,
+             const int* pmy, const int* cxs, const int* cys,
+             int lambda_x256, int* out_mx, int* out_my,
              int* out_cost, int batch, int r, cudaStream_t stream) {
   if (g.smem > 48 * 1024) {  // above the default dynamic shared memory cap
     cudaError_t e = cudaFuncSetAttribute(
@@ -229,42 +239,46 @@ int launch_p(const Geometry& g, const int* ref, const int* orig, int h,
   }
   const int grid = (batch + g.slots - 1) / g.slots;
   full_search_kernel<N, P><<<grid, g.threads, g.smem, stream>>>(
-      ref, orig, h, w, xs, ys, pmx, pmy, lambda_x256, out_mx, out_my,
-      out_cost, batch, r);
+      ref, orig, h, w, xs, ys, pmx, pmy, cxs, cys, lambda_x256, out_mx,
+      out_my, out_cost, batch, r);
   return (int)cudaGetLastError();
 }
 
 template <int N>
 int launch(const int* ref, const int* orig, int h, int w, const int* xs,
-           const int* ys, const int* pmx, const int* pmy, int lambda_x256,
-           int* out_mx, int* out_my, int* out_cost, int batch, int r,
-           cudaStream_t stream) {
+           const int* ys, const int* pmx, const int* pmy, const int* cxs,
+           const int* cys, int lambda_x256, int* out_mx, int* out_my,
+           int* out_cost, int batch, int r, cudaStream_t stream) {
   const Geometry g = geometry(N, r);
   // r <= 16 (one strip): rows of at most 49 samples; r <= 63: 160
   if (g.ws <= 64)
-    return launch_p<N, 2>(g, ref, orig, h, w, xs, ys, pmx, pmy, lambda_x256,
-                          out_mx, out_my, out_cost, batch, r, stream);
-  return launch_p<N, 5>(g, ref, orig, h, w, xs, ys, pmx, pmy, lambda_x256,
-                        out_mx, out_my, out_cost, batch, r, stream);
+    return launch_p<N, 2>(g, ref, orig, h, w, xs, ys, pmx, pmy, cxs, cys,
+                          lambda_x256, out_mx, out_my, out_cost, batch, r,
+                          stream);
+  return launch_p<N, 5>(g, ref, orig, h, w, xs, ys, pmx, pmy, cxs, cys,
+                        lambda_x256, out_mx, out_my, out_cost, batch, r,
+                        stream);
 }
 
 }  // namespace
 
 // Returns a cudaError_t code (0 on success); n must be 8 or 16 (checked
-// by the Python wrapper), 0 <= r <= 63.
+// by the Python wrapper), 0 <= r <= 63; cxs / cys may be null (no
+// window centres).
 extern "C" int full_search_launch(const int* ref, const int* orig, int h,
                                   int w, const int* xs, const int* ys,
                                   const int* pmx, const int* pmy,
+                                  const int* cxs, const int* cys,
                                   int lambda_x256, int* out_mx, int* out_my,
                                   int* out_cost, int batch, int n, int r,
                                   void* stream) {
   if (batch <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (n == 16)
-    return launch<16>(ref, orig, h, w, xs, ys, pmx, pmy, lambda_x256, out_mx,
-                      out_my, out_cost, batch, r, st);
+    return launch<16>(ref, orig, h, w, xs, ys, pmx, pmy, cxs, cys,
+                      lambda_x256, out_mx, out_my, out_cost, batch, r, st);
   if (n == 8)
-    return launch<8>(ref, orig, h, w, xs, ys, pmx, pmy, lambda_x256, out_mx,
-                     out_my, out_cost, batch, r, st);
+    return launch<8>(ref, orig, h, w, xs, ys, pmx, pmy, cxs, cys,
+                     lambda_x256, out_mx, out_my, out_cost, batch, r, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -114,9 +114,9 @@ def _unsupported(p: EncoderParams) -> List[str]:
     """Options of the reference this port does not take."""
     out = []
     checks = (
-        (p.rect, "--rect"), (p.amp, "--amp"),
+        (p.amp, "--amp"),
         (p.weightb and p.bframes > 0 and p.keyframe_max > 1, "--weightb"),
-        (p.search_method == "sea", "--me sea"), (p.hme, "--hme"),
+        (p.search_method == "sea", "--me sea"),
         (p.mcstf, "--mcstf"),
         (p.analysis_save or p.analysis_load, "analysis save/load"),
         (p.mesh_tile_rows > 1, "mesh_tile_rows > 1"),
@@ -129,7 +129,6 @@ def _unsupported(p: EncoderParams) -> List[str]:
         (p.nxn_intra, "--nxn-intra"), (p.lossless, "--lossless"),
         (p.scaling_list != "off", "--scaling-list"),
         (p.nr_intra or p.nr_inter, "--nr-intra/--nr-inter"),
-        (p.rdoq_level > 0 and p.sign_hide, "--sign-hide with RDOQ"),
         (getattr(p, "cutree_share_write", "") or
          getattr(p, "cutree_share_read", ""), "cuTree share"),
     )
@@ -820,6 +819,7 @@ class Encoder:
         ref_sel = ref_sel1 = None
         wp_l0 = None
         wp_chroma = None
+        rect_info = None          # (part_map, mvs_b) when rect PUs used
         intra_cand = None
         split32 = mode32 = None
         keep_pocs: tuple = ()
@@ -872,13 +872,17 @@ class Encoder:
                     analyse_p_frame(
                         y, u, v, refs, self.sps, qp, dev,
                         search_range=self._me_range, weights=wp_l0,
-                        subme=p.subpel_refine, chroma_weights=wp_chroma,
-                        col=col_a, ref_pocs=rp_p, cur_poc=poc,
-                        pad_refs=self.max_refs, rounds=self._rounds_p)
+                        subme=p.subpel_refine, rect=p.rect,
+                        chroma_weights=wp_chroma, col=col_a,
+                        ref_pocs=rp_p, cur_poc=poc, pad_refs=self.max_refs,
+                        hme=p.hme, rounds=self._rounds_p)
+            if np.any(part_map):
+                rect_info = (part_map, mvs_b)
             recon_fn = self._inter_recon_fn(
                 y, u, v, modes, mc, inter_mask, 1, mvs, None, None,
-                ref_sel, ebits=(self._ebits_for(1, qp, per_row=True),
-                                self._ebits_for(1, qp)))
+                ref_sel, rect_info,
+                ebits=(self._ebits_for(1, qp, per_row=True),
+                       self._ebits_for(1, qp)))
             ref_pocs = rp_p
         else:
             (list0, list1, keep_pocs, b_is_ref) = b_refs
@@ -888,16 +892,19 @@ class Encoder:
                 if self.sps.temporal_mvp else None
             with trace.scope("analysis", type="B"):
                 (modes, inter_mask, dirs, mvs, mvs1, ref_sel, ref_sel1,
-                 mc, _part, _pu1) = analyse_b_frame(
+                 mc, part_map_b, pu1_b) = analyse_b_frame(
                     y, u, v, [a[0] for a in list0], [a[0] for a in list1],
                     self.sps, qp, dev, search_range=self._me_range,
-                    subme=p.subpel_refine, col=col_b, ref_pocs=rp_b,
-                    cur_poc=poc,
+                    subme=p.subpel_refine, rect=p.rect, col=col_b,
+                    ref_pocs=rp_b, cur_poc=poc,
                     pad_refs=(self.max_refs, 2 if p.b_pyramid else 1),
-                    rounds=self._rounds_b)
+                    hme=p.hme, rounds=self._rounds_b)
+            if np.any(part_map_b):
+                # B rect: (part, PU1 dirs, PU1 mv L0, PU1 mv L1)
+                rect_info = (part_map_b, pu1_b[1], pu1_b[2], pu1_b[0])
             recon_fn = self._inter_recon_fn(
                 y, u, v, modes, mc, inter_mask, 0, mvs, mvs1, dirs,
-                ref_sel, ref_sel1=ref_sel1,
+                ref_sel, rect_info, ref_sel1=ref_sel1,
                 ebits=(self._ebits_for(0, qp, per_row=True),
                        self._ebits_for(0, qp)))
             ref_pocs = rp_b
@@ -931,7 +938,7 @@ class Encoder:
             dqp_map = self._derived_qp_map(qpm, r, qp)
             with trace.scope("loopfilter", type=ftype):
                 self._deblock(r, inter_mask, mvs, mvs1, dirs, ref_pocs,
-                              dqp_map, recon, ref_sel, split32,
+                              dqp_map, recon, ref_sel, split32, rect_info,
                               ref_sel1=ref_sel1)
                 self._force_levels(r)
                 sao_maps = self._sao(r, y, u, v, qp) if p.sao else None
@@ -939,7 +946,7 @@ class Encoder:
                 rbsp = self._encode_slice(
                     ms, inter_mask, mvs, mvs1, dirs, r, ftype, poc, qp,
                     ref_pocs, sao_maps, ref_sel, keep_pocs, qpm, wp_l0,
-                    split32, mode32, wp_chroma, nal_unit,
+                    split32, mode32, wp_chroma, nal_unit, rect_info,
                     ref_sel1=ref_sel1)
             with trace.scope("recon_fetch", type=ftype):
                 self._finalize_recon(r)
@@ -1046,7 +1053,8 @@ class Encoder:
                              (r["recon_y"], r["recon_u"], r["recon_v"]),
                              bits=len(out) * 8, md5=md5, slice_type=ftype,
                              qp=qp, disp=self._idr_base + poc,
-                             stats=self._frame_stats(r, inter_mask, mvs),
+                             stats=self._frame_stats(r, inter_mask, mvs,
+                                                     rect_info),
                              pipeline_runs=runs, qp_map=qp_map)
         self.rc.update(rc_type, qp, frame.bits, complexity)
         if self.sps.temporal_mvp and (ftype in ("I", "P") or b_is_ref):
@@ -1062,7 +1070,7 @@ class Encoder:
                                if k == poc}
         return frame
 
-    def _frame_stats(self, r, inter_mask, mvs) -> dict:
+    def _frame_stats(self, r, inter_mask, mvs, rect_info) -> dict:
         """Per-frame CU/MV/VBV stats (the x265 FrameStats subset the
         --csv-log-level 2 CSV reports, encoder.cpp writeLog)."""
         st: dict = {}
@@ -1087,6 +1095,13 @@ class Encoder:
             if lv_any.shape == inter_mask.shape:
                 st["cu_skip_pct"] = round(
                     100.0 * (inter_mask & ~lv_any).sum() / nb, 2)
+            if rect_info is not None:
+                pm = rect_info[0]
+                st["cu_rect_pct"] = round(
+                    100.0 * ((pm > 0) & (pm < 4) & inter_mask).sum()
+                    / nb, 2)
+                st["cu_amp_pct"] = round(
+                    100.0 * ((pm >= 4) & inter_mask).sum() / nb, 2)
             if mvs is not None:
                 m = np.abs(mvs[inter_mask]).astype(np.float64) / 4.0
                 if m.size:
@@ -1196,16 +1211,17 @@ class Encoder:
 
     def _inter_recon_fn(self, y, u, v, modes, mc, inter_mask,
                         init_type: int, mvs, mvs1, dirs, ref_sel,
-                        ref_sel1=None, ebits=None):
+                        rect_info, ref_sel1=None, ebits=None):
         """Wavefront runner for P/B frames with the inter TU32 pre-pass
         (frame/inter_tu32.py)."""
         recon = self.recon
         i32_mask = None
         if self.p.var_cu_tree and inter_mask is not None:
             from ..frame.inter_tu32 import region_uniform_mask
+            part_map = rect_info[0] if rect_info is not None else None
             m = region_uniform_mask(
                 np.asarray(inter_mask, bool), np.asarray(mvs), mvs1, dirs,
-                ref_sel, None, self.sps.width, self.sps.height,
+                ref_sel, part_map, self.sps.width, self.sps.height,
                 ref_sel1=ref_sel1)
             if m.any():
                 i32_mask = m
@@ -1234,7 +1250,8 @@ class Encoder:
         return fn
 
     def _deblock(self, r: dict, inter_mask, mvs, mvs1, dirs, ref_pocs, qp,
-                 recon, ref_sel=None, split32=None, ref_sel1=None) -> None:
+                 recon, ref_sel=None, split32=None, rect_info=None,
+                 ref_sel1=None) -> None:
         if not self.p.deblock:
             return
         p = self.p
@@ -1268,9 +1285,28 @@ class Encoder:
                 np.full((nby, nbx), ref_pocs[lst][0] if ref_pocs[lst]
                         else 0, np.int64)
                 for lst, sel in ((0, ref_sel), (1, ref_sel1)))
+            part16 = pu1 = None
+            if rect_info is not None:
+                part_map, mvs_b = rect_info[0], rect_info[1]
+                part16 = np.where(inter_mask, part_map, 0)
+                if len(rect_info) > 2:
+                    # B rect: PU1 has its own list (uni-pred per PU)
+                    d_b = np.where(part16 > 0, rect_info[3],
+                                   0).astype(np.int32)
+                    pu1 = (d_b, mvs_b.astype(np.int32),
+                           rect_info[2].astype(np.int32),
+                           np.where((d_b & 1) > 0, p0, 0),
+                           np.where((d_b & 2) > 0, p1, 0))
+                else:
+                    # P: PU1 shares the CU's list-0 ref
+                    pu1 = (np.where(part16 > 0, 1, 0).astype(np.int32),
+                           mvs_b.astype(np.int32),
+                           np.zeros_like(mvs_b),
+                           np.where(part16 > 0, p0, 0),
+                           np.zeros_like(p0))
             bs_v, bs_h = inter_bs_maps(~inter_mask, mvs, cbf, w, h, 16,
                                        dirs_m, mvs1_m, p0, p1, None,
-                                       part_map=None, pu1=None,
+                                       part_map=part16, pu1=pu1,
                                        tu32_mask=tu32_use)
         else:
             merge32 = ~split32 if split32 is not None else None
@@ -1448,7 +1484,7 @@ class Encoder:
     def _encode_slice(self, modes, inter_mask, mvs, mvs1, dirs, r: dict,
                       ftype: str, poc: int, qp: int, ref_pocs, sao_maps,
                       ref_sel, keep_pocs, qp_map, wp_l0, split32, mode32,
-                      wp_chroma, nal, ref_sel1=None):
+                      wp_chroma, nal, rect_info=None, ref_sel1=None):
         """Slice data of one picture: the rbsp bytes, or one rbsp per
         slice when the picture is cut into several."""
         sps, pps = self.sps, self.pps
@@ -1529,15 +1565,31 @@ class Encoder:
         def build16(bx, by, tqb):
             x0, y0 = bx * 16, by * 16
             if inter_mask[by, bx]:
+                d = 1 if dirs is None else int(dirs[by, bx])
+                rsel = int(ref_sel[by, bx])
+                pm = 0
+                if rect_info is not None:
+                    pm = int(rect_info[0][by, bx])
                 cu = CodedCU(
                     x0, y0, 4, (1,), 4, {}, is_inter=True,
                     mv=(int(mvs[by, bx, 0]), int(mvs[by, bx, 1])),
-                    ref_idx=int(ref_sel[by, bx]),
-                    inter_dir=1 if dirs is None else int(dirs[by, bx]),
+                    ref_idx=rsel, inter_dir=d,
                     mv1=(0, 0) if mvs1 is None else
                     (int(mvs1[by, bx, 0]), int(mvs1[by, bx, 1])),
                     ref_idx1=0 if ref_sel1 is None
-                    else int(ref_sel1[by, bx]))
+                    else int(ref_sel1[by, bx]), part_mode=pm)
+                if pm:
+                    cu.mv_b = (int(rect_info[1][by, bx, 0]),
+                               int(rect_info[1][by, bx, 1]))
+                    cu.ref_idx_b = rsel
+                    if len(rect_info) > 2:
+                        # B rect: PU1 carries its own list choice
+                        cu.inter_dir_b = int(rect_info[3][by, bx])
+                        cu.mv1_b = (int(rect_info[2][by, bx, 0]),
+                                    int(rect_info[2][by, bx, 1]))
+                        cu.ref_idx1_b = 0
+                    else:
+                        cu.inter_dir_b = d
             else:
                 cu = CodedCU(x0, y0, 4, (int(modes[by, bx]),), 4)
             for c_idx, lvc, nzc, clog2 in ((0, lvy, nz16y, 4),

@@ -31,7 +31,8 @@ F32 = torch.float32
 
 
 def chroma_qp(qp: int, offset: int = 0, csp: int = 1) -> int:
-    """QpC derivation (spec 8.6.1; copied from the reference)."""
+    """QpC derivation (spec 8.6.1): the Table 8-10 remap applies only
+    for ChromaArrayType == 1 (4:2:0); 4:2:2/4:4:4 clip qPi at 51."""
     if csp == 1:
         return int(CHROMA_QP_TABLE[min(max(qp + offset, 0), 69)])
     return int(min(max(qp + offset, 0), 51))

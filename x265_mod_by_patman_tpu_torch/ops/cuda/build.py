@@ -79,8 +79,8 @@ def load_library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.full_search_launch.argtypes = [p, p, i, i, p, p, p, p, i, p,
-                                               p, p, i, i, i, p]
+            lib.full_search_launch.argtypes = [p, p, i, i, p, p, p, p, p, p,
+                                               i, p, p, p, i, i, i, p]
             lib.full_search_launch.restype = i
             lib.window_gather_launch.argtypes = [p, p, p, p, i, i, i, i, p]
             lib.window_gather_launch.restype = i

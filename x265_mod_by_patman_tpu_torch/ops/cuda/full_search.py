@@ -6,7 +6,9 @@ csrc/full_search.cu).
 `full_search` dispatches on the tensors' device: CPU tensors take the
 plain PyTorch chain `full_search_plain` (window gather, SAD grid, the
 lambda * mv_bits charge and the first-minimum argmin), CUDA tensors
-launch the one fused kernel (or raise)."""
+launch the one fused kernel (or raise).  Optional per-block fullpel
+window centres (the HME seeds of the reference's center_x / center_y)
+move each search window; the MVs include the shift."""
 from __future__ import annotations
 
 import functools
@@ -54,24 +56,28 @@ def sad_grid_plain(win: torch.Tensor, org: torch.Tensor, n: int,
 
 
 def full_search_plain(ref, orig, x0, y0, pred_mv_x, pred_mv_y,
-                      lambda_x256: int, n: int, r: int):
+                      lambda_x256: int, n: int, r: int, center_x=None,
+                      center_y=None):
     """Plain PyTorch full search: (mv_x, mv_y, cost) int32 (B,), MVs in
     QPEL units, cost = SAD + (lambda_x256 * bits) >> 8, first minimum in
-    (dy, dx) row-major order."""
+    (dy, dx) row-major order.  center_x / center_y: optional (B,)
+    FULLPEL window centres (HME seeds): the window moves to
+    (x0 + cx, y0 + cy) +- r and the MVs include the shift."""
     dev = ref.device
-    win = window_gather_plain(ref, y0 - r, x0 - r, n + 2 * r)
+    cx = torch.zeros_like(x0) if center_x is None else center_x
+    cy = torch.zeros_like(y0) if center_y is None else center_y
+    win = window_gather_plain(ref, y0 + cy - r, x0 + cx - r, n + 2 * r)
     org = window_gather_plain(orig, y0, x0, n)
     c = 2 * r + 1
     sad = sad_grid_plain(win, org, n, r)
     ar = torch.arange(c, device=dev, dtype=I32)
-    mv_x = (ar.repeat(c) - r) * 4
-    mv_y = (ar.repeat_interleave(c) - r) * 4
-    bits = mv_bits(mv_x[None, :] - pred_mv_x[:, None],
-                   mv_y[None, :] - pred_mv_y[:, None])
+    mv_x = (ar.repeat(c)[None, :] - r + cx[:, None]) * 4
+    mv_y = (ar.repeat_interleave(c)[None, :] - r + cy[:, None]) * 4
+    bits = mv_bits(mv_x - pred_mv_x[:, None], mv_y - pred_mv_y[:, None])
     cost = sad + ((lambda_x256 * bits) >> 8)
     arg = torch.argmin(cost, dim=1)
     bi = torch.arange(cost.shape[0], device=dev)
-    return mv_x[arg], mv_y[arg], cost[bi, arg].to(I32)
+    return mv_x[bi, arg], mv_y[bi, arg], cost[bi, arg].to(I32)
 
 
 def _check(ref, orig, vecs, n: int, r: int) -> None:
@@ -91,14 +97,19 @@ def _check(ref, orig, vecs, n: int, r: int) -> None:
 
 
 def full_search(ref, orig, x0, y0, pred_mv_x, pred_mv_y, lambda_x256: int,
-                n: int, r: int):
+                n: int, r: int, center_x=None, center_y=None):
     """Integer full search of (B,) n x n blocks at (x0, y0) over +-r on
-    the (H, W) int32 planes; see full_search_plain."""
-    vecs = (x0, y0, pred_mv_x, pred_mv_y)
+    the (H, W) int32 planes, optionally around fullpel window centres;
+    see full_search_plain."""
+    centers = (center_x, center_y)
+    if (center_x is None) != (center_y is None):
+        raise ValueError("full_search takes both window centres or none")
+    vecs = (x0, y0, pred_mv_x, pred_mv_y) + \
+        (centers if center_x is not None else ())
     _check(ref, orig, vecs, n, r)
     if ref.device.type == "cpu":
         return full_search_plain(ref, orig, x0, y0, pred_mv_x, pred_mv_y,
-                                 lambda_x256, n, r)
+                                 lambda_x256, n, r, center_x, center_y)
     if ref.device.type != "cuda":
         raise ValueError(f"full_search: unsupported device {ref.device}")
     if n not in KERNEL_N:
@@ -118,9 +129,11 @@ def full_search(ref, orig, x0, y0, pred_mv_x, pred_mv_y, lambda_x256: int,
                     for _ in range(3))
     lib = load_library()
     stream = torch.cuda.current_stream(ref.device).cuda_stream
+    cptr = [None if c is None else c.data_ptr() for c in centers]
     check(lib.full_search_launch(
         ref.data_ptr(), orig.data_ptr(), h, w, x0.data_ptr(), y0.data_ptr(),
-        pred_mv_x.data_ptr(), pred_mv_y.data_ptr(), int(lambda_x256),
+        pred_mv_x.data_ptr(), pred_mv_y.data_ptr(), cptr[0], cptr[1],
+        int(lambda_x256),
         mx.data_ptr(), my.data_ptr(), cost.data_ptr(), b, n, r, stream),
         "full_search")
     full_search.launches += 1

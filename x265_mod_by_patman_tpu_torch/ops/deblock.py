@@ -3,7 +3,9 @@ x265_mod_by_patman_tpu/ops/deblock.py.
 
 The boundary-strength map builders are host numpy functions copied
 unchanged from the reference (its module imports jax, so they cannot be
-imported from there); the batched V-then-H edge passes run in torch.
+imported from there), as are the numpy golden filters of the validation
+decoder at the end of the module; the batched V-then-H edge passes run
+in torch.
 """
 from __future__ import annotations
 
@@ -537,3 +539,194 @@ def deblock_frame_batch(y, u, v, bs_v, bs_h, on_vc, on_hc, qp, qpc_cb,
                                 bit_depth).T
         out.append(pl.contiguous())
     return y.contiguous(), out[0], out[1]
+
+
+# ---------------------------------------------------------------------------
+# Golden scalar (numpy) functions of the validation decoder
+# (decoder/decoder.py), copied unchanged from the reference module
+# ---------------------------------------------------------------------------
+
+def _clip3(lo, hi, x):
+    return np.minimum(np.maximum(x, lo), hi)
+
+
+def _filter_luma_edge_ref(seg: np.ndarray, bs: int, qp: int,
+                          beta_off: int, tc_off: int, bit_depth: int):
+    """Filter one 4-line luma edge segment.  seg: (4, 8) int array of
+    [p3 p2 p1 p0 q0 q1 q2 q3] per line; modified in place."""
+    if bs == 0:
+        return
+    idx_b = min(max(qp + (beta_off << 1), 0), 51)
+    beta = int(DEBLOCK_BETA[idx_b]) << (bit_depth - 8)
+    idx_t = min(max(qp + 2 * (bs - 1) + (tc_off << 1), 0), 53)
+    tc = int(DEBLOCK_TC[idx_t]) << (bit_depth - 8)
+    if beta == 0:
+        return
+    p = seg[:, 3::-1]   # p0..p3 (view with reversed cols)
+    q = seg[:, 4:]
+    dp0 = abs(int(seg[0, 1]) - 2 * int(seg[0, 2]) + int(seg[0, 3]))
+    dp3 = abs(int(seg[3, 1]) - 2 * int(seg[3, 2]) + int(seg[3, 3]))
+    dq0 = abs(int(seg[0, 6]) - 2 * int(seg[0, 5]) + int(seg[0, 4]))
+    dq3 = abs(int(seg[3, 6]) - 2 * int(seg[3, 5]) + int(seg[3, 4]))
+    d = dp0 + dq0 + dp3 + dq3
+    if d >= beta:
+        return
+    maxv = (1 << bit_depth) - 1
+
+    def strong_line(i):
+        return (2 * ((dp0 if i == 0 else dp3) + (dq0 if i == 0 else dq3))
+                < (beta >> 2)) and \
+            (abs(int(seg[i, 0]) - int(seg[i, 3]))
+             + abs(int(seg[i, 4]) - int(seg[i, 7])) < (beta >> 3)) and \
+            (abs(int(seg[i, 3]) - int(seg[i, 4])) < ((5 * tc + 1) >> 1))
+
+    strong = strong_line(0) and strong_line(3)
+    s = seg.astype(np.int64)
+    if strong:
+        for i in range(4):
+            p3, p2, p1, p0, q0, q1, q2, q3 = (int(x) for x in s[i])
+            seg[i, 3] = _clip3(p0 - 2 * tc, p0 + 2 * tc,
+                               (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3)
+            seg[i, 2] = _clip3(p1 - 2 * tc, p1 + 2 * tc,
+                               (p2 + p1 + p0 + q0 + 2) >> 2)
+            seg[i, 1] = _clip3(p2 - 2 * tc, p2 + 2 * tc,
+                               (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3)
+            seg[i, 4] = _clip3(q0 - 2 * tc, q0 + 2 * tc,
+                               (q2 + 2 * q1 + 2 * q0 + 2 * p0 + p1 + 4) >> 3)
+            seg[i, 5] = _clip3(q1 - 2 * tc, q1 + 2 * tc,
+                               (q2 + q1 + q0 + p0 + 2) >> 2)
+            seg[i, 6] = _clip3(q2 - 2 * tc, q2 + 2 * tc,
+                               (2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3)
+        return
+    # weak filter
+    thr_side = (beta + (beta >> 1)) >> 3
+    filt_p = (dp0 + dp3) < thr_side
+    filt_q = (dq0 + dq3) < thr_side
+    for i in range(4):
+        p2, p1, p0, q0, q1 = (int(s[i, 1]), int(s[i, 2]), int(s[i, 3]),
+                              int(s[i, 4]), int(s[i, 5]))
+        delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4
+        if abs(delta) >= tc * 10:
+            continue
+        delta = _clip3(-tc, tc, delta)
+        seg[i, 3] = _clip3(0, maxv, p0 + delta)
+        seg[i, 4] = _clip3(0, maxv, q0 - delta)
+        if filt_p:
+            dp = _clip3(-(tc >> 1), tc >> 1,
+                        (((p2 + p0 + 1) >> 1) - p1 + delta) >> 1)
+            seg[i, 2] = _clip3(0, maxv, p1 + dp)
+        if filt_q:
+            q2 = int(s[i, 6])
+            dq = _clip3(-(tc >> 1), tc >> 1,
+                        (((q2 + q0 + 1) >> 1) - q1 - delta) >> 1)
+            seg[i, 5] = _clip3(0, maxv, q1 + dq)
+
+
+def deblock_luma_ref(plane: np.ndarray, bs_v: np.ndarray, bs_h: np.ndarray,
+                     qp, beta_off: int = 0, tc_off: int = 0,
+                     bit_depth: int = 8, log2_ctu: int = 5) -> np.ndarray:
+    """Golden frame deblock: all vertical edges, then all horizontal.
+    qp: scalar or (nCtuY, nCtuX) per-CTU map (per-segment averaging per
+    spec 8.7.2.5.3)."""
+    out = plane.astype(np.int32).copy()
+    h, w = out.shape
+    qmap = None if np.isscalar(qp) else np.asarray(qp)
+    ctu = 1 << log2_ctu
+
+    def seg_qp(py, px, qy, qx):
+        if qmap is None:
+            return qp
+        a = int(qmap[min(py // ctu, qmap.shape[0] - 1),
+                     min(px // ctu, qmap.shape[1] - 1)])
+        b = int(qmap[min(qy // ctu, qmap.shape[0] - 1),
+                     min(qx // ctu, qmap.shape[1] - 1)])
+        return (a + b + 1) >> 1
+
+    for e in range(bs_v.shape[1]):
+        x = (e + 1) * 8
+        for g in range(h // 4):
+            seg = out[g * 4:g * 4 + 4, x - 4:x + 4]
+            _filter_luma_edge_ref(seg, int(bs_v[g, e]),
+                                  seg_qp(g * 4, x - 1, g * 4, x),
+                                  beta_off, tc_off, bit_depth)
+    for e in range(bs_h.shape[0]):
+        y = (e + 1) * 8
+        for g in range(w // 4):
+            seg = out[y - 4:y + 4, g * 4:g * 4 + 4].T.copy()
+            _filter_luma_edge_ref(seg, int(bs_h[e, g]),
+                                  seg_qp(y - 1, g * 4, y, g * 4),
+                                  beta_off, tc_off, bit_depth)
+            out[y - 4:y + 4, g * 4:g * 4 + 4] = seg.T
+    return out
+
+
+def deblock_chroma_ref(plane: np.ndarray, on_v: np.ndarray,
+                       on_h: np.ndarray, qpc: int, tc_off: int = 0,
+                       bit_depth: int = 8, qp_map=None, c_off: int = 0,
+                       log2_ctu: int = 5, csp: int = 1) -> np.ndarray:
+    """Golden chroma deblock: per-sample on masks from chroma_on_maps.
+    With qp_map given (per-CTU luma QPs), QpC is derived per edge sample
+    from the averaged luma QPs + c_off via the chroma table."""
+    out = plane.astype(np.int32).copy()
+    h, w = out.shape
+    maxv = (1 << bit_depth) - 1
+    ctu = 1 << log2_ctu
+    ssx = 0 if csp == 3 else 1           # chroma -> luma coord shifts
+    ssy = 1 if csp == 1 else 0
+
+    def qc_of(avg):
+        if csp == 1:
+            return int(CHROMA_QP_TABLE[min(max(avg + c_off, 0), 69)])
+        return min(max(avg + c_off, 0), 51)
+
+    def tc_of(ly, lxp, lxq):
+        if qp_map is None:
+            q = qpc
+        else:
+            a = int(qp_map[min(ly // ctu, qp_map.shape[0] - 1),
+                           min(lxp // ctu, qp_map.shape[1] - 1)])
+            b = int(qp_map[min(ly // ctu, qp_map.shape[0] - 1),
+                           min(lxq // ctu, qp_map.shape[1] - 1)])
+            q = qc_of((a + b + 1) >> 1)
+        idx = min(max(q + 2 + (tc_off << 1), 0), 53)
+        return int(DEBLOCK_TC[idx]) << (bit_depth - 8)
+
+    def tc_of_h(lyp, lyq, lx):
+        if qp_map is None:
+            q = qpc
+        else:
+            a = int(qp_map[min(lyp // ctu, qp_map.shape[0] - 1),
+                           min(lx // ctu, qp_map.shape[1] - 1)])
+            b = int(qp_map[min(lyq // ctu, qp_map.shape[0] - 1),
+                           min(lx // ctu, qp_map.shape[1] - 1)])
+            q = qc_of((a + b + 1) >> 1)
+        idx = min(max(q + 2 + (tc_off << 1), 0), 53)
+        return int(DEBLOCK_TC[idx]) << (bit_depth - 8)
+
+    for e in range(on_v.shape[1]):
+        x = (e + 1) * 8
+        for y in range(h):
+            if not on_v[y, e]:
+                continue
+            tc = tc_of(y << ssy, (x << ssx) - 1, x << ssx)
+            if tc == 0:
+                continue
+            p1, p0, q0, q1 = (int(out[y, x - 2]), int(out[y, x - 1]),
+                              int(out[y, x]), int(out[y, x + 1]))
+            delta = _clip3(-tc, tc, ((((q0 - p0) << 2) + p1 - q1 + 4) >> 3))
+            out[y, x - 1] = _clip3(0, maxv, p0 + delta)
+            out[y, x] = _clip3(0, maxv, q0 - delta)
+    for e in range(on_h.shape[0]):
+        y = (e + 1) * 8
+        for x in range(w):
+            if not on_h[e, x]:
+                continue
+            tc = tc_of_h((y << ssy) - 1, y << ssy, x << ssx)
+            if tc == 0:
+                continue
+            p1, p0, q0, q1 = (int(out[y - 2, x]), int(out[y - 1, x]),
+                              int(out[y, x]), int(out[y + 1, x]))
+            delta = _clip3(-tc, tc, ((((q0 - p0) << 2) + p1 - q1 + 4) >> 3))
+            out[y - 1, x] = _clip3(0, maxv, p0 + delta)
+            out[y, x] = _clip3(0, maxv, q0 - delta)
+    return out

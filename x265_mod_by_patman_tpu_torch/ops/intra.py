@@ -1,6 +1,8 @@
 """Batched intra prediction (port of the batched half of
 x265_mod_by_patman_tpu/ops/intra.py): reference substitution/filtering,
-all-35-modes prediction and one-selected-mode prediction."""
+all-35-modes prediction and one-selected-mode prediction.  The numpy
+goldens at the end of the module (the validation decoder's) are copied
+unchanged from the reference."""
 from __future__ import annotations
 
 import functools
@@ -247,3 +249,140 @@ def substitute_filter_batch(s_raw, avail, log2_size: int,
                                       top_lin, s_sub))
         s_filt = torch.where(cond[:, None], lin, s_filt)
     return s_sub, s_filt
+
+
+# ---------------------------------------------------------------------------
+# Golden scalar (numpy) functions of the validation decoder
+# (decoder/decoder.py), copied unchanged from the reference module
+# ---------------------------------------------------------------------------
+
+def substitute_refs(samples: np.ndarray, available: np.ndarray,
+                    bit_depth: int = 8) -> np.ndarray:
+    """Reference sample substitution over the S vector (spec 8.4.4.2.2):
+    scan from bottom-left (S[0]) to top-right (S[4N]); unavailable samples
+    inherit the previous value in scan order."""
+    s = samples.astype(np.int32).copy()
+    if not available.any():
+        s[:] = 1 << (bit_depth - 1)
+        return s
+    if not available[0]:
+        first = np.argmax(available)
+        s[0] = s[first]
+    for k in range(1, len(s)):
+        if not available[k]:
+            s[k] = s[k - 1]
+    return s
+
+
+def filter_refs(s: np.ndarray, log2_size: int, strong: bool = False,
+                bit_depth: int = 8) -> np.ndarray:
+    """[1 2 1]/4 smoothing of the S vector; optional strong (linear) mode
+    for 32x32 (spec 8.4.4.2.3)."""
+    n = 1 << log2_size
+    if strong and log2_size == 5:
+        bl, corner, tr = int(s[0]), int(s[2 * n]), int(s[4 * n])
+        out = s.astype(np.int32).copy()
+        for i in range(1, 2 * n):          # left: S[k]=p[-1][2N-1-k]
+            y = 2 * n - 1 - i
+            out[i] = ((63 - y) * corner + (y + 1) * bl + 32) >> 6
+        for x in range(2 * n - 1):
+            out[2 * n + 1 + x] = ((63 - x) * corner + (x + 1) * tr + 32) >> 6
+        return out
+    out = s.astype(np.int32).copy()
+    out[1:-1] = (s[:-2].astype(np.int32) + 2 * s[1:-1] + s[2:] + 2) >> 2
+    return out
+
+
+def strong_smoothing_condition(s: np.ndarray, log2_size: int,
+                               bit_depth: int = 8) -> bool:
+    if log2_size != 5:
+        return False
+    n = 1 << log2_size
+    corner = int(s[2 * n])
+    thresh = 1 << (bit_depth - 5)
+    top_ok = abs(corner + int(s[4 * n]) - 2 * int(s[3 * n])) < thresh
+    left_ok = abs(corner + int(s[0]) - 2 * int(s[n])) < thresh
+    return top_ok and left_ok
+
+
+def _refs_from_s(s: np.ndarray, n: int):
+    left = s[2 * n - 1::-1]        # p[-1][y], y = 0..2N-1
+    corner = int(s[2 * n])
+    top = s[2 * n + 1:]            # p[x][-1], x = 0..2N-1
+    return left, corner, top
+
+
+def intra_pred_ref(mode: int, s: np.ndarray, log2_size: int, c_idx: int = 0,
+                   bit_depth: int = 8) -> np.ndarray:
+    """Golden prediction of one mode from a (substituted, pre-filtered as
+    appropriate) S vector.  Returns (N, N) int array [y][x]."""
+    n = 1 << log2_size
+    left, corner, top = _refs_from_s(s.astype(np.int32), n)
+    maxval = (1 << bit_depth) - 1
+
+    if mode == 0:  # planar
+        x = np.arange(n)[None, :]
+        y = np.arange(n)[:, None]
+        pred = ((n - 1 - x) * left[y] + (x + 1) * top[n]
+                + (n - 1 - y) * top[x] + (y + 1) * left[n] + n) >> (log2_size + 1)
+        return pred
+
+    if mode == 1:  # DC
+        dc = (int(top[:n].sum()) + int(left[:n].sum()) + n) >> (log2_size + 1)
+        pred = np.full((n, n), dc, dtype=np.int32)
+        if c_idx == 0 and n < 32:
+            pred[0, 0] = (left[0] + 2 * dc + top[0] + 2) >> 2
+            pred[0, 1:] = (top[1:n] + 3 * dc + 2) >> 2
+            pred[1:, 0] = (left[1:n] + 3 * dc + 2) >> 2
+        return pred
+
+    angle = int(INTRA_PRED_ANGLE[mode - 2])
+    vertical = mode >= 18
+    main = np.zeros(3 * n + 2, dtype=np.int32)   # ref[-N .. 2N+1]
+    base, side = (top, left) if vertical else (left, top)
+    main[n] = corner
+    main[n + 1: 3 * n + 1] = base[:2 * n]
+    main[3 * n + 1] = base[2 * n - 1]            # clamp pad
+    if angle < 0:
+        inv = int(INTRA_INV_ANGLE[mode - 11]) if 11 <= mode <= 25 else 0
+        low = (n * angle) >> 5
+        for x in range(-1, low - 1, -1):
+            idx = ((x * inv + 128) >> 8) - 1
+            main[n + x] = side[min(idx, 2 * n - 1)]
+    pred = np.zeros((n, n), dtype=np.int32)
+    for k in range(n):                            # k = y (vert) or x (hor)
+        pos = (k + 1) * angle
+        i_idx = pos >> 5
+        i_fact = pos & 31
+        idx0 = n + 1 + i_idx + np.arange(n)
+        row = ((32 - i_fact) * main[idx0] + i_fact * main[idx0 + 1] + 16) >> 5
+        if vertical:
+            pred[k, :] = row
+        else:
+            pred[:, k] = row
+    # DPCM edge filters for exactly-horizontal/vertical modes (luma, <32)
+    if c_idx == 0 and n < 32:
+        if mode == 26:
+            pred[:, 0] = np.clip(top[0] + ((left[:n] - corner) >> 1), 0, maxval)
+        elif mode == 10:
+            pred[0, :] = np.clip(left[0] + ((top[:n] - corner) >> 1), 0, maxval)
+    return pred
+
+
+def predict_block_ref(mode: int, s_unfilt: np.ndarray, log2_size: int,
+                      c_idx: int = 0, bit_depth: int = 8,
+                      strong_smoothing: bool = False,
+                      filt_chroma: bool = False) -> np.ndarray:
+    """Golden full path: choose filtered/unfiltered refs per spec, then
+    predict.  filt_chroma: 4:4:4 chroma filters its reference samples
+    like luma (spec 8.4.4.2.3: cIdx==0 || ChromaArrayType==3); the
+    luma-only DC/edge post-filters stay off for chroma either way."""
+    use_filter = (c_idx == 0 or filt_chroma) and \
+        intra_filter_flag(mode, log2_size)
+    if use_filter:
+        strong = strong_smoothing and \
+            strong_smoothing_condition(s_unfilt, log2_size, bit_depth)
+        s = filter_refs(s_unfilt, log2_size, strong, bit_depth)
+    else:
+        s = s_unfilt
+    return intra_pred_ref(mode, s, log2_size, c_idx, bit_depth)

@@ -27,14 +27,32 @@ def _org_blocks(orig, x0, y0, n: int):
 
 
 def full_search_batch(ref, orig, x0, y0, pred_mv_x, pred_mv_y,
-                      lambda_x256, n: int, search_range: int = 16):
-    """Integer full search for (B,) blocks at (x0, y0) over a +-r window.
-    Returns (mv_x, mv_y, cost) int32 (B,), MVs in QPEL units; cost =
-    SAD + (lambda_x256 * bits) >> 8, first minimum in (dy, dx) row-major
-    order."""
-    c = lambda a: a.to(I32).contiguous()
+                      lambda_x256, n: int, search_range: int = 16,
+                      center_x=None, center_y=None):
+    """Integer full search for (B,) blocks at (x0, y0) over a +-r window,
+    optionally around (B,) FULLPEL window centres (HME seeds; the MVs
+    include the shift).  Returns (mv_x, mv_y, cost) int32 (B,), MVs in
+    QPEL units; cost = SAD + (lambda_x256 * bits) >> 8, first minimum in
+    (dy, dx) row-major order."""
+    c = lambda a: None if a is None else a.to(I32).contiguous()
     return full_search(c(ref), c(orig), c(x0), c(y0), c(pred_mv_x),
-                       c(pred_mv_y), lambda_x256, n, search_range)
+                       c(pred_mv_y), lambda_x256, n, search_range,
+                       c(center_x), c(center_y))
+
+
+def half_res(a):
+    """2x2 box average with rounding: the planes of the HME tiers."""
+    return ((a[0::2, 0::2] + a[0::2, 1::2] + a[1::2, 0::2] + a[1::2, 1::2]
+             + 2) >> 2).contiguous()
+
+
+def hme_upsample(v, gh: int, gw: int, nby: int, nbx: int):
+    """(gh * gw,) seeds of a half-resolution block grid -> the (nby *
+    nbx,) grid: each seed covers a 2x2 group, cropped or edge-extended
+    at the grid's end."""
+    iy = torch.clamp(torch.arange(nby, device=v.device) // 2, max=gh - 1)
+    ix = torch.clamp(torch.arange(nbx, device=v.device) // 2, max=gw - 1)
+    return v.reshape(gh, gw)[iy[:, None], ix[None, :]].reshape(-1)
 
 
 _OFFS8 = [(0, 0), (0, -2), (0, 2), (-2, 0), (2, 0),

@@ -9,10 +9,15 @@ backend:
 * float32 sums: a fixed pairwise order (halving the reduced axis), so the
   rounding does not depend on the backend's reduction tree;
 * float32 transcendental functions: evaluated in float64 and rounded
-  once to float32.
+  once to float32;
+* 2**q for the integer exponents of the RDOQ level scale: the value the
+  reference's CPU backend gives (exp2_ref).
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -53,6 +58,23 @@ def flog2(x: torch.Tensor) -> torch.Tensor:
 
 def fexp2(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(x.to(torch.float64)).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _exp2_ref_table(device) -> torch.Tensor:
+    arg = (np.arange(64, dtype=np.float64)
+           * np.float64(np.float32(np.log(2.0)))).astype(np.float32)
+    return torch.from_numpy(
+        np.exp(arg.astype(np.float64)).astype(np.float32)).to(device)
+
+
+def exp2_ref(q: torch.Tensor) -> torch.Tensor:
+    """float32 2**q for integer q in [0, 63] as the reference's backend
+    (XLA on the CPU) evaluates float32 exp2: exp(q * ln2) with the product
+    rounded to float32, so odd q come out inexact (524287.78 for q = 19).
+    The RDOQ level scale divides by it: an exact .5 tie of the scaled
+    coefficient then falls on the reference's side."""
+    return _exp2_ref_table(q.device)[q.long()]
 
 
 def fsqrt(x: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,7 @@ import torch
 from ..constants.hevc_tables import scan_order
 from ..entropy.est_bits import (
     BITS_TABLE, residual_ctx_scalars, sig_ctx_map)
-from .numeric import fexp2, fsqrt, fsum
+from .numeric import exp2_ref, fsqrt, fsum
 from .transform import (MAX_TR_DYNAMIC_RANGE, QUANT_SHIFT, _qp_vec, const)
 
 F32 = torch.float32
@@ -83,10 +83,8 @@ def _bt(bits_table, init_type, qp, b: int, device):
 def rdoq_levels(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
                 c_idx: int = 0, init_type=None, sign_hide: bool = False,
                 psy_rdoq=None, qmats=None, rawmats=None, bits_table=None):
-    """RD-quantize a batch of TUs; drop-in for quant_dyn."""
-    if sign_hide:
-        raise NotImplementedError("RDOQ-integrated sign hiding is not "
-                                  "ported (--sign-hide with --rdoq-level)")
+    """RD-quantize a batch of TUs; drop-in for quant_dyn.  sign_hide:
+    the reference's RDOQ-integrated sign-bit hiding (see below)."""
     if qmats is not None or rawmats is not None:
         raise NotImplementedError("scaling lists (--scaling-list) are not "
                                   "ported")
@@ -98,7 +96,7 @@ def rdoq_levels(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
     qbits = (QUANT_SHIFT + per + transform_shift)[:, None, None]
     scale = const("qs", None, dev)[rem6.long()][:, None, None]
     c = coef.to(I32)
-    cs = torch.abs(c).to(F32) * scale.to(F32) / fexp2(qbits.to(F32))
+    cs = torch.abs(c).to(F32) * scale.to(F32) / exp2_ref(qbits)
     if intra_mask is None:
         k = torch.full((b,), K_INTRA, dtype=F32, device=dev)
     else:
@@ -162,6 +160,60 @@ def rdoq_levels(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
         zero_cg = (kill < keep)[:, :, None, :, None]
         lv = torch.where(zero_cg, 0.0, lv.reshape(-1, g, 4, g, 4)) \
             .reshape(-1, n, n)
+
+    if sign_hide:
+        # RDOQ-integrated sign-bit hiding: where a CG's level-sum parity
+        # mismatches the first coefficient's sign, flip the single level
+        # +-1 whose (cs - L)^2 + K*bits delta is smallest (first minimum
+        # in scan order), keeping the first/last scan positions
+        g = max(1, n // 4)
+        diag = const("diag", 2, dev)             # 4x4 diagonal scan
+        b = lv.shape[0]
+
+        def tiles(a):
+            t = a.reshape(b, g, 4, g, 4).permute(0, 1, 3, 2, 4) \
+                .reshape(b, g, g, 16)
+            return t[..., diag]                     # scan order per CG
+
+        lv_t = tiles(lv)
+        cs_t = tiles(cs)
+        sgn_t = tiles(torch.sign(c).to(F32))
+        pos = torch.arange(16, device=dev)
+        sig = lv_t != 0
+        first = torch.where(sig, pos, 99).amin(-1)
+        last = torch.where(sig, pos, -1).amax(-1)
+        hide = (last - first) >= 4
+        parity = lv_t.sum(-1, dtype=torch.int32) & 1
+        first_sgn = torch.gather(sgn_t, -1,
+                                 torch.clamp(first, max=15)[..., None])[..., 0]
+        want = (first_sgn < 0).to(torch.int32)
+        mismatch = hide & (parity != want)
+
+        kt = k[:, 0, 0][:, None, None, None]
+        if psy_rdoq is not None and c_idx == 0:
+            psy_t = tiles(psy_k.expand(lv.shape))
+        else:
+            psy_t = torch.tensor(0.0, dtype=F32, device=dev)
+        cost_cur = ((cs_t - lv_t) ** 2 + kt * tiles(level_bits(lv))
+                    - psy_t * lv_t)
+        cost_up = ((cs_t - (lv_t + 1)) ** 2
+                   + kt * tiles(level_bits(lv + 1)) - psy_t * (lv_t + 1))
+        cost_dn = ((cs_t - (lv_t - 1)) ** 2
+                   + kt * tiles(level_bits(torch.clamp(lv - 1, min=0)))
+                   - psy_t * torch.clamp(lv_t - 1, min=0))
+        in_win = (pos >= first[..., None]) & (pos <= last[..., None])
+        edge = (pos == first[..., None]) | (pos == last[..., None])
+        big = torch.tensor(1e30, dtype=F32, device=dev)
+        du = torch.where(in_win, cost_up - cost_cur, big)
+        dd = torch.where(in_win & (lv_t >= 1) & ~(edge & (lv_t == 1)),
+                         cost_dn - cost_cur, big)
+        step = torch.where(du <= dd, 1.0, -1.0)
+        pick = torch.argmin(torch.minimum(du, dd), dim=-1)
+        onehot = (pos == pick[..., None]) & mismatch[..., None]
+        new_t = lv_t + torch.where(onehot, step, 0.0)
+        inv = torch.argsort(diag)                  # scan -> raster
+        lv = new_t[..., inv].reshape(b, g, g, 4, 4) \
+            .permute(0, 1, 3, 2, 4).reshape(b, n, n)
 
     lv = torch.clip(lv, 0, 32767).to(I32)
     return torch.sign(c) * lv
@@ -258,7 +310,7 @@ def tu_rd_levels(coef, qp, log2_size: int, bit_depth: int = 8,
     tshift = MAX_TR_DYNAMIC_RANGE - bit_depth - log2_size
     qbits = (QUANT_SHIFT + per + tshift)[:, None, None]
     scale = const("qs", None, dev)[rem6.long()][:, None, None]
-    cs = torch.abs(coef).to(F32) * scale.to(F32) / fexp2(qbits.to(F32))
+    cs = torch.abs(coef).to(F32) * scale.to(F32) / exp2_ref(qbits)
     lv = torch.round(cs)
     rd = (cs - lv) ** 2 + k * _level_bits(lv)
     return fsum(rd, (-2, -1))

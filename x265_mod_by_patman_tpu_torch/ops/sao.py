@@ -3,12 +3,13 @@ x265_mod_by_patman_tpu/ops/sao.py.
 
 Statistics and apply are whole-frame batched torch ops; the per-CTU
 decisions (sao_decide, sao_decide_chroma, sao_merge_pass) are host numpy
-functions copied unchanged from the reference (its module imports jax).
+functions copied unchanged from the reference (its module imports jax),
+as is the numpy golden apply (sao_apply_ref) of the validation decoder.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -346,3 +347,46 @@ def sao_merge_pass(stats3, maps3, cost_new, lam: float,
                     m[2][cy, cx] = band
                     m[3][cy, cx] = offs
     return merge_map
+
+
+# ---------------------------------------------------------------------------
+# Golden scalar (numpy) functions of the validation decoder
+# (decoder/decoder.py), copied unchanged from the reference module
+# ---------------------------------------------------------------------------
+
+def sao_apply_ref(rec: np.ndarray, params: List[List[SaoParams]],
+                  ctu: int, bit_depth: int = 8) -> np.ndarray:
+    """Scalar reference apply; params indexed [ctu_y][ctu_x]."""
+    h, w = rec.shape
+    maxv = (1 << bit_depth) - 1
+    th, tw = _tile_hw(ctu)
+    src = rec.astype(np.int64)
+    out = src.copy()
+    for cy in range(len(params)):
+        for cx in range(len(params[0])):
+            pr = params[cy][cx]
+            if pr.type_idx == SAO_OFF:
+                continue
+            y1 = min((cy + 1) * th, h)
+            x1 = min((cx + 1) * tw, w)
+            for y in range(cy * th, y1):
+                for x in range(cx * tw, x1):
+                    v = src[y, x]
+                    if pr.type_idx == SAO_BAND:
+                        bidx = ((v >> (bit_depth - 5)) - pr.band_pos) % 32
+                        if bidx < 4:
+                            out[y, x] = min(max(v + pr.offsets[bidx], 0),
+                                            maxv)
+                        continue
+                    ax, ay, bx, by = EO_NEIGHBORS[pr.eo_class]
+                    if not (0 <= y + ay < h and 0 <= x + ax < w and
+                            0 <= y + by < h and 0 <= x + bx < w):
+                        continue
+                    a = src[y + ay, x + ax]
+                    b = src[y + by, x + bx]
+                    edge = 2 + int(np.sign(v - a)) + int(np.sign(v - b))
+                    cat = {0: 1, 1: 2, 3: 3, 4: 4}.get(edge, 0)
+                    if cat:
+                        out[y, x] = min(max(v + pr.offsets[cat - 1], 0),
+                                        maxv)
+    return out.astype(np.int32)

@@ -3,7 +3,9 @@ blocks axis (port of x265_mod_by_patman_tpu/ops/transform.py).
 
 Integer math stays int32 as in the reference; the transform matmuls go
 through ops.numeric.ieinsum (exact on every backend).  QP is a runtime
-tensor (scalar or per-block)."""
+tensor (scalar or per-block).  The numpy goldens at the end of the
+module (the validation decoder's) are copied unchanged from the
+reference."""
 from __future__ import annotations
 
 import functools
@@ -213,3 +215,42 @@ def dequant_dyn(level, qp, log2_size: int, bit_depth: int = 8, dmats=None,
     scale = (const("iqs", None, dev)[rem.long()] << per)[:, None, None]
     coef = (lv * scale + (1 << (shift - 1))) >> shift
     return torch.clip(coef, -32768, 32767).to(I32)
+
+
+# ---------------------------------------------------------------------------
+# Golden scalar (numpy) functions of the validation decoder
+# (decoder/decoder.py), copied unchanged from the reference module
+# ---------------------------------------------------------------------------
+
+def _rshift_round(x: np.ndarray, shift: int) -> np.ndarray:
+    return (x + (1 << (shift - 1))) >> shift
+
+
+def idct_ref(coef: np.ndarray, bit_depth: int = 8, dst: bool = False) -> np.ndarray:
+    """Inverse core transform -> int16 residual (clipped per spec)."""
+    n = coef.shape[0]
+    log2n = n.bit_length() - 1
+    t = (DST4 if dst else dct_matrix(log2n)).astype(np.int64)
+    s1 = 7
+    s2 = 20 - bit_depth
+    tmp = np.clip(_rshift_round((t.T @ coef.astype(np.int64)).T, s1),
+                  -32768, 32767)
+    out = np.clip(_rshift_round((t.T @ tmp).T, s2), -32768, 32767)
+    return out.astype(np.int16)
+
+
+def dequant_ref(level: np.ndarray, qp: int, log2_size: int,
+                bit_depth: int = 8, mat=None) -> np.ndarray:
+    """Flat-list dequant (x265 dequant_normal_c); with mat: spec 8.6.3
+    scaling-list dequant (x265 dequant_scaling_c)."""
+    per, rem = qp // 6, qp % 6
+    transform_shift = MAX_TR_DYNAMIC_RANGE - bit_depth - log2_size
+    shift = IQUANT_SHIFT - QUANT_SHIFT - transform_shift
+    lv = level.astype(np.int64)
+    if mat is None:
+        scale = int(INV_QUANT_SCALES[rem]) << per
+        coef = (lv * scale + (1 << (shift - 1))) >> shift
+    else:
+        scale = (mat.astype(np.int64) * int(INV_QUANT_SCALES[rem])) << per
+        coef = (lv * scale + (1 << (shift + 3))) >> (shift + 4)
+    return np.clip(coef, -32768, 32767).astype(np.int16)
