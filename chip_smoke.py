@@ -31,7 +31,11 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    1080p and on a 2160p row band around HME window centres, the rect
    PUs' 8x8 sub-block search on the band's stacked references, the HME
    tier on quarter-res planes and the lookahead's hme_seeds on the
-   quarter-of-lowres planes, each exact and timed against its bound;
+   quarter-of-lowres planes, each exact and timed against its bound.
+   The SEA-pruned search of --me sea (torch ops, not a kernel;
+   phase_sea) at the 1080p analysis shape (n = 16, r = 32, k = 64):
+   exact against its numpy golden on sampled blocks and against K1
+   when k covers every candidate, timed beside K1's dense search;
 3. main path: a 3-frame (I P B) 1920x1080 8-bit
    4:2:0 clip (the `park` generator of tools/make_clips.py) through the
    port's Encoder on the card at the repo defaults (CQP 32, 4 B-frames
@@ -61,7 +65,12 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    bits, --preset medium --bitrate 300 --rdoq-level 2 --b-pyramid,
    HDR10; 6 frames) and --preset slow --hme --crf 24 --rc-lookahead 8
    under a 70/70 VBV that binds (8 frames; a picture must re-encode and
-   rect PUs occur).  Each case's CPU encode runs in a worker process
+   rect PUs occur).  Then the quarter-strip scene of the reference's AMP
+   test with rect, AMP and 2 B-frames (4 frames, I P B B; AMP PUs must
+   occur in a P and in a B picture), the park fade under --weightb --me
+   sea --no-scenecut and --preset veryslow --crf 24 on park (4 frames
+   each), the last also through the CLI on the card.  Each case's CPU encode
+   runs in a worker process
    while its card encode runs here, and the CLI subprocesses run beside
    the cases that follow them;
 5. the rate-control path: the same 1080p clip as phase 3, cut to 3
@@ -89,19 +98,29 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    what phase 6 prints, the analysis bands, the share of inter 16x16
    blocks coded as rect PUs and the launches with the HME tier counted;
    fails on a decode order other than I P B, a VBV underflow, no rect
-   PU on any picture or a recon below 28 dB.
+   PU on any picture or a recon below 28 dB;
+8. this slice's inter tools at full width (run after phase 7, before 5
+   and 6), 3 frames (I P B) of 1920x1080 park each: 8a `--preset
+   veryslow --crf 24` as the CLI builds it (AMP in P and B, rect, star
+   r = 32, 4 references, subme 4, 8 B-frames, rc-lookahead 40), with
+   each picture's AMP and rect shares; 8b park under a luma fade (x0.82
+   a frame) with `--weightb --me sea --no-scenecut` (weighted P and B,
+   the SEA search), with the slices' explicit weights and the analysis
+   span.  Each prints what phase 3 prints and fails on a decode order
+   other than I P B or a recon below 28 dB; 8b also fails when the B
+   slice carries no explicit weight.
 
-Every stream of phases 3-7 is decoded with the port's own decoder in
+Every stream of phases 3-8 is decoded with the port's own decoder in
 two worker processes on the host while the card runs the next phases;
 each picture must equal the card's recon and carry a matching MD5 SEI.
 
-Phases 3, 5, 6 and 7 each set the kernel counts to 0 just before their
+Phases 3 and 5-8 each set the kernel counts to 0 just before their
 encode and read them just after.  Each phase prints its seconds.
 
-Prints the kernels' JSON line (launches from phase 7, this slice's
-path, and per path; K1's times at the analysis shape n = 16, r = 32,
-every slow-path shape under "shapes"), the card line, and as its last
-line
+Prints SEA's time beside K1's, the kernels' JSON line (launches from
+phase 8a, this slice's path, and per path; K1's times at the analysis
+shape n = 16, r = 32, every slow-path shape under "shapes"), the card
+line, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is
 then non-zero and no result line is printed.
 """
@@ -154,6 +173,32 @@ def park_frames(w: int, h: int, n: int):
     stores them)."""
     frames = _load_clips().make_park(w, h, n)
     return [tuple(p.astype(np.uint8) for p in f) for f in frames]
+
+
+def quarter_strip_frames(w: int, h: int, n: int):
+    """The quarter-strip scene of the reference's AMP test
+    (tests/test_amp_pu.py quarter_strip_scene, horizontal boundary),
+    copied: two textures panning differently with their boundary at
+    y = 36, a quarter inside a 16-block row, where AMP pays."""
+    rng = np.random.default_rng(11)
+    big = rng.integers(0, 255, (h + 128, w + 128)).astype(np.int32)
+    big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)
+           + np.roll(big, (1, 1), (0, 1))) // 4
+    frames = []
+    for i in range(n):
+        y = np.array(big[16 + 2 * i:16 + 2 * i + h, 16:16 + w])
+        y[:36] = big[16:52, 16 + 3 * i:16 + 3 * i + w]
+        u = np.full((h // 2, w // 2), 120, np.uint8)
+        v = np.full((h // 2, w // 2), 132, np.uint8)
+        frames.append((np.clip(y, 0, 255).astype(np.uint8), u, v))
+    return frames
+
+
+def fade_frames(frames, fade: float = 0.82):
+    """Each frame's luma times fade^i (a fade to black, as the reference's
+    tests/test_weightb.py makes it), chroma as it is."""
+    return [((y.astype(np.float64) * fade ** i).astype(np.uint8), u, v)
+            for i, (y, u, v) in enumerate(frames)]
 
 
 def deep(plane, bd: int, rng):
@@ -487,6 +532,55 @@ def phase_k1_slow(dev, rng, card: str, clock_hz: float):
                              LOOKAHEAD_LAMBDA_X256, N, SEARCH_RANGE), card,
                             clock_hz, res))
     return res, main, shapes
+
+
+def phase_sea(dev, rng, card: str, k1_ms: float):
+    """The SEA-pruned search of --me sea (ops/sea.py, torch ops, no hand
+    kernel) at the 1080p analysis shape (n = 16, r = 32, k = 64) on park:
+    exact against its numpy golden on a sample of blocks, exact against
+    K1 when k covers every candidate (r = 4, random predictors), and its
+    device time per call beside K1's dense search at the same shape
+    (k1_ms).  Returns its numbers."""
+    from x265_mod_by_patman_tpu_torch.analysis import inter_mode as im
+    from x265_mod_by_patman_tpu_torch.ops.cuda.full_search import \
+        full_search
+    from x265_mod_by_patman_tpu_torch.ops.sea import (sea_search_batch,
+                                                      sea_search_ref)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    h, w = FRAME_HW
+    f = park_frames(w, 1080, 2)
+    pad = lambda p: np.pad(p, ((0, h - p.shape[0]), (0, 0)), mode="edge")
+    ref_np, org_np = (pad(f[k][0]).astype(np.int32) for k in (0, 1))
+    ref, org = t(ref_np), t(org_np)
+    x0, y0 = im._grid(h // 16, w // 16, 16, dev)
+    b = x0.shape[0]
+    z = torch.zeros_like(x0)
+    lam = int(round(im.lambda_qp(32)[0] * 256))
+    n, r, k = 16, 32, 64
+    mx, my, cost = sea_search_batch(ref, org, x0, y0, z, z, lam, n, r, k=k)
+    sample = rng.choice(b, 6, replace=False)
+    for i in sample:
+        gold = sea_search_ref(ref_np, org_np, int(x0[i]), int(y0[i]),
+                              (0, 0), lam, n, r, k=k)
+        got = (int(mx[i]), int(my[i]), int(cost[i]))
+        if got != gold:
+            raise AssertionError(f"SEA block {i}: {got}, golden {gold}")
+    pm = lambda: t(rng.integers(-300, 300, b, dtype=np.int32))
+    px, py = pm(), pm()
+    dense = full_search(ref, org, x0, y0, px, py, lam, n, 4)
+    sea_all = sea_search_batch(ref, org, x0, y0, px, py, lam, n, 4, k=81)
+    err = max(int((a.long() - e.long()).abs().max())
+              for a, e in zip(sea_all, dense))
+    if not all(torch.equal(a, e) for a, e in zip(sea_all, dense)):
+        raise AssertionError("SEA at k = all differs from K1")
+    ms = time_ms(lambda: sea_search_batch(ref, org, x0, y0, z, z, lam, n,
+                                          r, k=k), per_graph=2, reps=3)
+    print(f"SEA sea_search_batch 1080p park B={b} n={n} r={r} k={k}: "
+          f"equals its golden on {len(sample)} sampled blocks and K1 at "
+          f"k = all (r = 4, max_abs_err {err}); device time {ms:.4f} ms "
+          f"per call (CUDA-graph replays), K1 dense search at the same "
+          f"shape {k1_ms:.4f} ms, SEA / K1 {ms / k1_ms:.2f} ({card})")
+    return dict(ms=ms, k1_ms=k1_ms)
 
 
 class _UhdSps:
@@ -914,6 +1008,102 @@ def phase_uhd(dev, w=UHD_HW[1], h=UHD_HW[0], n=3):
     return run["counts"]
 
 
+VERYSLOW_OPTS = (("crf", "24"),)
+# the weighted-B / SEA path: the repo defaults otherwise, scenecut off so
+# that the fade does not turn the B into an I (as the reference's weightb
+# test turns it off)
+WEIGHTB_SEA_OPTS = (("weightb", ""), ("me", "sea"), ("no-scenecut", ""))
+
+
+def phase_veryslow(dev, w=1920, h=1080, n=3):
+    """8a: 1080p park, 3 frames (I P B), `--preset veryslow --crf 24` with
+    the parameters built as the CLI builds them: AMP in P and B, rect,
+    star r = 32, 4 references, subme 4, 8 B-frames, rc-lookahead 40.
+    Prints what phase 3 prints and each picture's AMP and rect shares
+    (AMP rarely pays on park: informational); fails on a decode order
+    other than I P B or a recon below 28 dB.  Returns launch counts."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
+    frames = park_frames(w, h, n)
+    enc = Encoder(cli_params(w, h, n, VERYSLOW_OPTS, preset="veryslow"),
+                  dev)
+    p = enc.p
+    print(f"veryslow path: rd {p.rd_level}, amp {p.amp}, rect {p.rect}, "
+          f"--me {p.search_method} (r = {enc._me_range}), subme "
+          f"{p.subpel_refine}, refs {enc.max_refs}, bframes {p.bframes}, "
+          f"rc-lookahead {p.rc_lookahead}, rdoq {p.rdoq_level}")
+    if not (p.amp and p.rect and enc._me_range == 32 and enc.max_refs == 4
+            and p.subpel_refine == 4 and p.bframes == 8
+            and p.rc_lookahead == 40):
+        raise AssertionError("the veryslow path lacks AMP, rect, star "
+                             "r = 32, 4 refs, subme 4 or 8 B-frames")
+    run = drive(enc, frames)
+    report_drive(run, frames, w, h, f"veryslow path {w}x{h}, --preset "
+                 "veryslow --crf 24")
+    out = run["out"]
+    decode_later(f"phase 8a, {w}x{h} --preset veryslow", out)
+    print("AMP / rect share of 16x16 blocks per picture (cu_amp_pct / "
+          "cu_rect_pct): " + ", ".join(
+              f"{f.slice_type}{f.disp} {f.stats.get('cu_amp_pct', 0.0)} / "
+              f"{f.stats.get('cu_rect_pct', 0.0)}" for f in out))
+    order = [(f.slice_type, f.disp) for f in out]
+    if order != [("I", 0), ("P", 2), ("B", 1)]:
+        raise AssertionError(f"decode order {order}, not I0 P2 B1")
+    return run["counts"]
+
+
+def phase_weightb_sea(dev, w=1920, h=1080, n=3):
+    """8b: 1080p park under a luma fade (x0.82 per frame), 3 frames (I P
+    B), `--weightb --me sea --no-scenecut` at the repo defaults
+    otherwise: weighted P and B, the SEA-pruned search in both analyses
+    (AMP stays off: no rect).  Prints what phase 3 prints, the P and B
+    slices' explicit luma weights and the analysis span per picture
+    type; fails on a decode order other than I P B, a recon below 28
+    dB or a B slice without an explicit weight.  Returns launch
+    counts."""
+    from x265_mod_by_patman_tpu_torch.encoder import top
+    frames = fade_frames(park_frames(w, h, n))
+    enc = top.Encoder(cli_params(w, h, n, WEIGHTB_SEA_OPTS), dev)
+    p = enc.p
+    if not (p.weightb and p.weightp and p.search_method == "sea"
+            and not p.scenecut and enc._me_range == 32):
+        raise AssertionError("the weightb/SEA path lacks --weightb, "
+                             "weightp or --me sea (r = 32)")
+    seen = {"P": [], "B": []}
+    ana = (top.analyse_p_frame, top.analyse_b_frame)
+
+    def on_p(*a, **k):
+        seen["P"].append(k.get("weights"))
+        return ana[0](*a, **k)
+
+    def on_b(*a, **k):
+        seen["B"].append(k.get("weights_b"))
+        return ana[1](*a, **k)
+
+    top.analyse_p_frame, top.analyse_b_frame = on_p, on_b
+    try:
+        run = drive(enc, frames)
+    finally:
+        top.analyse_p_frame, top.analyse_b_frame = ana
+    report_drive(run, frames, w, h, f"weightb/SEA path {w}x{h}, luma fade "
+                 "0.82, --weightb --me sea --no-scenecut")
+    out = run["out"]
+    decode_later(f"phase 8b, {w}x{h} --weightb --me sea fade", out)
+    print(f"explicit luma weights (w, o) per list, denominator 6: P L0 "
+          f"{seen['P']}; B (L0, L1) {seen['B']}")
+    span = {}
+    for e in run["spans"]:
+        if e.get("ph") == "X" and e["name"] == "analysis":
+            span.setdefault(e["args"]["type"], []).append(e["dur"] / 1e6)
+    print("analysis span (SEA search in P and B) seconds: " + ", ".join(
+        f"{k} {' '.join(f'{d:.3f}' for d in v)}" for k, v in span.items()))
+    order = [(f.slice_type, f.disp) for f in out]
+    if order != [("I", 0), ("P", 2), ("B", 1)]:
+        raise AssertionError(f"decode order {order}, not I0 P2 B1")
+    if not any(wp is not None for wb in seen["B"] if wb for wp in wb):
+        raise AssertionError("the B slice carries no explicit weight")
+    return run["counts"]
+
+
 def cli_params(w: int, h: int, n: int, opts, bit_depth: int = 8,
                preset=None, fps: int = 25):
     """Parameters built as the CLI builds them for an n-frame y4m at
@@ -1118,16 +1308,18 @@ def agree_all(pool, w: int, h: int):
     try:
         agree_deep(pool, w, h, checks)
         agree_slow(pool, w, h)
+        agree_inter_tools(pool, w, h, checks)
     finally:
         for check in checks:
             check()
 
 
-def cli_on_card(frames, opts, s_gpu, name: str, bit_depth: int = 8):
+def cli_on_card(frames, opts, s_gpu, name: str, bit_depth: int = 8,
+                preset=None):
     """Write `frames` as a y4m under build/ and start the port's CLI on it
-    in a subprocess on the card, which runs beside the phase's next
-    cases.  Returns the check to call later: it waits for the CLI, whose
-    .hevc must equal `s_gpu`."""
+    (with `--preset preset` when given) in a subprocess on the card,
+    which runs beside the phase's next cases.  Returns the check to call
+    later: it waits for the CLI, whose .hevc must equal `s_gpu`."""
     from x265_mod_by_patman_tpu_torch.io.y4m import VideoInfo, Y4MWriter
     h, w = frames[0][0].shape
     n = len(frames)
@@ -1142,6 +1334,8 @@ def cli_on_card(frames, opts, s_gpu, name: str, bit_depth: int = 8):
     wr.close()
     cmd = [sys.executable, "-m", f"{PKG}.cli", "--input", src, "-o", dst,
            "--frames", str(n), "--no-progress"]
+    if preset:
+        cmd += ["--preset", preset]
     for k, v in opts:
         cmd += [f"--{k}"] + ([v] if v else [])
     t0 = time.perf_counter()
@@ -1329,10 +1523,47 @@ def agree_slow(pool, w: int, h: int):
         raise AssertionError("no rect PU in the slow-preset stream")
 
 
+def agree_inter_tools(pool, w: int, h: int, checks):
+    """Phase 4's cases of this slice's inter tools, cuda against cpu: the
+    quarter-strip scene with rect, AMP and 2 B-frames (AMP PUs must occur
+    in a P and in a B picture), the park fade under --weightb --me sea,
+    and --preset veryslow --crf 24 on park, also through the CLI on the
+    card."""
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    frames = quarter_strip_frames(w, h, 4)
+    pq = lambda: default_params(w, h, qp=30, keyframe_max=250, bframes=2,
+                                b_adapt=0, rect=True, amp=True, sao=False,
+                                scenecut=False, cu_tree=False, aq_mode=0)
+    _s, e = _agree(pool, frames, f"{w}x{h} x4 quarter-strip scene, rect + "
+                   "AMP, 2 B-frames", pq(), pq())
+    amp = {f"{f.slice_type}{f.disp}": f.stats.get("cu_amp_pct", 0.0)
+           for f in e if f.slice_type != "I"}
+    print(f"AMP share of 16x16 blocks per picture: {amp}")
+    for t in ("P", "B"):
+        if not any(v > 0 for k, v in amp.items() if k[0] == t):
+            raise AssertionError(f"no AMP PU in a {t} picture")
+    n = 4
+    frames = fade_frames(park_frames(w, h, n))
+    _s, e = _agree(pool, frames, f"{w}x{h} x{n} park fade --weightb --me "
+                   "sea --no-scenecut", cli_params(w, h, n, WEIGHTB_SEA_OPTS),
+                   cli_params(w, h, n, WEIGHTB_SEA_OPTS))
+    if "B" not in [f.slice_type for f in e]:
+        raise AssertionError("the fade made no B picture")
+    frames = park_frames(w, h, n)
+    pv = lambda: cli_params(w, h, n, VERYSLOW_OPTS, preset="veryslow")
+    s, e = _agree(pool, frames, f"{w}x{h} x{n} --preset veryslow --crf 24",
+                  pv(), pv())
+    print("veryslow AMP / rect share per picture: " + ", ".join(
+        f"{f.slice_type}{f.disp} {f.stats.get('cu_amp_pct', 0.0)} / "
+        f"{f.stats.get('cu_rect_pct', 0.0)}" for f in e))
+    checks.append(cli_on_card(frames, VERYSLOW_OPTS, s,
+                              f"smoke_{w}x{h}_veryslow", preset="veryslow"))
+
+
 def run_phases(dev, rng, cap: str, clock: float):
-    """Phases 2-7; phase 7 runs before 5 and 6, so that its 2160p
-    pictures decode on the host while the card runs them.  Returns the
-    launch counts per path and the kernels' numbers."""
+    """Phases 2-8; phases 7 and 8 run before 5 and 6, so that their
+    pictures decode on the host while the card runs the next ones.
+    Returns the launch counts per path, the kernels' numbers and SEA's."""
     t0 = time.perf_counter()
     k1, main_shape, shapes = phase_k1_slow(dev, rng, cap, clock)
     res = {"full_search": phase_k1(dev, rng, cap, clock),
@@ -1344,6 +1575,7 @@ def run_phases(dev, rng, cap: str, clock: float):
     fs.update(ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
               bound_ms=main_shape["bound_ms"], shape=main_shape["shape"],
               shapes=shapes)
+    sea = phase_sea(dev, rng, cap, main_shape["ms"])
     print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
     counts = {}
     t0 = time.perf_counter()
@@ -1356,12 +1588,18 @@ def run_phases(dev, rng, cap: str, clock: float):
     counts["uhd_slow"] = phase_uhd(dev)
     print(f"phase 7 UHD slow path: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    counts["veryslow"] = phase_veryslow(dev)
+    print(f"phase 8a veryslow path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts["weightb_sea"] = phase_weightb_sea(dev)
+    print(f"phase 8b weightb/SEA path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     counts["crf_aq_cutree"] = phase_rc(dev)
     print(f"phase 5 rate-control path: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     counts["main10_vbv_hrd"] = phase_main10(dev, order3)
     print(f"phase 6 Main10 delivery path: {time.perf_counter() - t0:.2f} s")
-    return counts, res
+    return counts, res, sea
 
 
 def main() -> int:
@@ -1394,7 +1632,7 @@ def main() -> int:
     global DECODES
     DECODES = Decodes()
     try:
-        counts, res = run_phases(dev, rng, cap, clock)
+        counts, res, sea = run_phases(dev, rng, cap, clock)
         DECODES.finish()
     finally:
         DECODES.pool.shutdown(cancel_futures=True)
@@ -1404,10 +1642,13 @@ def main() -> int:
                              "ops/pallas/gather.py:82")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{cu}",
-         "replaces": rep, "launches": counts["uhd_slow"][name],
+         "replaces": rep, "launches": counts["veryslow"][name],
          "launches_by_path": {k: c[name] for k, c in counts.items()},
          **res[name]}
         for name, (cu, rep) in src.items()]}
+    print(f"SEA (--me sea; torch ops, no hand kernel) at 1080p n = 16, "
+          f"r = 32, k = 64: {sea['ms']:.4f} ms per call against K1's dense "
+          f"search {sea['k1_ms']:.4f} ms")
     print(json.dumps(line))
     print(cap)
     print(json.dumps({"ok": True, "device": {

@@ -229,11 +229,22 @@ def test_analyse_b_frame_matches_reference(b_analysis, name):
 
 
 def test_analyse_b_frame_rejects_weighted_b():
+    """Weighted B (--weightb) was rejected before it was ported; the
+    port's weighted analysis (the lists cut to 1 + 1, ME on the
+    pre-weighted planes, weighted uni and bi predictions, luma-only
+    weighted MC) must now equal the reference's on the same planes."""
     fr = moving_scene(W, H, 3, seed=4)
     sps = build_sps_info(default_params(W, H).validate())
-    with pytest.raises(NotImplementedError, match="--weightb"):
-        tim.analyse_b_frame(*fr[1], [fr[0]], [fr[2]], sps, 30, CPU,
-                            weights_b=((70, 2), None))
+    args = (*fr[1], [fr[0], fr[2]], [fr[2]], sps, 30)
+    kw = dict(weights_b=((70, 2), None), ref_pocs=((0, 2), (2,)),
+              cur_poc=1)
+    flat = lambda o: list(o[:7]) + list(o[7]) + [o[8]] + list(o[9])
+    got = flat(tim.analyse_b_frame(*args, CPU, **kw))
+    exp = flat(jim.analyse_b_frame(*args, **kw))
+    for i, (a, b) in enumerate(zip(got, exp)):
+        a = a.numpy() if isinstance(a, torch.Tensor) else a
+        np.testing.assert_array_equal(a, np.asarray(b), err_msg=str(i))
+    assert np.asarray(got[2]).max() > 0        # premise: inter blocks
 
 
 # -- streams ------------------------------------------------------------------

@@ -9,7 +9,9 @@ CPU:
 * the CLI (cli.py): the same 96x64 y4m through the port's main() and
   the reference's, under CRF with AQ 2 and cuTree, with a CSV log and
   PSNR; the .hevc files are byte-identical and the CSV rows equal.
-  Options the port does not take raise NotImplementedError naming them.
+  Options the port does not take raise NotImplementedError naming them;
+  --amp, --weightb, --me sea and --preset veryslow run through the CLI
+  and decode.
 
 Tolerance: exact (NAL types and bytes, file contents, CSV text)."""
 import numpy as np
@@ -139,7 +141,7 @@ def test_cli_output_equals_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("extra,name", [
     (["--abr-ladder", "ladder.txt"], "--abr-ladder"),
-    (["--amp"], "--amp"),
+    (["--scaling-list", "default"], "--scaling-list"),
     (["--lossless"], "--lossless"),
     (["--frame-threads", "2"], "--frame-threads"),
 ])
@@ -147,3 +149,27 @@ def test_cli_rejects_unported_options(tmp_path, extra, name):
     _write_y4m(tmp_path / "in.y4m", 1)
     with pytest.raises(NotImplementedError, match=name):
         tcli.main(_cli_args(tmp_path, "x") + ["--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("extra,signalled", [
+    (["--rect", "--amp"], [b"amp=True", b"rect=True"]),
+    (["--weightb"], [b"weightb=True"]),
+    (["--me", "sea"], [b"search_method=sea"]),
+    (["--preset", "veryslow"], [b"amp=True", b"rd_level=6",
+                                b"subpel_refine=4", b"bframes=8"]),
+])
+def test_cli_takes_the_inter_tools(tmp_path, extra, signalled):
+    """The port's CLI takes --amp, --weightb, --me sea and --preset
+    veryslow (their streams are held to the reference in
+    tests/test_torch_amp.py, test_torch_weightb_sea.py and
+    test_torch_presets.py): the options reach the encoder (its info SEI
+    lists them) and the stream decodes with matching MD5 SEIs."""
+    _write_y4m(tmp_path / "in.y4m")
+    assert tcli.main(_cli_args(tmp_path, "x") + ["--device", "cpu"]
+                     + extra) == 0
+    stream = (tmp_path / "x.hevc").read_bytes()
+    info = stream[stream.index(b"x265-tpu"):].split(b" ")
+    assert all(s in info for s in signalled), signalled
+    pics = Decoder().decode(stream)
+    assert len(pics) == 6
+    assert all(pc.md5 == pc.sei_md5 for pc in pics)

@@ -3,8 +3,9 @@ against its plain PyTorch twin on the same device tensors, the launch
 counters, the lookahead lattice, B analysis and cuTree's lowres inter
 costs on the card against the CPU, K1 on 12-bit planes and its fp32
 bound, K1 around HME window centres, and card encodes (CQP, CRF with AQ
-and cuTree, Main10 CRF under a VBV with HRD, and --preset slow --hme
-in row bands) that must give the CPU's bytes.  The GPU
+and cuTree, Main10 CRF under a VBV with HRD, --preset slow --hme
+in row bands, AMP in P and B, weighted B with --me sea) that must give
+the CPU's bytes, and the SEA search on the card against the CPU.  The GPU
 machine has no JAX, which tests/conftest.py imports, so run them there
 with `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
 
@@ -285,3 +286,80 @@ def test_card_slow_preset_encode_equals_cpu(dev):
     finally:
         inter_mode._analysis_bands = orig
     assert s_gpu == s_cpu
+
+
+def test_sea_search_on_card_equals_cpu(dev):
+    """The SEA-pruned search (torch ops on the tensors' device) at the
+    analysis shape n = 16, r = 32, k = 64: the card's MVs and costs equal
+    the CPU's (the top-k selection runs on unique keys, so ties at the
+    k-th bound cannot differ between devices)."""
+    from x265_mod_by_patman_tpu_torch.ops.sea import sea_search_batch
+    rng = np.random.default_rng(8)
+    h, w, n = 128, 192, 16
+    ref = rng.integers(0, 256, (h, w)).astype(np.int32)
+    ref = (ref + np.roll(ref, 1, 0) + np.roll(ref, 1, 1)) // 3
+    org = np.clip(np.roll(ref, (5, -9), (0, 1))
+                  + rng.integers(-4, 5, (h, w)), 0, 255).astype(np.int32)
+    bys, bxs = np.mgrid[0:h // n, 0:w // n]
+    cols = [(bxs.ravel() * n).astype(np.int32),
+            (bys.ravel() * n).astype(np.int32)]
+    cols += [rng.integers(-60, 60, bys.size).astype(np.int32)] * 2
+    for plane in (ref, np.full_like(ref, 77)):
+        args = [plane, org if plane is ref else plane] + cols
+        out = [sea_search_batch(*[torch.from_numpy(a).to(d) for a in args],
+                                900, n, 32, k=64) for d in (dev, "cpu")]
+        for g, c in zip(*out):
+            assert torch.equal(g.cpu(), c)
+
+
+def _quarter_strip(w, h, n):
+    """tests/test_amp_pu.py's quarter-strip scene (horizontal boundary at
+    y = 36), made here without the reference package."""
+    rng = np.random.default_rng(11)
+    big = rng.integers(0, 255, (h + 128, w + 128)).astype(np.int32)
+    big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)
+           + np.roll(big, (1, 1), (0, 1))) // 4
+    out = []
+    for i in range(n):
+        y = np.array(big[16 + 2 * i:16 + 2 * i + h, 16:16 + w])
+        y[:36] = big[16:52, 16 + 3 * i:16 + 3 * i + w]
+        out.append((np.clip(y, 0, 255).astype(np.uint8),
+                    np.full((h // 2, w // 2), 120, np.uint8),
+                    np.full((h // 2, w // 2), 132, np.uint8)))
+    return out
+
+
+def _fade(w, h, n, fade=0.82):
+    """tests/test_weightb.py's fade, made here at w x h."""
+    rng = np.random.default_rng(9)
+    base = rng.integers(40, 230, (h, w)).astype(np.float64)
+    return [(np.clip(np.roll(base, i, axis=1) * fade ** i, 0, 255)
+             .astype(np.uint8), np.full((h // 2, w // 2), 120, np.uint8),
+             np.full((h // 2, w // 2), 136, np.uint8)) for i in range(n)]
+
+
+@pytest.mark.parametrize("case", ["amp_quarter_strip", "weightb_sea_fade"])
+def test_card_inter_tools_encode_equals_cpu(dev, case):
+    """AMP in P and B (the quarter-strip scene, I P B B P) and weighted B
+    with the SEA search (a fade): the card gives the CPU's bytes."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    if case == "amp_quarter_strip":
+        frames = _quarter_strip(96, 64, 5)
+        p = lambda: default_params(96, 64, qp=30, keyframe_max=250,
+                                   bframes=2, b_adapt=0, rect=True, amp=True,
+                                   sao=False, scenecut=False, cu_tree=False,
+                                   aq_mode=0)
+    else:
+        frames = _fade(96, 64, 7)
+        p = lambda: default_params(96, 64, qp=30, keyframe_max=250,
+                                   bframes=2, b_adapt=0, scenecut=False,
+                                   cu_tree=False, aq_mode=0, weightb=True,
+                                   search_method="sea")
+    s_gpu, e_gpu = encode_sequence(p(), frames, dev)
+    s_cpu, _ = encode_sequence(p(), frames, "cpu")
+    assert s_gpu == s_cpu
+    if case == "amp_quarter_strip":
+        for t in ("P", "B"):
+            assert any(f.stats.get("cu_amp_pct", 0) > 0 for f in e_gpu
+                       if f.slice_type == t), t

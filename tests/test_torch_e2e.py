@@ -43,9 +43,6 @@ def test_port_stream_equals_jax_and_decodes(case):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(bframes=4, weightb=True), "--weightb"),
-    (dict(bframes=0, amp=True), "--amp"),
-    (dict(bframes=0, search_method="sea"), "--me sea"),
     (dict(bframes=0, mcstf=True), "--mcstf"),
     (dict(bframes=0, internal_csp=2), "4:2:2"),
     (dict(bframes=0, rc_mode="crf", frame_parallel_window=2),
@@ -63,9 +60,13 @@ def test_unported_options_raise(kw, name):
 @pytest.mark.parametrize("kw", [
     dict(bframes=0, rect=True), dict(bframes=0, hme=True),
     dict(bframes=0, rdoq_level=2, sign_hide=True),
+    dict(bframes=4, weightb=True), dict(bframes=0, rect=True, amp=True),
+    dict(bframes=0, search_method="sea"),
 ])
 def test_slow_preset_options_are_accepted(kw):
-    """--rect, --hme and sign hiding under RDOQ are ported (their
-    streams are held to the reference in tests/test_torch_slow.py)."""
+    """--rect, --hme, sign hiding under RDOQ, --weightb, --amp and --me
+    sea are ported (their streams are held to the reference in
+    tests/test_torch_slow.py, test_torch_amp.py, test_torch_presets.py and
+    test_torch_weightb_sea.py)."""
     enc = ttop.Encoder(default_params(96, 64, **kw), "cpu")
     assert all(getattr(enc.p, k) == v for k, v in kw.items())

@@ -2,7 +2,8 @@
 (params, bitstream, entropy, rc, constants, frame.zscan, utils.trace,
 the CLI's io and metrics modules, bitstream.hdr10plus, the native C
 entropy engine, the host half of analysis.weightp, the validation
-decoder and the numpy goldens it imports) must stay verbatim:
+decoder and the numpy goldens it imports, the SEA search's goldens)
+must stay verbatim:
 each copy's source equals the reference's once the package name is
 substituted, and so must the host blocks copied into encoder/top.py's
 rewritten methods (the Dolby Vision RPU split, the HDR10+ and HRD
@@ -40,9 +41,10 @@ VERBATIM = (
     "io/reconplay.py", "utils/metrics.py", "utils/vmaf.py",
     "bitstream/hdr10plus.py", "decoder/__init__.py", "decoder/decoder.py")
 
-# the numpy goldens decoder/decoder.py imports from the reference's
-# jax-importing ops modules, with the helpers they call, copied unchanged
-# into the port's counterpart modules under the same names
+# the numpy goldens decoder/decoder.py (and the SEA search's golden)
+# imports from the reference's jax-importing ops modules, with the
+# helpers they call, copied unchanged into the port's counterpart
+# modules under the same names
 DECODER_GOLDENS = (
     ("ops/interp.py", ("_filt1d_ref", "mc_block_ref", "mc_block_ref_14",
                        "bi_combine_ref", "wp_apply_ref",
@@ -56,6 +58,9 @@ DECODER_GOLDENS = (
                         "chroma_on_maps")),
     ("ops/sao.py", ("sao_apply_ref", "SaoParams")),
     ("frame/recon_intra.py", ("chroma_qp",)),
+    # the SEA search's numpy goldens and the helper they call
+    ("ops/sea.py", ("integral_ref", "sea_search_ref")),
+    ("ops/me.py", ("mv_bits_np",)),
 )
 
 

@@ -6,11 +6,13 @@ lambda_qp, _scale_mv_np, temporal_merge_field, _b_tmvp_field,
 WINDOW_NBY_LIMIT and _analysis_bands are host functions copied unchanged
 from the reference (its module imports jax).  Frames above 9000 16x16
 blocks (4K) are analysed in row bands on sliced sub-planes
-(_banded_analysis), HME seeds the full search (_hme_center_fullres) and
-rect PUs (2NxN / Nx2N) are searched on 8x8 sub-blocks, as in the
-reference.  Its AMP, SEA, mesh-sharded (shard_map slab) and weighted-B
-branches are not ported; the TPU-only _chain scheduling barriers and
-lane chunking have no counterpart.
+(_banded_analysis), HME seeds the full search (_hme_center_fullres),
+rect PUs (2NxN / Nx2N) are searched on 8x8 sub-blocks, AMP PUs (2NxnU,
+2NxnD, nLx2N, nRx2N) pick each strip's MV from 4x4-tile SATD maps,
+`--me sea` runs the SEA-pruned integer search (ops/sea.py) and weighted
+B (`--weightb`) searches pre-weighted planes, as in the reference.  Its
+mesh-sharded (shard_map slab) branch is not ported; the TPU-only _chain
+scheduling barriers and lane chunking have no counterpart.
 """
 from __future__ import annotations
 
@@ -23,11 +25,13 @@ import torch
 
 from ..frame.planes import dev_i32
 from ..frame.zscan import frame_avail_masks
-from ..ops.cost import satd_batch
-from ..ops.interp import bi_combine, mc_batch, mc_batch_14, wp_apply_batch
+from ..ops.cost import _had, _tiles, satd_batch
+from ..ops.interp import (bi_combine, mc_batch, mc_batch_14, wp_apply_batch,
+                          wp_bi_combine)
 from ..ops.me import (_org_blocks, full_search_batch, half_res,
                       hme_upsample, mv_bits, subpel_refine_batch)
 from ..ops.numeric import fsum
+from ..ops.sea import sea_search_batch
 from ..ops.transform import dct_batch, dequant_dyn, idct_batch, quant_dyn
 from .intra_mode import _mode_costs
 from .weightp import weighted_plane
@@ -152,6 +156,84 @@ def _from_sub4(p, sz: int):
         .reshape(-1, sz, sz)
 
 
+def _amp_shapes(nt: int):
+    """The AMP part codes with the (rows, cols) tile ranges of PU0 and
+    PU1 on the (nt, nt) grid of 4x4 tiles (spec 7.4.9.5: 2NxnU, 2NxnD,
+    nLx2N, nRx2N)."""
+    f = (0, nt)
+    return ((4, ((0, 1), f), ((1, nt), f)),
+            (5, ((0, nt - 1), f), ((nt - 1, nt), f)),
+            (6, (f, (0, 1)), (f, (1, nt))),
+            (7, (f, (0, nt - 1)), (f, (nt - 1, nt))))
+
+
+def _amp_tile_satd(org, tall, bx, y0, cmvs, n: int, bd: int):
+    """(C, B, n/4, n/4) 4x4-tile SATD maps of the (B, n, n) source blocks
+    against each of the C candidate MVs' predictions, read from the
+    stacked planes `tall` at rows y0 (one MC batch)."""
+    c = len(cmvs)
+    pr = mc_batch(tall, bx.repeat(c), y0.repeat(c),
+                  torch.cat([m[0] for m in cmvs]),
+                  torch.cat([m[1] for m in cmvs]), n, 0, bd)
+    ht = _had(_tiles(org.repeat(c, 1, 1) - pr, 4), 4)
+    ts = (torch.abs(ht).sum((-2, -1), dtype=I32) + 1) >> 1
+    return ts.reshape(c, -1, n // 4, n // 4)
+
+
+def _amp_region_best(ts, cbits, reg, fields):
+    """Best candidate per block for one PU region of the (C, B, nt, nt)
+    tile-SATD maps: the region's SATD + cbits (C, B), first minimum.
+    Returns (cost, each of `fields` (C, B) at the chosen candidate)."""
+    (r0, r1), (c0, c1) = reg
+    tot = ts[:, :, r0:r1, c0:c1].sum((-2, -1), dtype=I32) + cbits
+    ci = torch.argmin(tot, 0)[None]
+    return (tot.amin(0),) + tuple(torch.gather(f, 0, ci)[0] for f in fields)
+
+
+def _amp_mask(part, sz: int, dev):
+    """(B, sz, sz) mask of PU1's samples for the AMP part codes 4-7."""
+    q = sz // 4
+    yy = torch.arange(sz, device=dev)[None, :, None]
+    xx = torch.arange(sz, device=dev)[None, None, :]
+    pm = part[:, None, None]
+    return torch.where(pm == 4, yy >= q,
+                       torch.where(pm == 5, yy >= 3 * q,
+                                   torch.where(pm == 6, xx >= q,
+                                               xx >= 3 * q)))
+
+
+def _amp_p_cands(org, tall, bx, y0, ref_sel, cmvs, nby: int, nbx: int,
+                 lam256: int, n: int, bd: int):
+    """The P AMP candidates (code, PU0 mvx, mvy, PU1 mvx, mvy, cost) of
+    the reference: each quarter strip and its complementary body pick
+    the best MV by strip SATD + lambda * (mv bits + 3 + ref_idx) from
+    {cmvs (2Nx2N and the four rect PU MVs), the top and the left
+    neighbours' 2Nx2N MVs}; a shape whose two PUs share one MV is never
+    picked.  y0: each block's row on the stacked planes `tall`."""
+    f2x = cmvs[0][0].reshape(nby, nbx)
+    f2y = cmvs[0][1].reshape(nby, nbx)
+    nbr = []
+    for sy, sx in ((1, 0), (0, 1)):             # top, left
+        nx, ok = _neigh_field(f2x, sy, sx)
+        ny, _ = _neigh_field(f2y, sy, sx)
+        nbr.append((torch.where(ok, nx, f2x).reshape(-1),
+                    torch.where(ok, ny, f2y).reshape(-1)))
+    cmvs = list(cmvs) + nbr
+    ts = _amp_tile_satd(org, tall, bx, y0, cmvs, n, bd)
+    cax = torch.stack([c[0] for c in cmvs])
+    cay = torch.stack([c[1] for c in cmvs])
+    cbits = (lam256 * (mv_bits(cax, cay) + 3 + ref_sel[None])) >> 8
+    part_bins = (lam256 * 4) >> 8
+    out = []
+    for code, ra, rb in _amp_shapes(n // 4):
+        c0, m0x, m0y = _amp_region_best(ts, cbits, ra, (cax, cay))
+        c1, m1x, m1y = _amp_region_best(ts, cbits, rb, (cax, cay))
+        cc = torch.where((m0x == m1x) & (m0y == m1y), 1 << 30,
+                         c0 + c1 + part_bins)
+        out.append((code, m0x, m0y, m1x, m1y, cc))
+    return out
+
+
 def _rd_resid_cost(org, pred, qp_b, log2n: int, bd: int, lam2):
     """Transform-domain RD of one motion option's luma residual: returns
     (coded_cost_sans_syntax, zero_residual_sse) per block (float32).
@@ -189,17 +271,24 @@ def _hme_center_fullres(ry, oy, nby: int, nbx: int, lam256: int,
 
 
 def _me_one_ref(oy, ry, bx, by, n: int, lam256: int, search_range: int,
-                bit_depth: int = 8, subme: int = 2, org=None, hme=None):
-    """Full search (K1) + subpel against one reference, zero-pred
-    regularized.  hme: optional (cx, cy) FULLPEL window centres from
-    the quarter-res tier.  Returns (mvx, mvy, cost, org) int32; `org`
-    (the (B, n, n) source blocks) is gathered here unless the caller
-    passes it, as a P frame does once for all its references."""
+                bit_depth: int = 8, subme: int = 2, org=None, hme=None,
+                me_sea: bool = False):
+    """Full search (K1), or under me_sea the SEA-pruned search (k = 64,
+    no window centres, as the reference calls it), + subpel against one
+    reference, zero-pred regularized.  hme: optional (cx, cy) FULLPEL
+    window centres from the quarter-res tier.  Returns (mvx, mvy, cost,
+    org) int32; `org` (the (B, n, n) source blocks) is gathered here
+    unless the caller passes it, as a P frame does once for all its
+    references."""
     pz = torch.zeros_like(bx)
-    imx, imy, _ = full_search_batch(
-        ry, oy, bx, by, pz, pz, lam256, n, search_range,
-        center_x=None if hme is None else hme[0],
-        center_y=None if hme is None else hme[1])
+    if me_sea:
+        imx, imy, _ = sea_search_batch(ry, oy, bx, by, pz, pz, lam256, n,
+                                       search_range, k=64)
+    else:
+        imx, imy, _ = full_search_batch(
+            ry, oy, bx, by, pz, pz, lam256, n, search_range,
+            center_x=None if hme is None else hme[0],
+            center_y=None if hme is None else hme[1])
     if org is None:
         org = _org_blocks(oy, bx, by, n)
     mvx, mvy, cost = subpel_refine_batch(ry, oy, bx, by, imx, imy, pz, pz,
@@ -291,11 +380,8 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
     part_map, mvs_b); the mc planes stay device tensors.  part_map: 0
     2Nx2N, 1 2NxN, 2 Nx2N; mvs_b: PU1's MV of a rect block.
     _tmvp_field: set by _banded_analysis (the full-frame TMVP field cut
-    to the band, or () for none)."""
-    if amp:
-        raise NotImplementedError("AMP partitions (--amp) are not ported")
-    if me_sea:
-        raise NotImplementedError("--me sea is not ported")
+    to the band, or () for none).  part_map codes 4-7 are the AMP
+    shapes 2NxnU, 2NxnD, nLx2N, nRx2N (amp: searched where rect is)."""
     if getattr(sps, "chroma_format_idc", 1) != 1:
         raise NotImplementedError("only 4:2:0 is ported")
     if block != 16:
@@ -318,7 +404,8 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
                 args["cur"][0], args["cur"][1], args["cur"][2],
                 args["refs"], sub_sps, qp, device,
                 search_range=search_range, block=block, weights=weights,
-                subme=subme, rect=rect, chroma_weights=chroma_weights,
+                subme=subme, rect=rect, amp=amp,
+                chroma_weights=chroma_weights, me_sea=me_sea,
                 ref_pocs=ref_pocs, cur_poc=cur_poc, pad_refs=pad_refs,
                 hme=hme, rounds=rounds,
                 _tmvp_field=tm if tm is not None else ())
@@ -329,8 +416,8 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
                              field, set(range(9)), device)
         return (o[0], o[1], o[2], o[3],
                 _whole_frame_mc(o, refs, weights, chroma_weights, rect,
-                                hme, search_range, block, sps.bit_depth,
-                                device), o[7], o[8])
+                                amp, hme, search_range, block,
+                                sps.bit_depth, device), o[7], o[8])
     bd = sps.bit_depth
     if weights is None:
         weights = [None] * len(refs)
@@ -350,8 +437,10 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
                               sps.log2_ctu_size, 0)
     lam, _ = lambda_qp(qp)
     lam256 = int(round(lam * 256)) << (bd - 8)
-    # rect PUs search on unweighted planes only (see the reference)
+    # rect PUs search on unweighted planes only, and AMP where rect
+    # does (see the reference)
     rect_eff = rect and not any(wp is not None for wp in weights)
+    amp_eff = amp and rect_eff
     tmvp = None
     if _tmvp_field is not None:
         if len(_tmvp_field):
@@ -367,7 +456,7 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
                   torch.from_numpy(avail.reshape(-1, avail.shape[-1]))
                   .to(device), lam256, qp, search_range, block, bd,
                   sps.log2_ctu_size, subme, tmvp, n_real, tuple(rounds),
-                  rect_eff, hme)
+                  rect_eff, hme, amp_eff, me_sea)
     modes, inter, mvs, rsel, mcy, mcu, mcv, part, mvs_b = out
     h = lambda a: a.cpu().numpy()
     return (h(modes), h(inter), h(mvs), h(rsel), (mcy, mcu, mcv), h(part),
@@ -377,9 +466,9 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
 def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
             qp: int, search_range: int, n: int, bd: int, log2_ctu: int,
             subme: int, tmvp, n_real: int, rounds, rect: bool = False,
-            hme: bool = False):
+            hme: bool = False, amp: bool = False, me_sea: bool = False):
     """P analysis of one frame or row band on one device (the
-    reference's _p_core for a call outside shard_map, without AMP)."""
+    reference's _p_core for a call outside shard_map)."""
     dev = oy.device
     h, w = oy.shape
     nbx = w // n
@@ -405,11 +494,12 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
     org = _org_blocks(oy, bx, by, n)
     for ry in ry_all:
         ctr = None
-        if hme:
+        if hme and not me_sea:
             ctr = _hme_center_fullres(ry, oy, nby, nbx, lam256,
                                       search_range)
         mvx, mvy, cost, _ = _me_one_ref(oy, ry, bx, by, n, lam256,
-                                        search_range, bd, subme, org, ctr)
+                                        search_range, bd, subme, org, ctr,
+                                        me_sea)
         satd = cost - ((lam256 * mv_bits(mvx, mvy)) >> 8)
         cands.append((mvx, mvy, satd))
 
@@ -615,16 +705,23 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
         costH = torch.where((mTx == mBx) & (mTy == mBy), 1 << 30, costH)
         costV = torch.where((mLx == mRx) & (mLy == mRy), 1 << 30, costV)
         zero = torch.zeros_like(mvx)
-        cands = [(mvx, mvy, zero, zero, cost), (mTx, mTy, mBx, mBy, costH),
-                 (mLx, mLy, mRx, mRy, costV)]
-        allc = torch.stack([c[4] for c in cands])
+        cands = [(0, mvx, mvy, zero, zero, cost),
+                 (1, mTx, mTy, mBx, mBy, costH),
+                 (2, mLx, mLy, mRx, mRy, costV)]
+        if amp:
+            cands += _amp_p_cands(
+                org, tall, bx, by + ref_sel * strip + m_pad, ref_sel,
+                [(mvx, mvy), (mTx, mTy), (mBx, mBy), (mLx, mLy),
+                 (mRx, mRy)], nby, nbx, lam256, n, bd)
+        allc = torch.stack([c[5] for c in cands])
         idx = torch.argmin(allc, dim=0)
-        part = idx.to(I32)
+        part = torch.tensor([c[0] for c in cands], dtype=I32,
+                            device=dev)[idx]
         cost = allc.amin(0)
         pick = lambda f: torch.gather(torch.stack([c[f] for c in cands]),
                                       0, idx[None])[0]
-        mvx, mvy = pick(0), pick(1)
-        mvbx, mvby = pick(2), pick(3)
+        mvx, mvy = pick(1), pick(2)
+        mvbx, mvby = pick(3), pick(4)
 
     # 2c. motion homogenization over 32 (and, at CTU64, 64) regions of
     # 2Nx2N blocks
@@ -726,7 +823,7 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
     # 5. MC predictions of the chosen (ref, mv) per block
     mc = [p.reshape(nby, nbx, p.shape[1], p.shape[2]) for p in _p_mc(
         rys, rus, rvs, weights, chroma_weights, bx, by, mvx, mvy, ref_sel,
-        part, mvbx, mvby, n, bd, m_pad, rect, tall)]
+        part, mvbx, mvby, n, bd, m_pad, rect, tall, amp)]
 
     mvs = torch.stack([mvx, mvy], -1).reshape(nby, nbx, 2).to(I32)
     mvs_b = torch.stack([mvbx, mvby], -1).reshape(nby, nbx, 2).to(I32)
@@ -737,12 +834,13 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
 
 def _p_mc(rys, rus, rvs, weights, chroma_weights, bx, by, mvx, mvy,
           ref_sel, part, mvbx, mvby, n: int, bd: int, m_pad: int,
-          rect: bool, tall=None):
+          rect: bool, tall=None, amp: bool = False):
     """Final P predictions (B, sz, sz) of the planes' three components:
     the chosen (ref, mv) per block from the per-ref planes (weighted refs
-    take the exact 14-bit path), and for rect blocks the per-sub-block
-    MC from the references stacked with `m_pad`-row pads (`tall`: the
-    stacked luma planes, when the caller holds them)."""
+    take the exact 14-bit path), for rect blocks the per-sub-block MC and
+    for AMP blocks the quarter-strip combine of two full-block MCs (PU0's
+    and PU1's MV), both from the references stacked with `m_pad`-row pads
+    (`tall`: the stacked luma planes, when the caller holds them)."""
     dev = bx.device
     nref = len(rys)
     nc = n >> 1
@@ -753,7 +851,8 @@ def _p_mc(rys, rus, rvs, weights, chroma_weights, bx, by, mvx, mvy,
         rsel4 = ref_sel.repeat_interleave(4)
         if tall is None:
             tall = _stack_refs(rys, m_pad)[0]
-        ytall = sy4 + rsel4 * (rys[0].shape[0] + 2 * m_pad) + m_pad
+        strip = rys[0].shape[0] + 2 * m_pad
+        ytall = sy4 + rsel4 * strip + m_pad
         subB = torch.where(
             (part == 1)[:, None], _SUBB_H.to(dev)[None, :],
             torch.where((part == 2)[:, None], _SUBB_V.to(dev)[None, :], 0))
@@ -792,6 +891,17 @@ def _p_mc(rys, rus, rvs, weights, chroma_weights, bx, by, mvx, mvy,
                                4, pi, bd)
             sel = torch.where(((part > 0) & (part < 4))[:, None, None],
                               _from_sub4(rp8, sz), sel)
+            if amp:
+                if pi == 0:
+                    ya, pa, bxa = by + ref_sel * strip + m_pad, tall, bx
+                else:
+                    ya = by // 2 + ref_sel * strip_c + m_c
+                    pa, bxa = tall_c[pi], bx // 2
+                a0 = mc_batch(pa, bxa, ya, mvx, mvy, sz, pi, bd)
+                a1 = mc_batch(pa, bxa, ya, mvbx, mvby, sz, pi, bd)
+                sel = torch.where((part >= 4)[:, None, None],
+                                  torch.where(_amp_mask(part, sz, dev), a1,
+                                              a0), sel)
         mc.append(sel)
     return mc
 
@@ -805,7 +915,7 @@ def _grid(nby: int, nbx: int, n: int, device):
 
 
 def _whole_frame_mc(o, refs, weights, chroma_weights, rect: bool,
-                    hme: bool, sr: int, n: int, bd: int, device):
+                    amp: bool, hme: bool, sr: int, n: int, bd: int, device):
     """The final P predictions of a banded analysis (outputs `o` of the
     band runs), read again from the whole-frame planes.  A band's own
     MC clamps its reads at the band's edges, which differs from the
@@ -819,6 +929,7 @@ def _whole_frame_mc(o, refs, weights, chroma_weights, rect: bool,
     chroma_weights = list(chroma_weights or [None] * len(refs))
     pl = [[dev_i32(r[i], device) for r in refs] for i in range(3)]
     rect = rect and not any(wp is not None for wp in weights)
+    amp = amp and rect
     bx, by = _grid(nby, nbx, n, device)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device) \
         .to(I32)
@@ -826,12 +937,12 @@ def _whole_frame_mc(o, refs, weights, chroma_weights, rect: bool,
     m_pad = (6 * sr + 12) if hme else (sr + 12)
     mc = _p_mc(*pl, weights, chroma_weights, bx, by, mvs[:, 0], mvs[:, 1],
                t(o[3]).reshape(-1), t(o[7]).reshape(-1), mvs_b[:, 0],
-               mvs_b[:, 1], n, bd, m_pad, rect)
+               mvs_b[:, 1], n, bd, m_pad, rect, amp=amp)
     return tuple(p.reshape(nby, nbx, p.shape[1], p.shape[2]) for p in mc)
 
 
-def _whole_frame_mc_b(o, refs0, refs1, rect: bool, hme: bool, sr: int,
-                      n: int, bd: int, device):
+def _whole_frame_mc_b(o, refs0, refs1, rect: bool, amp: bool, hme: bool,
+                      sr: int, n: int, bd: int, device, weights_b=None):
     """The final B predictions of a banded analysis, read again from the
     whole-frame planes (see _whole_frame_mc)."""
     nby, nbx = o[1].shape
@@ -845,7 +956,8 @@ def _whole_frame_mc_b(o, refs0, refs1, rect: bool, hme: bool, sr: int,
     m_pad = (6 * sr + 12) if hme else (sr + 12)
     mc = _b_mc(pl(refs0), pl(refs1), bx, by, t(o[2]), m0[:, 0], m0[:, 1],
                m1[:, 0], m1[:, 1], t(o[5]), t(o[6]), t(o[10]), t(o[11]),
-               p0[:, 0], p0[:, 1], p1[:, 0], p1[:, 1], n, bd, m_pad, rect)
+               p0[:, 0], p0[:, 1], p1[:, 0], p1[:, 1], n, bd, m_pad, rect,
+               amp=amp, weights_b=weights_b)
     return tuple(p.reshape(nby, nbx, p.shape[1], p.shape[2]) for p in mc)
 
 
@@ -872,16 +984,26 @@ def _b_tmvp_field(col, sps, block, ref_pocs, cur_poc):
             np.asarray(m1x_), np.asarray(m1y_))
 
 
+def _wb_pairs(weights_b):
+    """Per-list explicit luma (w, o) of a weighted-B call, (64, 0) for an
+    unweighted list (the default weights, denominator 6)."""
+    return tuple((int(wp[0]), int(wp[1])) if wp is not None else (64, 0)
+                 for wp in weights_b)
+
+
 def _b_mc(refs0, refs1, bx, by, dirs, mv0x, mv0y, mv1x, mv1y, ref0_f,
           ref1_f, part, dirs_b, pu1_0x, pu1_0y, pu1_1x, pu1_1y, n: int,
-          bd: int, m_pad: int, rect: bool, talls=(None, None)):
+          bd: int, m_pad: int, rect: bool, talls=(None, None),
+          amp: bool = False, weights_b=None):
     """Final B predictions (B, sz, sz) of the three components: the chosen
     (dir, ref, mv) per block from the per-ref planes with a select (so
-    edge clamping matches the decoder's spec MC), and for rect blocks the
+    edge clamping matches the decoder's spec MC), for rect blocks the
     per-sub-block uni MC from ref 0 of each PU's list, on the references
     stacked with `m_pad`-row pads (`talls`: the stacked luma planes per
-    list, when the caller holds them).  refs0 / refs1: (y, u, v) plane
-    lists per list."""
+    list, when the caller holds them), and for AMP blocks the
+    quarter-strip combine of each PU's full-block uni MC from ref 0 of
+    its list.  refs0 / refs1: (y, u, v) plane lists per list.
+    weights_b: per-list luma (w, o) or None (weighted B: luma only)."""
     r0ys, ru0s, rv0s = refs0
     r1ys, ru1s, rv1s = refs1
     dev = bx.device
@@ -926,10 +1048,19 @@ def _b_mc(refs0, refs1, bx, by, dirs, mv0x, mv0y, mv1x, mv1y, ref0_f,
                         lambda p: per(mc_batch_14, p, mv0x, mv0y))
         b1 = sel_ref_mc(pls1, ref1_f,
                         lambda p: per(mc_batch_14, p, mv1x, mv1y))
-        u0 = sel_ref_mc(pls0, ref0_f, lambda p: per(mc_batch, p, mv0x, mv0y))
-        u1 = sel_ref_mc(pls1, ref1_f, lambda p: per(mc_batch, p, mv1x, mv1y))
-        sel = torch.where(is_bi, bi_combine(b0, b1, bd),
-                          torch.where(use_l0, u0, u1))
+        if c_idx == 0 and weights_b is not None:
+            # weighted B is luma-only (the chroma flags stay 0)
+            (w0, o0), (w1, o1) = _wb_pairs(weights_b)
+            u0 = wp_apply_batch(b0, w0, o0, 6, bd)
+            u1 = wp_apply_batch(b1, w1, o1, 6, bd)
+            bi = wp_bi_combine(b0, b1, w0, o0, w1, o1, 6, bd)
+        else:
+            u0 = sel_ref_mc(pls0, ref0_f,
+                            lambda p: per(mc_batch, p, mv0x, mv0y))
+            u1 = sel_ref_mc(pls1, ref1_f,
+                            lambda p: per(mc_batch, p, mv1x, mv1y))
+            bi = bi_combine(b0, b1, bd)
+        sel = torch.where(is_bi, bi, torch.where(use_l0, u0, u1))
         if rect:
             # rect winners: per-sub-block uni MC from ref 0 of each sub's
             # list, reassembled into the full block (MVs stay inside the
@@ -946,6 +1077,17 @@ def _b_mc(refs0, refs1, bx, by, dirs, mv0x, mv0y, mv1x, mv1y, ref0_f,
             s8 = torch.where((s_l == 0)[:, None, None], s0, s1)
             sel = torch.where(((part > 0) & (part < 4))[:, None, None],
                               _from_sub4(s8, sz), sel)
+            if amp:
+                # AMP winners: each PU's full-block uni MC from ref 0 of
+                # its list, combined on the quarter-strip geometry
+                pu = [torch.where((lst == 0)[:, None, None],
+                                  per(mc_batch, pls0[0], mx, my),
+                                  per(mc_batch, pls1[0], mx, my))
+                      for lst, mx, my in ((p0l, p0x, p0y),
+                                          (p1l, p1x, p1y))]
+                sel = torch.where((part >= 4)[:, None, None],
+                                  torch.where(_amp_mask(part, sz, dev),
+                                              pu[1], pu[0]), sel)
         mc.append(sel)
     return mc
 
@@ -972,14 +1114,11 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
     per rect PU on ref 0 of the list).  Returns (intra_modes, inter_mask,
     dirs, mv_l0, mv_l1, ref_sel0, ref_sel1, (mc_y, mc_u, mc_v), part,
     (dirs_b, mv0_b, mv1_b)); the mc planes stay device tensors.
+    weights_b: optional ((w0, o0)-or-None, (w1, o1)-or-None) explicit
+    luma weights per list (--weightb): the lists collapse to their first
+    reference, ME searches pre-weighted planes and rect / AMP are off.
+    amp: AMP PUs with a per-strip (list, MV) choice, where rect is on.
     _tmvp_field: set by _banded_analysis (see analyse_p_frame)."""
-    if weights_b is not None and any(wp is not None for wp in weights_b):
-        raise NotImplementedError("weighted bi-prediction (--weightb) is "
-                                  "not ported")
-    if amp:
-        raise NotImplementedError("AMP partitions (--amp) are not ported")
-    if me_sea:
-        raise NotImplementedError("--me sea is not ported")
     if getattr(sps, "chroma_format_idc", 1) != 1:
         raise NotImplementedError("only 4:2:0 is ported")
     if block != 16:
@@ -992,6 +1131,10 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
     refs0 = _norm(refs0)
     refs1 = _norm(refs1)
     device = torch.device(device)
+    if weights_b is not None and all(wp is None for wp in weights_b):
+        weights_b = None
+    rect_eff = rect and weights_b is None
+    amp_eff = amp and rect_eff
     bands = None if _tmvp_field is not None \
         else _analysis_bands(sps, block, search_range)
     if bands is not None:
@@ -1004,7 +1147,8 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
                 args["cur"][0], args["cur"][1], args["cur"][2],
                 args["refs0"], args["refs1"], sub_sps, qp, device,
                 search_range=search_range, block=block, subme=subme,
-                rect=rect, ref_pocs=ref_pocs, cur_poc=cur_poc,
+                weights_b=weights_b, rect=rect, me_sea=me_sea, amp=amp,
+                ref_pocs=ref_pocs, cur_poc=cur_poc,
                 pad_refs=pad_refs, hme=hme, rounds=rounds,
                 _tmvp_field=tm if tm is not None else ())
             return (list(out[:7]) + list(out[7]) + [out[8]]
@@ -1014,10 +1158,18 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
                              {"cur": (y, u, v), "refs0": list(refs0),
                               "refs1": list(refs1)},
                              field, set(range(14)), device)
+        cut = slice(None) if weights_b is None else slice(0, 1)
         return (o[0], o[1], o[2], o[3], o[4], o[5], o[6],
-                _whole_frame_mc_b(o, refs0, refs1, rect, hme, search_range,
-                                  block, sps.bit_depth, device), o[10],
-                (o[11], o[12], o[13]))
+                _whole_frame_mc_b(o, refs0[cut], refs1[cut], rect_eff,
+                                  amp_eff, hme, search_range, block,
+                                  sps.bit_depth, device, weights_b),
+                o[10], (o[11], o[12], o[13]))
+    if weights_b is not None:
+        # one weight set per list: the lists collapse to 1 + 1
+        refs0 = refs0[:1]
+        refs1 = refs1[:1]
+        if ref_pocs is not None:
+            ref_pocs = (tuple(ref_pocs[0][:1]), tuple(ref_pocs[1][:1]))
     bd = sps.bit_depth
     lam, _ = lambda_qp(qp)
     lam256 = int(round(lam * 256)) << (bd - 8)
@@ -1046,7 +1198,8 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
                   t(avail.reshape(-1, avail.shape[-1])), lam256, qp,
                   search_range, block, bd, subme, sps.log2_ctu_size, tmvp,
                   t(np.asarray(l0p, np.int64)),
-                  t(np.asarray(l1p, np.int64)), tuple(rounds), rect, hme)
+                  t(np.asarray(l1p, np.int64)), tuple(rounds), rect_eff,
+                  hme, amp_eff, me_sea, weights_b)
     (modes, inter, dirs, mv0, mv1, rs0, rs1, mcy, mcu, mcv, part,
      dirs_b, mv0_b, mv1_b) = out
     h = lambda a: a.cpu().numpy()
@@ -1057,9 +1210,11 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
 def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
             qp: int, search_range: int, n: int, bd: int, subme: int,
             log2_ctu: int, tmvp, poc0, poc1, rounds, rect: bool = False,
-            hme: bool = False):
+            hme: bool = False, amp: bool = False, me_sea: bool = False,
+            weights_b=None):
     """B analysis of one frame or row band on one device (the
-    reference's _b_core for an unweighted 4:2:0 call without AMP)."""
+    reference's _b_core for a 4:2:0 call).  weights_b: per-list luma
+    (w, o) or None, for a weighted call (lists of one reference)."""
     dev = oy.device
     h, w = oy.shape
     nbx, nby = w // n, h // n
@@ -1071,6 +1226,15 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
     bx = t((bxs_np.ravel() * n).astype(np.int32))
     by = t((bys_np.ravel() * n).astype(np.int32))
     org = _org_blocks(oy, bx, by, n)
+    use_w = weights_b is not None
+    me0, me1 = r0ys, r1ys
+    if use_w:
+        # ME searches pre-weighted planes; MC weights the 14-bit
+        # predictions exactly
+        wv = _wb_pairs(weights_b)
+        me0, me1 = ([weighted_plane(p, w, o, bit_depth=bd) for p in pl]
+                    if wp is not None else pl
+                    for pl, wp, (w, o) in zip((r0ys, r1ys), weights_b, wv))
 
     # per-(list, ref) full search + subpel, then a provisional joint
     # (ref, mv) pick per list with ref_idx bin charges (x265
@@ -1079,7 +1243,7 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
         cands = [_me_one_ref(
             oy, ry, bx, by, n, lam256, search_range, bd, subme, org,
             _hme_center_fullres(ry, oy, nby, nbx, lam256, search_range)
-            if hme else None) for ry in planes]
+            if hme and not me_sea else None, me_sea) for ry in planes]
         satd_r = torch.stack([c[2] - ((lam256 * mv_bits(c[0], c[1])) >> 8)
                               for c in cands])
         mvx_r = torch.stack([c[0] for c in cands])
@@ -1090,8 +1254,8 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
         pick = lambda a: torch.gather(a, 0, rsel.long()[None])[0]
         return pick(mvx_r), pick(mvy_r), rsel, pick(satd_r)
 
-    mv0x, mv0y, rsel0, satd0 = list_me(r0ys)
-    mv1x, mv1y, rsel1, satd1 = list_me(r1ys)
+    mv0x, mv0y, rsel0, satd0 = list_me(me0)
+    mv1x, mv1y, rsel1, satd1 = list_me(me1)
 
     # stacked tall planes per list: one MC gather serves per-block ref
     # indices (candidate rounds, homogenization); the FINAL MC reads the
@@ -1103,10 +1267,15 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
     sh2 = 14 - bd
     maxv = (1 << bd) - 1
 
-    def uni_of(p14):
+    def uni_of(p14, lst: int):
+        if use_w:
+            return wp_apply_batch(p14, wv[lst][0], wv[lst][1], 6, bd)
         return torch.clip((p14 + off2) >> sh2, 0, maxv)
 
     def bi_of(p0, p1):
+        if use_w:
+            return wp_bi_combine(p0, p1, wv[0][0], wv[0][1], wv[1][0],
+                                 wv[1][1], 6, bd)
         return bi_combine(p0, p1, bd)
 
     def mc14(lst, bxk, byk, cmx, cmy, crf):
@@ -1117,7 +1286,8 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
     def pred_of(nd, q0, q1):
         nd = nd[:, None, None]
         return torch.where(nd == 3, bi_of(q0, q1),
-                           torch.where(nd == 1, uni_of(q0), uni_of(q1)))
+                           torch.where(nd == 1, uni_of(q0, 0),
+                                       uni_of(q1, 1)))
 
     # bi-prediction of the two best uni (ref, mv) pairs (checkBidir2Nx2N)
     p0_14 = mc14(0, bx, by, mv0x, mv0y, rsel0)
@@ -1260,7 +1430,7 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
                       (mvd1 + 6 + rsel1).to(F32),
                       (mvd0 + mvd1 + 7 + rsel0 + rsel1).to(F32)]
             rds = []
-            for p, s in zip((uni_of(p0_14), uni_of(p1_14),
+            for p, s in zip((uni_of(p0_14, 0), uni_of(p1_14, 1),
                              bi_of(p0_14, p1_14)), syn_me):
                 cc, sz = _rd_resid_cost(org, p, qp_b, log2n, bd, lam2)
                 rds.append(torch.minimum(cc + lam2 * s,
@@ -1432,6 +1602,37 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
         p1l = torch.where(part == 1, lB, lR)        # PU1 list
         p1x = torch.where(part == 1, xB, xR)
         p1y = torch.where(part == 1, yB, yR)
+        if amp:
+            # AMP: each quarter strip and its complementary body pick the
+            # best uni (list, MV) among both lists' 8x8 sub-block MVs (ref
+            # 0, + 4 bits) by strip SATD; a shape wins where it beats the
+            # cost so far
+            ts = torch.cat([_amp_tile_satd(
+                org, tl, bx, by + m_pad,
+                [(sub[li][3][:, c], sub[li][4][:, c]) for c in range(4)],
+                n, bd) for li, tl in enumerate((tall0, tall1))])
+            cax = torch.cat([sub[li][3].t() for li in range(2)])
+            cay = torch.cat([sub[li][4].t() for li in range(2)])
+            clist = (torch.arange(8, device=dev, dtype=I32) // 4)[:, None] \
+                .expand_as(cax)
+            cbits = (lam256 * (mv_bits(cax, cay) + 4)) >> 8
+            amp_bins = (lam256 * 4) >> 8
+            for code, ra, rb in _amp_shapes(n // 4):
+                c0, l0_, x0_, y0_ = _amp_region_best(ts, cbits, ra,
+                                                     (clist, cax, cay))
+                c1, l1_, x1_, y1_ = _amp_region_best(ts, cbits, rb,
+                                                     (clist, cax, cay))
+                cc = torch.where((l0_ == l1_) & (x0_ == x1_) & (y0_ == y1_),
+                                 1 << 30, c0 + c1 + amp_bins)
+                u = cc < inter_cost
+                inter_cost = torch.where(u, cc, inter_cost)
+                part = torch.where(u, code, part)
+                p0l = torch.where(u, l0_, p0l)
+                p0x = torch.where(u, x0_, p0x)
+                p0y = torch.where(u, y0_, p0y)
+                p1l = torch.where(u, l1_, p1l)
+                p1x = torch.where(u, x1_, p1x)
+                p1y = torch.where(u, y1_, p1y)
         # PU0 motion replaces the 2Nx2N fields where rect wins; rect PUs
         # ride ref 0 of their list
         rw = part > 0
@@ -1454,7 +1655,7 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
     def _b_region_uniform(dirs, m0x, m0y, m1x, m1y, r0m, r1m, cost,
                           cost_rd, part, g):
         gh, gw = nby // g, nbx // g
-        if gh == 0 or gw == 0 or n != 16:
+        if gh == 0 or gw == 0 or n != 16 or use_w:
             return dirs, m0x, m0y, m1x, m1y, r0m, r1m, cost, cost_rd
         f2 = lambda a: a.reshape(nby, nbx)
         crop = lambda a: f2(a)[:gh * g, :gw * g]
@@ -1565,7 +1766,7 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
     mc = [p.reshape(nby, nbx, p.shape[1], p.shape[2]) for p in _b_mc(
         (r0ys, ru0s, rv0s), (r1ys, ru1s, rv1s), bx, by, dirs, mv0x, mv0y,
         mv1x, mv1y, ref0_f, ref1_f, part, dirs_b, pu1_0x, pu1_0y, pu1_1x,
-        pu1_1y, n, bd, m_pad, rect, (tall0, tall1))]
+        pu1_1y, n, bd, m_pad, rect, (tall0, tall1), amp, weights_b)]
 
     f = lambda a: a.reshape(nby, nbx).to(I32)
     mv2 = lambda mx, my: torch.stack([mx, my], -1).reshape(nby, nbx, 2) \

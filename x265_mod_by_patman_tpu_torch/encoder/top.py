@@ -114,9 +114,6 @@ def _unsupported(p: EncoderParams) -> List[str]:
     """Options of the reference this port does not take."""
     out = []
     checks = (
-        (p.amp, "--amp"),
-        (p.weightb and p.bframes > 0 and p.keyframe_max > 1, "--weightb"),
-        (p.search_method == "sea", "--me sea"),
         (p.mcstf, "--mcstf"),
         (p.analysis_save or p.analysis_load, "analysis save/load"),
         (p.mesh_tile_rows > 1, "mesh_tile_rows > 1"),
@@ -819,6 +816,7 @@ class Encoder:
         ref_sel = ref_sel1 = None
         wp_l0 = None
         wp_chroma = None
+        wp_b_l1 = None            # B-slice L1 luma weights
         rect_info = None          # (part_map, mvs_b) when rect PUs used
         intra_cand = None
         split32 = mode32 = None
@@ -872,8 +870,9 @@ class Encoder:
                     analyse_p_frame(
                         y, u, v, refs, self.sps, qp, dev,
                         search_range=self._me_range, weights=wp_l0,
-                        subme=p.subpel_refine, rect=p.rect,
-                        chroma_weights=wp_chroma, col=col_a,
+                        subme=p.subpel_refine, rect=p.rect, amp=p.amp,
+                        chroma_weights=wp_chroma,
+                        me_sea=p.search_method == "sea", col=col_a,
                         ref_pocs=rp_p, cur_poc=poc, pad_refs=self.max_refs,
                         hme=p.hme, rounds=self._rounds_p)
             if np.any(part_map):
@@ -886,6 +885,19 @@ class Encoder:
             ref_pocs = rp_p
         else:
             (list0, list1, keep_pocs, b_is_ref) = b_refs
+            wpb = None
+            if getattr(p, "weightb", False):
+                from ..analysis.weightp import analyse_weightp
+                c0 = analyse_weightp(y, list0[0][0][0])
+                c1 = analyse_weightp(y, list1[0][0][0])
+                if c0 is not None or c1 is not None:
+                    wpb = (c0, c1)
+                    wp_l0 = (c0,)
+                    wp_b_l1 = (c1,)
+                    # the weight tables carry one set per list — keep
+                    # the lists at 1+1 so wp entries match num_ref_idx
+                    list0 = list0[:1]
+                    list1 = list1[:1]
             rp_b = (tuple(a[1] for a in list0),
                     tuple(a[1] for a in list1))
             col_b = self._col_store.get(rp_b[0][0]) \
@@ -895,7 +907,8 @@ class Encoder:
                  mc, part_map_b, pu1_b) = analyse_b_frame(
                     y, u, v, [a[0] for a in list0], [a[0] for a in list1],
                     self.sps, qp, dev, search_range=self._me_range,
-                    subme=p.subpel_refine, rect=p.rect, col=col_b,
+                    subme=p.subpel_refine, weights_b=wpb, rect=p.rect,
+                    amp=p.amp, me_sea=p.search_method == "sea", col=col_b,
                     ref_pocs=rp_b, cur_poc=poc,
                     pad_refs=(self.max_refs, 2 if p.b_pyramid else 1),
                     hme=p.hme, rounds=self._rounds_b)
@@ -947,7 +960,7 @@ class Encoder:
                     ms, inter_mask, mvs, mvs1, dirs, r, ftype, poc, qp,
                     ref_pocs, sao_maps, ref_sel, keep_pocs, qpm, wp_l0,
                     split32, mode32, wp_chroma, nal_unit, rect_info,
-                    ref_sel1=ref_sel1)
+                    ref_sel1=ref_sel1, wp_b_l1=wp_b_l1)
             with trace.scope("recon_fetch", type=ftype):
                 self._finalize_recon(r)
             return r, sao_maps, rbsp
@@ -1484,7 +1497,8 @@ class Encoder:
     def _encode_slice(self, modes, inter_mask, mvs, mvs1, dirs, r: dict,
                       ftype: str, poc: int, qp: int, ref_pocs, sao_maps,
                       ref_sel, keep_pocs, qp_map, wp_l0, split32, mode32,
-                      wp_chroma, nal, rect_info=None, ref_sel1=None):
+                      wp_chroma, nal, rect_info=None, ref_sel1=None,
+                      wp_b_l1=None):
         """Slice data of one picture: the rbsp bytes, or one rbsp per
         slice when the picture is cut into several."""
         sps, pps = self.sps, self.pps
@@ -1510,6 +1524,11 @@ class Encoder:
             n_l1 = max(1, len(ref_pocs[1]))
             num_refs = (n_l0, n_l1)
             sh.num_ref_idx = (n_l0, n_l1)
+            if self.pps.weighted_bipred:
+                if wp_l0 is not None:
+                    sh.wp_l0 = tuple(wp_l0)
+                if wp_b_l1 is not None:
+                    sh.wp_l1 = tuple(wp_b_l1)
             # RPS: every list ref (used_by_curr = 1) plus pictures kept
             # for later frames of the mini-GOP (used_by_curr = 0),
             # sorted per spec order.  The decoder rebuilds L0 = neg+pos

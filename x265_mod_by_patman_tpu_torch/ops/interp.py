@@ -130,6 +130,17 @@ def wp_apply_batch(pred14, w, o, denom: int, bit_depth: int = 8):
     return torch.clip(v + o, 0, maxv).to(I32)
 
 
+def wp_bi_combine(p0_14, p1_14, w0, o0, w1, o1, denom: int,
+                  bit_depth: int = 8):
+    """Weighted bi-prediction combine of two 14-bit predictions (explicit
+    weights, spec 8.5.4.3.2)."""
+    log2wd = denom + 14 - bit_depth
+    maxv = (1 << bit_depth) - 1
+    acc = (p0_14.to(I32) * w0 + p1_14.to(I32) * w1
+           + ((o0 + o1 + 1) << log2wd))
+    return torch.clip(acc >> (log2wd + 1), 0, maxv).to(I32)
+
+
 # ---------------------------------------------------------------------------
 # Golden scalar (numpy) functions of the validation decoder
 # (decoder/decoder.py), copied unchanged from the reference module

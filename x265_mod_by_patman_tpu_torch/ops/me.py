@@ -7,9 +7,11 @@ and returns each block's best MV and cost; on the CPU its plain chain
 (window gather, SAD grid, lambda * mv_bits, first-minimum argmin) runs,
 as the reference's full_search_batch_pallas composes it.  The
 reference's lane chunking and Pallas switches are TPU-only and have no
-counterpart."""
+counterpart.  mv_bits_np (the numpy golden ops/sea.py's golden calls) is
+copied unchanged."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .cost import satd_batch
@@ -18,6 +20,12 @@ from .cuda.gather import window_gather
 from .interp import LUMA_TAPS, _mc_core
 
 I32 = torch.int32
+
+
+def mv_bits_np(dx, dy):
+    bx = 2 * np.ceil(np.log2(np.abs(dx).astype(np.float64) + 1.0)) + 1
+    by = 2 * np.ceil(np.log2(np.abs(dy).astype(np.float64) + 1.0)) + 1
+    return (bx + by).astype(np.int64)
 
 
 def _org_blocks(orig, x0, y0, n: int):
