@@ -36,62 +36,71 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    phase_sea) at the 1080p analysis shape (n = 16, r = 32, k = 64):
    exact against its numpy golden on sampled blocks and against K1
    when k covers every candidate, timed beside K1's dense search;
-3. main path: a 3-frame (I P B) 1920x1080 8-bit
+3. main path: a 2-frame (I P) 1920x1080 8-bit
    4:2:0 clip (the `park` generator of tools/make_clips.py) through the
    port's Encoder on the card at the repo defaults (CQP 32, 4 B-frames
-   with b-adapt 2 and the pyramid, open GOP, scenecut); checks that the
-   decode order holds a B picture, that both kernels launched during
-   the encode, and the recon quality;
-   prints seconds per I, P and B picture, the lookahead's trace spans,
+   with b-adapt 2 and the pyramid, open GOP, scenecut); checks the
+   decode order I0 P1, that both kernels launched during the encode,
+   and the recon quality;
+   prints seconds per I and P picture, the lookahead's trace spans,
    each kernel's launches split into lookahead, cuTree and analysis,
    bits per frame and peak device memory, and whether the lowres
    intra-cost sums (float32, fixed pairwise order) stayed exact;
 4. the 416x240 park clip encoded on "cuda" and on "cpu" must give
    byte-identical streams: CQP as I P P (bframes=0, 3 frames) and at the
-   repo defaults (6 frames; a referenced B in every mini-GOP of 3 or
+   repo defaults (5 frames; a referenced B in every mini-GOP of 3 or
    more B's), CRF 28 with AQ 2 and cuTree (rc_lookahead
    4, 8 frames, so cuTree pops inside the stream) and ABR 300 kb/s with
-   AQ 1 (6 frames); the CPU path is what the test suite holds to the
+   AQ 1 (4 frames); the CPU path is what the test suite holds to the
    JAX reference encoder and the in-repo decoder.  The CRF case is also
    written as y4m under build/ and encoded by the port's CLI
    (`python -m x265_mod_by_patman_tpu_torch.cli`) in a subprocess on
    the card: its .hevc must equal the in-process cuda bytes.  Then, at
-   10 and 12 bits: Main10 at the repo defaults (6 frames) with HDR10
+   10 and 12 bits: Main10 at the repo defaults (4 frames) with HDR10
    signalling, HDR10+ metadata and a Dolby Vision RPU file written
    under build/; Main10 CRF 28 + AQ 2 + cuTree under a 150 kbit /
-   150 kb/s VBV with HRD (8 frames; a picture must re-encode, and the
+   150 kb/s VBV with HRD (6 frames; a picture must re-encode, and the
    CPB model holds on the parsed timing SEIs), also through the CLI on
    a 10-bit y4m; 12-bit I P P.  Then BASELINE config 3 at 416x240 (10
    bits, --preset medium --bitrate 300 --rdoq-level 2 --b-pyramid,
-   HDR10; 6 frames) and --preset slow --hme --crf 24 --rc-lookahead 8
-   under a 70/70 VBV that binds (8 frames; a picture must re-encode and
+   HDR10; 4 frames) and --preset slow --hme --crf 24 --rc-lookahead 8
+   under a 70/70 VBV that binds (5 frames; a picture must re-encode and
    rect PUs occur).  Then the quarter-strip scene of the reference's AMP
    test with rect, AMP and 2 B-frames (4 frames, I P B B; AMP PUs must
    occur in a P and in a B picture), the park fade under --weightb --me
-   sea --no-scenecut and --preset veryslow --crf 24 on park (4 frames
-   each), the last also through the CLI on the card.  Each case's CPU encode
-   runs in a worker process
-   while its card encode runs here, and the CLI subprocesses run beside
-   the cases that follow them;
-5. the rate-control path: the same 1080p clip as phase 3, cut to 3
-   frames (I P B), under CRF 28 with AQ 2 and the cuTree lookahead
-   (rc_lookahead at its default); prints, besides what phase 3 prints,
-   each picture's frame QP and the min/mean/max of the per-CTU QP map
-   it coded, the aq_map, cutree_push and cutree_pop spans and the
-   launches split into lookahead, cuTree and analysis; checks the recon
-   quality and that the per-CTU QP map varies on at least one picture;
-6. the Main10 delivery path: phase 3's 3 frames at 10 bits (park times
-   4 plus a seeded dither in [-2, 2]) under CRF 28 + AQ 2 + cuTree, a
+   sea --no-scenecut and --preset veryslow --crf 24 on park (3 frames
+   each), the last also through the CLI on the card.  Then this
+   slice's residual-side options, 3 frames each: 9a's options; the
+   CU-tree route with --nxn-intra, a custom scaling-list file written
+   under build/ and --rdoq-level 2, saving its analysis; that case
+   loading the card's analysis file (its bytes must equal the saving
+   run's); --lossless with 2 B-frames (recon equal to the source).
+   The frame counts keep the script inside its time limit.  Each
+   case's card encode runs in one of three card worker processes and
+   its CPU encode in one of two CPU worker processes, five groups of
+   cases at once, and the CLI subprocesses run beside the cases that
+   follow them;
+5. the rate-control path: the same 1080p clip as phase 3, cut to 2
+   frames (I P), under CRF 28 with AQ 2 and the cuTree
+   lookahead (rc_lookahead at its default); prints, besides what phase
+   3 prints, each picture's frame QP and the min/mean/max of the
+   per-CTU QP map it coded, the aq_map, cutree_push and cutree_pop
+   spans and the launches split into lookahead, cuTree and analysis;
+   checks the recon quality, the decode order I0 P1 and that the
+   per-CTU QP map varies on at least one picture;
+6. the Main10 delivery path: phase 3's 2 frames (I P) at 10 bits
+   (park times 4 plus a seeded dither in [-2, 2])
+   under CRF 28 + AQ 2 + cuTree, a
    1000 kbit / 1000 kb/s VBV at 25 fps, HRD and HDR10 signalling
    (colour description, mastering display, content light level);
    prints per picture its seconds, bits, frame QP, per-CTU QP range,
    pipeline runs (more than one where the row-level VBV re-encoded it),
    VBV fullness and PSNR-Y at peak 1023, the launches split as above
    and the peak device memory; fails on a VBV underflow, an AU that
-   misses its CPB removal time, a decode order other than phase 3's,
-   or a per-CTU QP map that never varies;
-7. the UHD slow path (run after phase 4, before 5 and 6): 3 frames (I P
-   B) of 3840x2160 park as BASELINE config 4, parameters built as the
+   misses its CPB removal time, a decode order other than I0 P1, or a
+   per-CTU QP map that never varies;
+7. the UHD slow path (run after phase 4, before 5 and 6): 3 frames (I
+   P B) of 3840x2160 park as BASELINE config 4, parameters built as the
    CLI builds them (--preset slow --hme --rc-lookahead 40 --crf 24
    --vbv-bufsize 25000 --vbv-maxrate 25000, 60 fps): row-banded
    analysis, rect PUs, HME, RDOQ with sign hiding, --me star; prints
@@ -99,26 +108,38 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    blocks coded as rect PUs and the launches with the HME tier counted;
    fails on a decode order other than I P B, a VBV underflow, no rect
    PU on any picture or a recon below 28 dB;
-8. this slice's inter tools at full width (run after phase 7, before 5
-   and 6), 3 frames (I P B) of 1920x1080 park each: 8a `--preset
+8. the inter tools at full width (run after phase 7, before 5 and 6),
+   1920x1080 park: 8a, 3 frames (I P B), `--preset
    veryslow --crf 24` as the CLI builds it (AMP in P and B, rect, star
    r = 32, 4 references, subme 4, 8 B-frames, rc-lookahead 40), with
-   each picture's AMP and rect shares; 8b park under a luma fade (x0.82
-   a frame) with `--weightb --me sea --no-scenecut` (weighted P and B,
-   the SEA search), with the slices' explicit weights and the analysis
-   span.  Each prints what phase 3 prints and fails on a decode order
-   other than I P B or a recon below 28 dB; 8b also fails when the B
-   slice carries no explicit weight.
+   each picture's AMP and rect shares; 8b, 3 frames (I P B), park under
+   a luma fade (x0.82 a frame) with `--weightb --me sea --no-scenecut`
+   (weighted P and B, the SEA search), with the slices' explicit
+   weights and the analysis span.  Each prints what phase 3 prints and
+   fails on a decode order other than I P B or a recon below 28 dB; 8b also fails when the B slice carries no
+   explicit weight;
+9. the residual-side options at full width (run after phase
+   8, before 5 and 6): 9b 1080p park, 2 frames (I P), --lossless
+   (transquant bypass, no loop filters), with bits per picture; fails
+   unless the card's recon equals the source in all three planes.  9a
+   1080p park, 3 frames (I P B), --crf 24 --aq-mode 2 --nxn-intra
+   --tu-intra-depth 2 --scaling-list default --nr-intra 200 --nr-inter
+   400 as the CLI builds it, with the I picture's shares of NxN blocks
+   and of TU4-split 8x8 TUs and each picture's mean NR offsets; fails
+   without an NxN block on the I picture, with all-zero NR offsets
+   from the second picture on, without the SPS scaling-list flag, on a
+   decode order other than I P B or a recon below 28 dB.  Each prints
+   what phase 3 prints.
 
-Every stream of phases 3-8 is decoded with the port's own decoder in
+Every stream of phases 3-9 is decoded with the port's own decoder in
 two worker processes on the host while the card runs the next phases;
 each picture must equal the card's recon and carry a matching MD5 SEI.
 
-Phases 3 and 5-8 each set the kernel counts to 0 just before their
+Phases 3 and 5-9 each set the kernel counts to 0 just before their
 encode and read them just after.  Each phase prints its seconds.
 
 Prints SEA's time beside K1's, the kernels' JSON line (launches from
-phase 8a, this slice's path, and per path; K1's times at the analysis
+phase 9a, the residual-side path, and per path; K1's times at the analysis
 shape n = 16, r = 32, every slow-path shape under "shapes"), the card
 line, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is
@@ -873,9 +894,9 @@ def report_drive(run, frames, w, h, what, peak=255):
                                  f"{what}")
 
 
-def phase_main(dev, w=1920, h=1080, n=3):
-    """The 1080p default encode on the card; returns launch counts and the
-    decode order."""
+def phase_main(dev, w=1920, h=1080, n=2):
+    """The 1080p default encode on the card (I P; phase 4's defaults case
+    holds the B pyramid); returns launch counts."""
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     from x265_mod_by_patman_tpu_torch.params import default_params
     frames = park_frames(w, h, n)
@@ -883,17 +904,18 @@ def phase_main(dev, w=1920, h=1080, n=3):
     report_drive(run, frames, w, h,
                  f"main path {w}x{h} at the repo defaults")
     decode_later(f"phase 3, {w}x{h} defaults", run["out"])
-    check_minigops(run["out"])
+    order = [(f.slice_type, f.disp) for f in run["out"]]
+    if order != [("I", 0), ("P", 1)]:
+        raise AssertionError(f"decode order {order}, not I0 P1")
     lowres_sums_exact(frames, dev)
-    return run["counts"], [(f.slice_type, f.disp) for f in run["out"]]
+    return run["counts"]
 
 
-def phase_rc(dev, w=1920, h=1080, n=3):
+def phase_rc(dev, w=1920, h=1080, n=2):
     """The 1080p rate-control path on the card: the repo defaults under
     CRF 28 with AQ 2 and the cuTree lookahead (rc_lookahead at its
     default, so every cuTree pop of this clip runs in the flush), cut to
-    3 frames (I, P, B) to keep the script's time; returns launch
-    counts."""
+    2 frames (I, P) to keep the script's time; returns launch counts."""
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     from x265_mod_by_patman_tpu_torch.params import default_params
     frames = park_frames(w, h, n)
@@ -907,20 +929,22 @@ def phase_rc(dev, w=1920, h=1080, n=3):
                  f"rate-control path {w}x{h}, CRF 28, AQ 2, cuTree "
                  f"(rc_lookahead {enc.p.rc_lookahead})")
     decode_later(f"phase 5, {w}x{h} CRF + AQ 2 + cuTree", run["out"])
-    check_minigops(run["out"])
+    order = [(f.slice_type, f.disp) for f in run["out"]]
+    if order != [("I", 0), ("P", 1)]:
+        raise AssertionError(f"decode order {order}, not I0 P1")
     if not any(np.min(f.qp_map) < np.max(f.qp_map) for f in run["out"]):
         raise AssertionError("the per-CTU QP map never varied")
     return run["counts"]
 
 
-def phase_main10(dev, order3, w=1920, h=1080, n=3):
+def phase_main10(dev, w=1920, h=1080, n=2):
     """The Main10 delivery path at full width on the card: 1080p park at
-    10 bits (times 4, dithered), CRF 28 + AQ 2 + cuTree under a 1000 kbit
-    / 1000 kb/s VBV at 25 fps with HRD timing SEIs and HDR10 signalling,
-    with parameters built as the CLI builds them.  Checks no VBV
-    underflow, the CPB model on the parsed timing SEIs, the decode order
-    of phase 3's frames of the same clip (I P B), and a
-    per-CTU QP map that varies; returns launch counts."""
+    10 bits (times 4, dithered), cut to 2 frames (I P), CRF 28 + AQ 2 +
+    cuTree under a 1000 kbit / 1000 kb/s VBV at 25 fps with HRD timing
+    SEIs and HDR10 signalling, with parameters built as the CLI builds
+    them.  Checks no VBV underflow, the CPB model on the parsed timing
+    SEIs, the decode order I0 P1, and a per-CTU QP map that varies;
+    returns launch counts."""
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     frames = deep_frames(park_frames(w, h, n), 10, 2026)
     opts = (("crf", "28"), ("aq-mode", "2"), ("vbv-bufsize", "1000"),
@@ -941,9 +965,8 @@ def phase_main10(dev, order3, w=1920, h=1080, n=3):
     check_hrd(b"".join(f.bitstream for f in out), out,
               cli_params(w, h, n, opts, 10))
     order = [(f.slice_type, f.disp) for f in out]
-    if order != order3:
-        raise AssertionError(f"decode order {order} differs from phase "
-                             f"3's {order3}")
+    if order != [("I", 0), ("P", 1)]:
+        raise AssertionError(f"decode order {order}, not I0 P1")
     if not any(np.min(f.qp_map) < np.max(f.qp_map) for f in out):
         raise AssertionError("the per-CTU QP map never varied")
     lowres_sums_exact(frames, dev)
@@ -1104,6 +1127,141 @@ def phase_weightb_sea(dev, w=1920, h=1080, n=3):
     return run["counts"]
 
 
+# the residual-side path (phase 9a and phase 4's first residual case):
+# denoise and quantisation matrices on a CRF encode with NxN intra PUs
+# and TU4 (DST) splits, the repo defaults otherwise
+RESIDUAL_OPTS = (("crf", "24"), ("aq-mode", "2"), ("nxn-intra", ""),
+                 ("tu-intra-depth", "2"), ("scaling-list", "default"),
+                 ("nr-intra", "200"), ("nr-inter", "400"))
+
+
+def sps_scaling_list_flag(stream: bytes) -> bool:
+    """scaling_list_enabled_flag of the stream's SPS, as the port's
+    decoder parses it."""
+    from x265_mod_by_patman_tpu_torch.bitstream.nal import (
+        remove_emulation, split_annexb)
+    from x265_mod_by_patman_tpu_torch.decoder.decoder import parse_sps
+    for u in split_annexb(stream):
+        if u and (u[0] >> 1) & 0x3F == 33:
+            return bool(parse_sps(remove_emulation(u[2:]))
+                        .scaling_list_enabled)
+    raise AssertionError("no SPS in the stream")
+
+
+def phase_residual(dev, w=1920, h=1080, n=3):
+    """9a: 1080p park, 3 frames (I P B), `--crf 24 --aq-mode 2 --nxn-intra
+    --tu-intra-depth 2 --scaling-list default --nr-intra 200 --nr-inter
+    400` as the CLI builds it (rd 3, CTU 64, 4 B-frames, b-adapt 2,
+    cuTree, --me hex).  Prints what phase 3 prints and per picture the
+    share of 16x16 blocks coded NxN, the share of their 8x8 TUs split
+    to TU4 and the mean NR offsets (luma intra, luma inter) it coded
+    with; fails without an NxN block on the I picture, with all-zero NR
+    offsets from the second picture in coding order on, without the
+    SPS scaling-list flag, on a decode order other than I P B or a recon
+    below 28 dB.  Returns launch counts."""
+    from x265_mod_by_patman_tpu_torch.encoder import top
+    frames = park_frames(w, h, n)
+    enc = top.Encoder(cli_params(w, h, n, RESIDUAL_OPTS), dev)
+    p = enc.p
+    print(f"residual path: rd {p.rd_level}, CTU {p.ctu_size}, min CU "
+          f"{p.min_cu_size}, bframes {p.bframes}, b-adapt {p.b_adapt}, "
+          f"cuTree {enc._cutree is not None}, --me {p.search_method}, "
+          f"nxn {p.nxn_intra}, tu-intra-depth {p.tu_intra_depth}, scaling "
+          f"list {p.scaling_list}, nr {p.nr_intra}/{p.nr_inter}, "
+          f"var_cu_tree {p.var_cu_tree}")
+    if not (p.nxn_intra and p.tu_intra_depth == 2 and enc.recon.tu4
+            and enc.recon.mats is not None and enc._nr is not None
+            and enc._cutree is not None):
+        raise AssertionError("the residual path lacks NxN, TU4, scaling "
+                             "lists, NR or cuTree")
+    seen = {"split": [], "tu4": [], "nr": []}
+    funcs = (top.decide_modes_split, top.decide_tu4_split)
+    run_orig = enc.recon.run
+
+    def on_split(*a, **k):
+        got = funcs[0](*a, **k)
+        seen["split"].append(got[1])
+        return got
+
+    def on_tu4(*a, **k):
+        got = funcs[1](*a, **k)
+        seen["tu4"].append(got)
+        return got
+
+    def on_run(*a, **k):
+        seen["nr"].append(k.get("nr"))
+        return run_orig(*a, **k)
+
+    top.decide_modes_split, top.decide_tu4_split = on_split, on_tu4
+    enc.recon.run = on_run
+    try:
+        run = drive(enc, frames)
+    finally:
+        top.decide_modes_split, top.decide_tu4_split = funcs
+        del enc.recon.run
+    report_drive(run, frames, w, h, f"residual path {w}x{h}, " + " ".join(
+        f"--{k} {v}".strip() for k, v in RESIDUAL_OPTS))
+    out = run["out"]
+    decode_later(f"phase 9a, {w}x{h} NxN + TU4 + lists + NR", out)
+    order = [(f.slice_type, f.disp) for f in out]
+    if order != [("I", 0), ("P", 2), ("B", 1)]:
+        raise AssertionError(f"decode order {order}, not I0 P2 B1")
+    split, tu4 = seen["split"][0], seen["tu4"][0]
+    nxn_share = float(np.mean(split))
+    tu4_share = float(np.sum(tu4) / max(1, 4 * np.sum(split)))
+    print(f"I picture: NxN on {nxn_share:.4f} of the 16x16 blocks; TU4 on "
+          f"{tu4_share:.4f} of their 8x8 TUs")
+    if not nxn_share > 0:
+        raise AssertionError("no NxN block on the I picture")
+    if len(seen["nr"]) != len(out):
+        raise AssertionError(f"{len(seen['nr'])} wavefront runs for "
+                             f"{len(out)} pictures")
+    for i, (f, nr) in enumerate(zip(out, seen["nr"])):
+        ly = np.asarray(nr[0])
+        print(f"picture {i} {f.slice_type}{f.disp}: mean NR offset luma "
+              f"intra {ly[0].mean():.3f}, luma inter {ly[1].mean():.3f}; "
+              f"chroma intra {np.asarray(nr[1])[0].mean():.3f}, inter "
+              f"{np.asarray(nr[1])[1].mean():.3f}")
+        if i and not (ly.any() or np.asarray(nr[1]).any()):
+            raise AssertionError(f"picture {i}: NR offsets all zero")
+    if not sps_scaling_list_flag(out[0].bitstream):
+        raise AssertionError("the SPS does not enable scaling lists")
+    print("SPS scaling_list_enabled_flag 1 (default lists)")
+    return run["counts"]
+
+
+def phase_lossless(dev, w=1920, h=1080, n=2):
+    """9b: 1080p park, 2 frames (I P), `--lossless` as the CLI builds it:
+    transquant bypass, deblock and SAO off, the recon fetched whole.
+    Prints what phase 3 prints (bits per picture among it); fails unless
+    the card's recon equals the source sample for sample in all three
+    planes.  Returns launch counts."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
+    frames = park_frames(w, h, n)
+    enc = Encoder(cli_params(w, h, n, (("lossless", ""),)), dev)
+    p = enc.p
+    if not (p.lossless and enc.pps.transquant_bypass and not p.deblock
+            and not p.sao):
+        raise AssertionError("the lossless path lacks transquant bypass "
+                             "or keeps a loop filter")
+    run = drive(enc, frames)
+    report_drive(run, frames, w, h, f"lossless path {w}x{h}, --lossless")
+    out = run["out"]
+    decode_later(f"phase 9b, {w}x{h} lossless", out)
+    if [f.slice_type for f in out] != ["I", "P"]:
+        raise AssertionError("decode order is not I P")
+    for f in out:
+        for k, (a, b) in enumerate(zip(f.recon, frames[f.disp])):
+            if not np.array_equal(np.asarray(a)[:b.shape[0], :b.shape[1]],
+                                  b):
+                raise AssertionError(f"picture {f.disp} plane {k}: the "
+                                     "recon differs from the source")
+    print("lossless: bits per picture " + ", ".join(
+        f"{f.slice_type}{f.disp} {f.bits}" for f in out)
+        + "; the card's recon equals the source in all three planes")
+    return run["counts"]
+
+
 def cli_params(w: int, h: int, n: int, opts, bit_depth: int = 8,
                preset=None, fps: int = 25):
     """Parameters built as the CLI builds them for an n-frame y4m at
@@ -1126,11 +1284,11 @@ def cli_params(w: int, h: int, n: int, opts, bit_depth: int = 8,
 # the rate-control agreement cases: (frames, CLI options); the first is
 # also run through the CLI on the card
 RC_AGREE = ((8, (("crf", "28"), ("aq-mode", "2"), ("rc-lookahead", "4"))),
-            (6, (("bitrate", "300"), ("aq-mode", "1"))))
+            (4, (("bitrate", "300"), ("aq-mode", "1"))))
 # the Main10 delivery case at 416x240: CRF + AQ 2 + cuTree under a VBV cap
 # low enough that the I picture re-encodes, with HRD timing; also run
 # through the CLI on a 10-bit y4m on the card
-MAIN10_AGREE = (8, (("crf", "28"), ("aq-mode", "2"), ("rc-lookahead", "4"),
+MAIN10_AGREE = (6, (("crf", "28"), ("aq-mode", "2"), ("rc-lookahead", "4"),
                     ("vbv-bufsize", "150"), ("vbv-maxrate", "150"),
                     ("hrd", "")))
 # HDR10 signalling (phases 4 and 6)
@@ -1155,20 +1313,89 @@ HDR10PLUS_RECORD = {
 }
 
 
+# phase 4's worker processes: the card side of several cases runs at
+# once (each card encode at 416x240 is bound by its one host thread),
+# beside as many CPU-side encodes
+CARD_WORKERS = 3
+CPU_WORKERS = 2
+
+
 def _cpu_worker_init():
-    """Phase 4's CPU encoder process: leaves two cores to the card's
-    encode in the parent, and records no trace."""
+    """Phase 4's CPU encoder processes: two threads each, no trace."""
     from x265_mod_by_patman_tpu_torch.utils import trace
     trace._path = None
-    torch.set_num_threads(max(1, (os.cpu_count() or 4) - 2))
+    torch.set_num_threads(2)
+
+
+def _card_worker_init():
+    """Phase 4's card encoder processes: the kernels built in phase 1,
+    one host thread, no trace."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda import build
+    from x265_mod_by_patman_tpu_torch.utils import trace
+    trace._path = None
+    torch.set_num_threads(1)
+    build.load_library()
+
+
+class _Pic:
+    """What phase 4's checks and the decode workers read of an
+    EncodedFrame, as plain host data a worker process can return."""
+
+    def __init__(self, f):
+        for k in ("poc", "disp", "slice_type", "qp", "bits", "bitstream",
+                  "md5", "stats", "pipeline_runs"):
+            setattr(self, k, getattr(f, k))
+        self.recon = tuple(np.array(p, copy=True).view(np.ndarray)
+                           for p in f.recon)
+
+
+def _card_encode(params, frames, count_replay=False):
+    """One encode on the card (in a card worker process): the stream,
+    its pictures, the seconds it took and, with count_replay, the K2
+    launches made inside the analysis-load replay's MC."""
+    from x265_mod_by_patman_tpu_torch.encoder import top
+    from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
+    replay = [0]
+    mcs = (top.mc_for_p, top.mc_for_b)
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            before = kernels.counts()["window_gather"]
+            got = fn(*a, **k)
+            replay[0] += kernels.counts()["window_gather"] - before
+            return got
+        return wrapper
+
+    if count_replay:
+        top.mc_for_p, top.mc_for_b = counted(mcs[0]), counted(mcs[1])
+    try:
+        t0 = time.perf_counter()
+        s, e = encode_closed(params, frames, "cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+    finally:
+        top.mc_for_p, top.mc_for_b = mcs
+    return s, [_Pic(f) for f in e], t, replay[0]
+
+
+def encode_closed(params, frames, device):
+    """encode_sequence, then the encoder's write_stats(), which closes an
+    analysis file the encode saved."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
+    enc = Encoder(params, device)
+    out = []
+    for y, u, v in frames:
+        out.extend(enc.encode_frame(y, u, v))
+    out.extend(enc.flush())
+    enc.write_stats()
+    return b"".join(f.bitstream for f in out), out
 
 
 def _cpu_encode(params, frames):
     """One encode on the CPU (in the worker process): the stream, each
     picture's bytes and the seconds it took."""
-    from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
     t0 = time.perf_counter()
-    s, e = encode_sequence(params, frames, "cpu")
+    s, e = encode_closed(params, frames, "cpu")
     return s, [f.bitstream for f in e], time.perf_counter() - t0
 
 
@@ -1239,23 +1466,37 @@ def decode_later(what, out):
     DECODES.submit(what, b"".join(f.bitstream for f in out), out)
 
 
-def cpu_pool():
-    """Phase 4's one CPU encoder process: the CPU side of each agreement
-    case runs there while the card's side runs here."""
-    import concurrent.futures
-    import multiprocessing
-    return concurrent.futures.ProcessPoolExecutor(
-        max_workers=1, mp_context=multiprocessing.get_context("spawn"),
-        initializer=_cpu_worker_init)
+class Pools:
+    """Phase 4's worker processes: CARD_WORKERS encoding on the card and
+    CPU_WORKERS on the CPU; the case groups of agree_all run in threads
+    of the main process that submit to both."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        self.card = concurrent.futures.ProcessPoolExecutor(
+            max_workers=CARD_WORKERS, mp_context=ctx,
+            initializer=_card_worker_init)
+        self.cpu = concurrent.futures.ProcessPoolExecutor(
+            max_workers=CPU_WORKERS, mp_context=ctx,
+            initializer=_cpu_worker_init)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for pool in (self.card, self.cpu):
+            pool.shutdown(cancel_futures=True)
 
 
-def _agree(pool, frames, what, p_gpu, p_cpu):
-    from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
-    pending = pool.submit(_cpu_encode, p_cpu, frames)
-    t0 = time.perf_counter()
-    s_gpu, e_gpu = encode_sequence(p_gpu, frames, "cuda")
-    torch.cuda.synchronize()
-    t_gpu = time.perf_counter() - t0
+def _agree(pools, frames, what, p_gpu, p_cpu, count_replay=False):
+    """One phase-4 case: the card's and the CPU's streams must be
+    byte-identical.  Returns the card's (stream, pictures), with the
+    replay's K2 launches when count_replay."""
+    pending = pools.cpu.submit(_cpu_encode, p_cpu, frames)
+    s_gpu, e_gpu, t_gpu, replay = pools.card.submit(
+        _card_encode, p_gpu, frames, count_replay).result()
     s_cpu, b_cpu, t_cpu = pending.result()
     what += " " + " ".join(f"{f.slice_type}{f.qp}" for f in e_gpu)
     print(f"agree {what}: cuda {len(s_gpu)} B in {t_gpu:.2f} s, "
@@ -1272,46 +1513,58 @@ def _agree(pool, frames, what, p_gpu, p_cpu):
         raise AssertionError(f"cuda and cpu streams differ: {what}")
     print(f"cuda and cpu streams are byte-identical: {what}")
     DECODES.submit(what, s_gpu, e_gpu)
+    if count_replay:
+        return s_gpu, e_gpu, replay
     return s_gpu, e_gpu
 
 
 def phase_agree(w=416, h=240):
-    with cpu_pool() as pool:
-        agree_all(pool, w, h)
+    with Pools() as pools:
+        agree_all(pools, w, h)
 
 
-def agree_all(pool, w: int, h: int):
-    """The same clip on cuda and on cpu must give identical bytes: CQP
-    (I P P, and the repo defaults), CRF with AQ 2 and cuTree, ABR with
-    AQ 1, and the deep cases of agree_deep.  The CRF case is also run
-    through the CLI in a subprocess on the card, whose .hevc must equal
-    the in-process cuda bytes."""
+def agree_all(pools, w: int, h: int):
+    """The same clip on cuda and on cpu must give identical bytes.  Five
+    groups of cases run at once, each in a thread (within a group the
+    cases run in turn): agree_rc (CQP, CRF, ABR), agree_deep,
+    agree_slow, agree_inter_tools and agree_residual."""
+    import concurrent.futures
+    checks = []
+    groups = (agree_rc, agree_deep, agree_slow, agree_inter_tools,
+              agree_residual)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(groups)) as ex:
+            futs = [ex.submit(g, pools, w, h, checks) for g in groups]
+            for fut in futs:
+                fut.result()
+    finally:
+        for check in checks:
+            check()
+
+
+def agree_rc(pools, w: int, h: int, checks):
+    """CQP (I P P, and the repo defaults), CRF with AQ 2 and cuTree, ABR
+    with AQ 1.  The CRF case is also run through the CLI in a
+    subprocess on the card, whose .hevc must equal the card's bytes."""
     from x265_mod_by_patman_tpu_torch.params import default_params
-    for n, kw in ((3, dict(bframes=0)), (6, {})):
+    for n, kw in ((3, dict(bframes=0)), (5, {})):
         frames = park_frames(w, h, n)
-        _s, e = _agree(pool, frames, f"{w}x{h} x{n} CQP",
+        _s, e = _agree(pools, frames, f"{w}x{h} x{n} CQP",
                        default_params(w, h, **kw), default_params(w, h, **kw))
         if not kw:
-            # the B pyramid (phase 3 runs only I P B)
+            # the B pyramid (phase 3 runs only I P)
             check_minigops(e)
     streams = []
     for n, opts in RC_AGREE:
         frames = park_frames(w, h, n)
-        s, e = _agree(pool, frames, f"{w}x{h} x{n} " + " ".join(
+        s, e = _agree(pools, frames, f"{w}x{h} x{n} " + " ".join(
             f"--{k} {v}" for k, v in opts), cli_params(w, h, n, opts),
             cli_params(w, h, n, opts))
         if not any(f.slice_type == "B" for f in e):
             raise AssertionError("no B picture under rate control")
         streams.append((frames, s))
     (n, opts), (frames, s_gpu) = RC_AGREE[0], streams[0]
-    checks = [cli_on_card(frames, opts, s_gpu, f"smoke_{w}x{h}")]
-    try:
-        agree_deep(pool, w, h, checks)
-        agree_slow(pool, w, h)
-        agree_inter_tools(pool, w, h, checks)
-    finally:
-        for check in checks:
-            check()
+    checks.append(cli_on_card(frames, opts, s_gpu, f"smoke_{w}x{h}"))
 
 
 def cli_on_card(frames, opts, s_gpu, name: str, bit_depth: int = 8,
@@ -1443,31 +1696,33 @@ def hdr_side_files(n: int):
     return jf, rpu
 
 
-def agree_deep(pool, w: int, h: int, checks):
+def agree_deep(pools, w: int, h: int, checks):
     """Phase 4's 10- and 12-bit cases, cuda against cpu: Main10 at the
-    repo defaults (CQP, 6 frames) with HDR10 signalling, HDR10+ metadata
+    repo defaults (CQP, 4 frames) with HDR10 signalling, HDR10+ metadata
     and a Dolby Vision RPU file written under build/; Main10 CRF 28 +
-    AQ 2 + cuTree under a 150 kbit / 150 kb/s VBV with HRD (8 frames;
+    AQ 2 + cuTree under a 150 kbit / 150 kb/s VBV with HRD (6 frames;
     a picture must re-encode), also through the CLI on a 10-bit y4m;
     and 12-bit I P P."""
     from x265_mod_by_patman_tpu_torch.params import default_params
-    jf, rpu = hdr_side_files(6)
+    n = 4
+    jf, rpu = hdr_side_files(n)
     opts = HDR10_OPTS + (("dhdr10-info", jf), ("dolby-vision-rpu", rpu),
                          ("dolby-vision-profile", "8.1"))
-    frames = deep_frames(park_frames(w, h, 6), 10, 10)
-    s, e = _agree(pool, frames, f"{w}x{h} x6 Main10 CQP, HDR10 + HDR10+ + "
-                  "Dolby Vision RPU", cli_params(w, h, 6, opts, 10),
-                  cli_params(w, h, 6, opts, 10))
+    frames = deep_frames(park_frames(w, h, n), 10, 10)
+    s, e = _agree(pools, frames, f"{w}x{h} x{n} Main10 CQP, HDR10 + HDR10+ "
+                  "+ Dolby Vision RPU", cli_params(w, h, n, opts, 10),
+                  cli_params(w, h, n, opts, 10))
     if "B" not in [f.slice_type for f in e]:
         raise AssertionError("the Main10 default encode made no B picture")
     types = nal_types(s)
     print(f"HDR stream: {types.count(62)} RPU NALs, "
           f"{len(timing_seis(s)[1])} picture timings, NAL types {types}")
-    if types.count(62) != 6:
-        raise AssertionError(f"expected 6 RPU NALs, got {types.count(62)}")
+    if types.count(62) != n:
+        raise AssertionError(f"expected {n} RPU NALs, got "
+                             f"{types.count(62)}")
     n, opts = MAIN10_AGREE
     frames = deep_frames(park_frames(w, h, n), 10, 10)
-    s_vbv, e = _agree(pool, frames, f"{w}x{h} x{n} Main10 " + " ".join(
+    s_vbv, e = _agree(pools, frames, f"{w}x{h} x{n} Main10 " + " ".join(
         f"--{k} {v}" for k, v in opts), cli_params(w, h, n, opts, 10),
         cli_params(w, h, n, opts, 10))
     runs = [f.pipeline_runs for f in e]
@@ -1480,31 +1735,31 @@ def agree_deep(pool, w: int, h: int, checks):
     checks.append(cli_on_card(frames, opts, s_vbv,
                               f"smoke_{w}x{h}_main10", 10))
     frames = deep_frames(park_frames(w, h, 3), 12, 12)
-    _agree(pool, frames, f"{w}x{h} x3 12-bit I P P",
+    _agree(pools, frames, f"{w}x{h} x3 12-bit I P P",
            default_params(w, h, bframes=0, internal_bit_depth=12),
            default_params(w, h, bframes=0, internal_bit_depth=12))
 
 
 # BASELINE config 3 at 416x240 (ABR scaled to the size) and the slow
 # preset with HME under CRF and a VBV that binds (phase 4)
-CONFIG3_AGREE = (6, (("bitrate", "300"), ("rdoq-level", "2"),
+CONFIG3_AGREE = (4, (("bitrate", "300"), ("rdoq-level", "2"),
                      ("b-pyramid", "")) + HDR10_OPTS, "medium")
-SLOW_AGREE = (8, (("hme", ""), ("crf", "24"), ("rc-lookahead", "8"),
+SLOW_AGREE = (5, (("hme", ""), ("crf", "24"), ("rc-lookahead", "8"),
                   ("vbv-bufsize", "70"), ("vbv-maxrate", "70")), "slow")
 
 
-def agree_slow(pool, w: int, h: int):
+def agree_slow(pools, w: int, h: int, checks):
     """Phase 4's cases of this slice's options, cuda against cpu: BASELINE
     config 3 at 10 bits (--preset medium: sign hiding under RDOQ 2, the
     B pyramid, ABR 300 kb/s, HDR10) and --preset slow --hme under CRF 24
-    with an 8-frame VBV that binds (a picture must re-encode); each
+    with a 5-frame VBV that binds (a picture must re-encode); each
     stream must use the tools it names."""
     n, opts, preset = CONFIG3_AGREE
     frames = deep_frames(park_frames(w, h, n), 10, 3)
     p3 = lambda: cli_params(w, h, n, opts, 10, preset=preset)
     if not (p3().validate().sign_hide and p3().rdoq_level == 2):
         raise AssertionError("config 3 lacks sign hiding under RDOQ")
-    _s, e = _agree(pool, frames, f"{w}x{h} x{n} Main10 --preset {preset} "
+    _s, e = _agree(pools, frames, f"{w}x{h} x{n} Main10 --preset {preset} "
                    + " ".join(f"--{k} {v}" for k, v in opts[:3]) + " HDR10",
                    p3(), p3())
     if "B" not in [f.slice_type for f in e]:
@@ -1512,7 +1767,7 @@ def agree_slow(pool, w: int, h: int):
     n, opts, preset = SLOW_AGREE
     frames = park_frames(w, h, n)
     ps = lambda: cli_params(w, h, n, opts, preset=preset)
-    _s, e = _agree(pool, frames, f"{w}x{h} x{n} --preset {preset} "
+    _s, e = _agree(pools, frames, f"{w}x{h} x{n} --preset {preset} "
                    + " ".join(f"--{k} {v}" for k, v in opts), ps(), ps())
     runs = [f.pipeline_runs for f in e]
     rect = [f.stats.get("cu_rect_pct", 0.0) for f in e]
@@ -1523,7 +1778,7 @@ def agree_slow(pool, w: int, h: int):
         raise AssertionError("no rect PU in the slow-preset stream")
 
 
-def agree_inter_tools(pool, w: int, h: int, checks):
+def agree_inter_tools(pools, w: int, h: int, checks):
     """Phase 4's cases of this slice's inter tools, cuda against cpu: the
     quarter-strip scene with rect, AMP and 2 B-frames (AMP PUs must occur
     in a P and in a B picture), the park fade under --weightb --me sea,
@@ -1534,7 +1789,7 @@ def agree_inter_tools(pool, w: int, h: int, checks):
     pq = lambda: default_params(w, h, qp=30, keyframe_max=250, bframes=2,
                                 b_adapt=0, rect=True, amp=True, sao=False,
                                 scenecut=False, cu_tree=False, aq_mode=0)
-    _s, e = _agree(pool, frames, f"{w}x{h} x4 quarter-strip scene, rect + "
+    _s, e = _agree(pools, frames, f"{w}x{h} x4 quarter-strip scene, rect + "
                    "AMP, 2 B-frames", pq(), pq())
     amp = {f"{f.slice_type}{f.disp}": f.stats.get("cu_amp_pct", 0.0)
            for f in e if f.slice_type != "I"}
@@ -1542,16 +1797,16 @@ def agree_inter_tools(pool, w: int, h: int, checks):
     for t in ("P", "B"):
         if not any(v > 0 for k, v in amp.items() if k[0] == t):
             raise AssertionError(f"no AMP PU in a {t} picture")
-    n = 4
+    n = 3
     frames = fade_frames(park_frames(w, h, n))
-    _s, e = _agree(pool, frames, f"{w}x{h} x{n} park fade --weightb --me "
+    _s, e = _agree(pools, frames, f"{w}x{h} x{n} park fade --weightb --me "
                    "sea --no-scenecut", cli_params(w, h, n, WEIGHTB_SEA_OPTS),
                    cli_params(w, h, n, WEIGHTB_SEA_OPTS))
     if "B" not in [f.slice_type for f in e]:
         raise AssertionError("the fade made no B picture")
     frames = park_frames(w, h, n)
     pv = lambda: cli_params(w, h, n, VERYSLOW_OPTS, preset="veryslow")
-    s, e = _agree(pool, frames, f"{w}x{h} x{n} --preset veryslow --crf 24",
+    s, e = _agree(pools, frames, f"{w}x{h} x{n} --preset veryslow --crf 24",
                   pv(), pv())
     print("veryslow AMP / rect share per picture: " + ", ".join(
         f"{f.slice_type}{f.disp} {f.stats.get('cu_amp_pct', 0.0)} / "
@@ -1560,8 +1815,85 @@ def agree_inter_tools(pool, w: int, h: int, checks):
                               f"smoke_{w}x{h}_veryslow", preset="veryslow"))
 
 
+def write_scaling_list_file(path: str) -> str:
+    """A custom scaling-list file in the x265/HM format --scaling-list
+    <file> reads: every list a ramp 16 + k * (x + y) in raster order,
+    k larger for chroma (Cb and Cr share one list) and for inter, DC
+    16."""
+    names = ("INTRA{}_LUMA", "INTRA{}_CHROMAU", "INTRA{}_CHROMAV",
+             "INTER{}_LUMA", "INTER{}_CHROMAU", "INTER{}_CHROMAV")
+    with open(path, "w") as f:
+        for sid, size in enumerate(("4X4", "8X8", "16X16", "32X32")):
+            n = 4 if sid == 0 else 8
+            yy, xx = np.mgrid[0:n, 0:n]
+            for lid in range(0, 6, 3 if sid == 3 else 1):
+                k = 2 + (lid % 3 > 0) + (lid >= 3)
+                name = names[lid].format(size)
+                f.write(f"{name} =\n" + ",".join(
+                    str(int(v)) for v in (16 + k * (xx + yy)).ravel())
+                    + "\n")
+                if sid >= 2:
+                    f.write(f"{name}_DC =\n16\n")
+    return path
+
+
+def agree_residual(pools, w: int, h: int, checks):
+    """Phase 4's cases of the residual-side options, cuda against
+    cpu, 3 frames each: 9a's options; the CU-tree route with NxN, a
+    custom scaling-list file and --rdoq-level 2, saving its analysis;
+    that case again loading the card's analysis file (its bytes must
+    equal the saving run's); --lossless with B pictures, whose recon
+    must equal the source.  The info SEI is off in the save/load cases,
+    since it prints the analysis file's path."""
+    n = 3
+    frames = park_frames(w, h, n)
+    _s, e = _agree(pools, frames, f"{w}x{h} x{n} " + " ".join(
+        f"--{k} {v}".strip() for k, v in RESIDUAL_OPTS),
+        cli_params(w, h, n, RESIDUAL_OPTS), cli_params(w, h, n,
+                                                       RESIDUAL_OPTS))
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    lists = write_scaling_list_file(os.path.join(build, "smoke_lists.txt"))
+    tree = (("nxn-intra", ""), ("scaling-list", lists),
+            ("rdoq-level", "2"), ("info", "0"))
+    files = [os.path.join(build, f"smoke_analysis_{d}.bin")
+             for d in ("cuda", "cpu")]
+    pt = lambda f: cli_params(w, h, n, tree + (("analysis-save", f),))
+    s_save, e = _agree(pools, frames, f"{w}x{h} x{n} --nxn-intra "
+                       "--scaling-list <file> --rdoq-level 2 "
+                       "--analysis-save", pt(files[0]), pt(files[1]))
+    if not pt(files[0]).validate().var_cu_tree:
+        raise AssertionError("the save case does not take the CU-tree "
+                             "route")
+    pl = lambda: cli_params(w, h, n, tree + (("analysis-load", files[0]),))
+    s_load, _e, replay = _agree(pools, frames, f"{w}x{h} x{n} --nxn-intra "
+                                "--scaling-list <file> --rdoq-level 2 "
+                                "--analysis-load (the card's file)", pl(),
+                                pl(), count_replay=True)
+    if s_load != s_save:
+        raise AssertionError("the analysis-load stream differs from the "
+                             "saving run's")
+    print("analysis load reproduces the saving run's bytes "
+          f"({len(s_load)} B); the replay's MC launched window_gather "
+          f"{replay} times on the card")
+    if not replay:
+        raise AssertionError("the replay's MC did not run K2 on the card")
+    pll = lambda: cli_params(w, h, n, (("lossless", ""), ("bframes", "2"),
+                                       ("b-adapt", "0")))
+    _s, e = _agree(pools, frames, f"{w}x{h} x{n} --lossless --bframes 2",
+                   pll(), pll())
+    if "B" not in [f.slice_type for f in e]:
+        raise AssertionError("the lossless case made no B picture")
+    for f in e:
+        for a, b in zip(f.recon, frames[f.disp]):
+            if not np.array_equal(np.asarray(a)[:b.shape[0], :b.shape[1]],
+                                  b):
+                raise AssertionError("lossless recon differs from the "
+                                     "source")
+
+
 def run_phases(dev, rng, cap: str, clock: float):
-    """Phases 2-8; phases 7 and 8 run before 5 and 6, so that their
+    """Phases 2-9; phases 7, 8 and 9 run before 5 and 6, so that their
     pictures decode on the host while the card runs the next ones.
     Returns the launch counts per path, the kernels' numbers and SEA's."""
     t0 = time.perf_counter()
@@ -1579,7 +1911,7 @@ def run_phases(dev, rng, cap: str, clock: float):
     print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
     counts = {}
     t0 = time.perf_counter()
-    counts["cqp_defaults"], order3 = phase_main(dev)
+    counts["cqp_defaults"] = phase_main(dev)
     print(f"phase 3 main path: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_agree()
@@ -1594,10 +1926,16 @@ def run_phases(dev, rng, cap: str, clock: float):
     counts["weightb_sea"] = phase_weightb_sea(dev)
     print(f"phase 8b weightb/SEA path: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    counts["lossless"] = phase_lossless(dev)
+    print(f"phase 9b lossless path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts["residual"] = phase_residual(dev)
+    print(f"phase 9a residual path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     counts["crf_aq_cutree"] = phase_rc(dev)
     print(f"phase 5 rate-control path: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    counts["main10_vbv_hrd"] = phase_main10(dev, order3)
+    counts["main10_vbv_hrd"] = phase_main10(dev)
     print(f"phase 6 Main10 delivery path: {time.perf_counter() - t0:.2f} s")
     return counts, res, sea
 
@@ -1642,7 +1980,7 @@ def main() -> int:
                              "ops/pallas/gather.py:82")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{cu}",
-         "replaces": rep, "launches": counts["veryslow"][name],
+         "replaces": rep, "launches": counts["residual"][name],
          "launches_by_path": {k: c[name] for k, c in counts.items()},
          **res[name]}
         for name, (cu, rep) in src.items()]}

@@ -71,7 +71,8 @@ def _defs(rel):
                                "decide_gop", "scenecut")),
     ("analysis/inter_mode.py", ("_b_tmvp_field",)),
     ("encoder/top.py", ("_aq_map", "_zone_qp", "_cutree_pop",
-                        "write_stats")),
+                        "write_stats", "_nr_offsets", "_nr_update",
+                        "build16", "build_region")),
 ])
 def test_host_functions_are_verbatim(rel, names):
     """The host-side decision logic is a copy of the reference's."""

@@ -10,8 +10,9 @@ CPU:
   the reference's, under CRF with AQ 2 and cuTree, with a CSV log and
   PSNR; the .hevc files are byte-identical and the CSV rows equal.
   Options the port does not take raise NotImplementedError naming them;
-  --amp, --weightb, --me sea and --preset veryslow run through the CLI
-  and decode.
+  --amp, --weightb, --me sea, --preset veryslow and the residual-side
+  options (--nxn-intra, --scaling-list, --nr-*, --lossless, analysis
+  save/load) run through the CLI and decode.
 
 Tolerance: exact (NAL types and bytes, file contents, CSV text)."""
 import numpy as np
@@ -141,8 +142,8 @@ def test_cli_output_equals_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("extra,name", [
     (["--abr-ladder", "ladder.txt"], "--abr-ladder"),
-    (["--scaling-list", "default"], "--scaling-list"),
-    (["--lossless"], "--lossless"),
+    (["--mcstf"], "--mcstf"),
+    (["--cutree-share-write", "ring"], "cuTree share"),
     (["--frame-threads", "2"], "--frame-threads"),
 ])
 def test_cli_rejects_unported_options(tmp_path, extra, name):
@@ -173,3 +174,48 @@ def test_cli_takes_the_inter_tools(tmp_path, extra, signalled):
     pics = Decoder().decode(stream)
     assert len(pics) == 6
     assert all(pc.md5 == pc.sei_md5 for pc in pics)
+
+
+@pytest.mark.parametrize("extra,signalled", [
+    (["--nxn-intra", "--tu-intra-depth", "2"],
+     [b"nxn_intra=True", b"tu_intra_depth=2"]),
+    (["--scaling-list", "default"], [b"scaling_list=default"]),
+    (["--nr-intra", "200", "--nr-inter", "400"],
+     [b"nr_intra=200", b"nr_inter=400"]),
+    (["--lossless"], [b"lossless=True"]),
+])
+def test_cli_takes_the_residual_options(tmp_path, extra, signalled):
+    """The port's CLI takes --nxn-intra with --tu-intra-depth,
+    --scaling-list, --nr-intra/--nr-inter and --lossless (their streams
+    are held to the reference in tests/test_torch_nxn.py,
+    test_torch_scaling.py and test_torch_nr_lossless.py): the options
+    reach the encoder (its info SEI lists them) and the stream decodes
+    with matching MD5 SEIs."""
+    _write_y4m(tmp_path / "in.y4m")
+    assert tcli.main(_cli_args(tmp_path, "x") + ["--device", "cpu"]
+                     + extra) == 0
+    stream = (tmp_path / "x.hevc").read_bytes()
+    info = stream[stream.index(b"x265-tpu"):].split(b" ")
+    assert all(s in info for s in signalled), signalled
+    pics = Decoder().decode(stream)
+    assert len(pics) == 6
+    assert all(pc.md5 == pc.sei_md5 for pc in pics)
+
+
+def test_cli_analysis_save_then_load(tmp_path):
+    """--analysis-save then --analysis-load through the port's CLI: the
+    info SEI names the file, and with it off the two streams are
+    byte-identical."""
+    _write_y4m(tmp_path / "in.y4m")
+    path = str(tmp_path / "a.bin")
+    base = _cli_args(tmp_path, "x") + ["--device", "cpu", "--no-info"]
+    assert tcli.main(base + ["--analysis-save", path]) == 0
+    saved = (tmp_path / "x.hevc").read_bytes()
+    assert tcli.main(base + ["--analysis-load", path]) == 0
+    assert (tmp_path / "x.hevc").read_bytes() == saved
+    assert all(pc.md5 == pc.sei_md5 for pc in Decoder().decode(saved))
+    assert tcli.main(_cli_args(tmp_path, "y") + [
+        "--device", "cpu", "--analysis-load", path]) == 0
+    stream = (tmp_path / "y.hevc").read_bytes()
+    info = stream[stream.index(b"x265-tpu"):].split(b" ")
+    assert f"analysis_load={path}".encode() in info

@@ -4,8 +4,9 @@ counters, the lookahead lattice, B analysis and cuTree's lowres inter
 costs on the card against the CPU, K1 on 12-bit planes and its fp32
 bound, K1 around HME window centres, and card encodes (CQP, CRF with AQ
 and cuTree, Main10 CRF under a VBV with HRD, --preset slow --hme
-in row bands, AMP in P and B, weighted B with --me sea) that must give
-the CPU's bytes, and the SEA search on the card against the CPU.  The GPU
+in row bands, AMP in P and B, weighted B with --me sea, NxN with TU4,
+scaling lists and NR, lossless) that must give the CPU's bytes, and the
+SEA search on the card against the CPU.  The GPU
 machine has no JAX, which tests/conftest.py imports, so run them there
 with `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
 
@@ -363,3 +364,43 @@ def test_card_inter_tools_encode_equals_cpu(dev, case):
         for t in ("P", "B"):
             assert any(f.stats.get("cu_amp_pct", 0) > 0 for f in e_gpu
                        if f.slice_type == t), t
+
+
+def _park(w, h, n):
+    """The park clip of tools/make_clips.py (uint8 y, u, v frames)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "make_clips.py")
+    spec = importlib.util.spec_from_file_location("make_clips", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return [tuple(p.astype(np.uint8) for p in f)
+            for f in mod.make_park(w, h, n)]
+
+
+@pytest.mark.parametrize("case", ["nxn_tu4_lists_nr", "lossless"])
+def test_card_residual_options_encode_equals_cpu(dev, case):
+    """The residual-side options at 416x240 on park: chip_smoke.py phase
+    9a's combination (CRF 24, AQ 2, NxN with TU4, the default scaling
+    lists, NR 200/400; I P B) and --lossless with 2 B-frames: the card
+    gives the CPU's bytes, and the lossless recon is the source."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import encode_sequence
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    frames = _park(416, 240, 3)
+    if case == "lossless":
+        p = lambda: default_params(416, 240, qp=30, bframes=2, b_adapt=0,
+                                   lossless=True)
+    else:
+        p = lambda: default_params(416, 240, rc_mode="crf", crf=24.0,
+                                   aq_mode=2, nxn_intra=True,
+                                   tu_intra_depth=2, scaling_list="default",
+                                   nr_intra=200, nr_inter=400)
+    s_gpu, e_gpu = encode_sequence(p(), frames, dev)
+    s_cpu, _ = encode_sequence(p(), frames, "cpu")
+    assert s_gpu == s_cpu
+    assert [f.slice_type for f in e_gpu] == ["I", "P", "B"]
+    if case == "lossless":
+        for f in e_gpu:
+            for a, b in zip(f.recon, frames[f.disp]):
+                assert np.array_equal(a, b)

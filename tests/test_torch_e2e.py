@@ -47,10 +47,10 @@ def test_port_stream_equals_jax_and_decodes(case):
     (dict(bframes=0, internal_csp=2), "4:2:2"),
     (dict(bframes=0, rc_mode="crf", frame_parallel_window=2),
      "--frame-threads"),
-    (dict(bframes=0, analysis_save="x.dat"), "analysis save/load"),
+    (dict(bframes=0, cutree_share_write="ring"), "cuTree share"),
     (dict(bframes=0, mesh_tile_rows=2), "mesh_tile_rows"),
     (dict(bframes=0, internal_csp=3), "4:4:4"),
-    (dict(bframes=0, lossless=True), "--lossless"),
+    (dict(bframes=0, cutree_share_read="ring"), "cuTree share"),
 ])
 def test_unported_options_raise(kw, name):
     with pytest.raises(NotImplementedError, match=name):

@@ -2,12 +2,12 @@
 (params, bitstream, entropy, rc, constants, frame.zscan, utils.trace,
 the CLI's io and metrics modules, bitstream.hdr10plus, the native C
 entropy engine, the host half of analysis.weightp, the validation
-decoder and the numpy goldens it imports, the SEA search's goldens)
-must stay verbatim:
+decoder and the numpy goldens it imports, the SEA search's goldens,
+the analysis file's writer and reader) must stay verbatim:
 each copy's source equals the reference's once the package name is
 substituted, and so must the host blocks copied into encoder/top.py's
 rewritten methods (the Dolby Vision RPU split, the HDR10+ and HRD
-SEIs).  The native loader is the one module that differs (it
+SEIs, the noise-reduction state, the analysis file handles).  The native loader is the one module that differs (it
 builds under build/ with a per-process temporary name); its bindings
 from get_lib() on are still verbatim.  The port's native engine must
 give the pure-Python engine's bytes.
@@ -128,6 +128,12 @@ def _block(src: str, start: str, end: str) -> str:
      "write_pic_timing(pic_struct=pic_struct))"),
     # the per-picture RPU NAL after the slice
     ("if self._rpus:", "out += self._rpus[min(disp_i"),
+    # the noise-reduction running state
+    ("# DCT-domain noise reduction running state",
+     '"cnt": np.zeros(4, np.int64)}'),
+    # the analysis save/load handles
+    ("self._ana_store = self._ana_load = None",
+     "self._ana_load = AnalysisLoad(self.p.analysis_load)"),
 ])
 def test_encoder_host_blocks_are_verbatim(start, end):
     """Host blocks of encoder/top.py's Encoder that sit inside methods the
@@ -135,6 +141,18 @@ def test_encoder_host_blocks_are_verbatim(start, end):
     rel = "encoder/top.py"
     assert _block(_read(PORT, rel), start, end) == \
         _block(_read(REF, rel), start, end)
+
+
+@pytest.mark.parametrize("name", ["AnalysisStore", "AnalysisLoad"])
+def test_analysis_file_classes_are_verbatim(name):
+    """The analysis file's writer and reader (host code in a module that
+    imports jax) are copied unchanged, with its magic string, so that a
+    file either package writes loads in the other."""
+    rel = "analysis/reuse.py"
+    port, ref = _read(PORT, rel), _read(REF, rel)
+    assert _top_defs(port)[name] == _top_defs(ref)[name]
+    magic = [ln for ln in ref.splitlines() if ln.startswith("MAGIC = ")]
+    assert len(magic) == 1 and magic[0] in port.splitlines()
 
 
 def test_native_engine_equals_python_engine(tmp_path, monkeypatch):

@@ -74,6 +74,7 @@ def test_port_sources_never_import_jax():
                         offenders.append(path)
                 scanned.append(os.path.relpath(path, pkg))
     assert os.path.join("ops", "sea.py") in scanned
+    assert os.path.join("analysis", "reuse.py") in scanned
     assert not offenders, offenders
 
 

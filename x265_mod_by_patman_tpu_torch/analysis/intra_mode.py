@@ -1,12 +1,15 @@
 """Batched intra mode decision (port of the I-path half of
 x265_mod_by_patman_tpu/analysis/intra_mode.py): every block of the frame
 evaluates all 35 modes from original-pixel neighbours; the variable
-CU-tree decision then compares 16- and 32-level transform RD.
+CU-tree decision then compares 16- and 32-level transform RD, and the
+NxN candidate (four 8x8 PUs, optionally split into 4x4 DST TUs) is
+proposed by SATD and confirmed by transform RD.
 
 Device work (the 35-mode SATD sweeps, the TU RD estimates) runs in
 torch on the plane's device; the small host DP stays numpy, as in the
 reference."""
 from __future__ import annotations
+
 
 import numpy as np
 import torch
@@ -148,17 +151,22 @@ def decide_modes_rd(y, sps, qp: int, device, block: int = 16,
 
 
 def decide_modes_tree(y, sps, qp: int, device, nxn: bool = False):
-    """Variable CU-tree intra decision over depths {32, 16}.  Returns
-    (modes16, None, None, split32, mode32, cand16, cbits16)."""
-    if nxn:
-        raise NotImplementedError("NxN intra (--nxn-intra) is not ported")
+    """Variable CU-tree intra decision over depths {32, 16(, 8 NxN)}.
+    Returns (modes16, split_map or None, modes8 or None, split32,
+    mode32, cand16, cbits16)."""
     from .inter_mode import lambda_qp
     h, w = sps.height, sps.width
     nbx, nby = w // 16, h // 16
     n32x, n32y = w // 32, h // 32
     lam = lambda_qp(qp)[0] * (1 << (sps.bit_depth - 8))
-    modes16, cand16, cbits16 = decide_modes_rd(y, sps, qp, device, 16,
-                                               topk=3)
+    if nxn:
+        modes16, split_map, modes8 = decide_modes_split(y, sps, qp, device,
+                                                        16)
+        cand16 = cbits16 = None
+    else:
+        modes16, cand16, cbits16 = decide_modes_rd(y, sps, qp, device, 16,
+                                                   topk=3)
+        split_map = modes8 = None
     orig = dev_i32(y, device)
     avail, bxs, bys = _grid(w, h, 16, sps.log2_ctu_size, device)
     avail32, b32x, b32y = _grid(w, h, 32, sps.log2_ctu_size, device)
@@ -178,7 +186,10 @@ def decide_modes_tree(y, sps, qp: int, device, nxn: bool = False):
     rd32 = _tu_rd_for_modes(
         orig, avail32, b32x, b32y, t(mode32.ravel().astype(np.int32)), qp,
         5, sps.bit_depth).cpu().numpy().reshape(n32y, n32x)
-    chosen_bits16 = cbits16[..., 0]
+    if cbits16 is not None:
+        chosen_bits16 = cbits16[..., 0]
+    else:
+        chosen_bits16 = np.full((nby, nbx), 4.0)
     bits32_chosen = np.take_along_axis(
         bits32, mode32[..., None], axis=-1)[..., 0]
 
@@ -191,4 +202,119 @@ def decide_modes_tree(y, sps, qp: int, device, nxn: bool = False):
     cost32 = rd32 + K * bits32_chosen
     cost16 = q16(rd16) + K * (q16(chosen_bits16) + 22.0)
     split32 = cost32 > cost16
-    return (modes16, None, None, split32, mode32, cand16, cbits16)
+    if split_map is not None:
+        # a 16-block that chose NxN carries TU8/TU4 levels in its slot,
+        # which the unsplit-32 assembly cannot represent
+        nxn_any = (split_map[0:2 * n32y:2, 0:2 * n32x:2]
+                   | split_map[0:2 * n32y:2, 1:2 * n32x:2]
+                   | split_map[1:2 * n32y:2, 0:2 * n32x:2]
+                   | split_map[1:2 * n32y:2, 1:2 * n32x:2])
+        split32 = split32 | nxn_any
+    return (modes16, split_map, modes8, split32, mode32, cand16, cbits16)
+
+
+def _tu4_costs(orig, avail, bx, by, modes, qp, bit_depth: int = 8):
+    """TU8 (DCT) against 4x TU4 (DST) level-units RD per 8x8 sub-PU
+    (original neighbours, a shared 8x8 prediction).  Returns (rd8, rd4)
+    float32 (B,); rd4 excludes the split syntax charge."""
+    s_sub, s_filt, org = _refs_and_org(orig, avail, bx, by, 3, bit_depth)
+    pred = intra_pred_select_batch(s_sub, s_filt, modes, 3, 0, bit_depth)
+    resi = org - pred
+    rd8 = tu_rd_levels(dct_batch(resi, 3, bit_depth), qp, 3, bit_depth)
+    q = resi.reshape(-1, 2, 4, 2, 4).permute(0, 1, 3, 2, 4) \
+        .reshape(-1, 4, 4)
+    r4 = tu_rd_levels(dct_batch(q, 2, bit_depth, dst=True), qp, 2,
+                      bit_depth).reshape(-1, 4)
+    # the reference's 4-term sum runs left to right
+    rd4 = ((r4[:, 0] + r4[:, 1]) + r4[:, 2]) + r4[:, 3]
+    return rd8, rd4
+
+
+def _z4(a):
+    """(2nby, 2nbx) -> (nby, nbx, 4) z-order quadrants."""
+    return np.stack([a[0::2, 0::2], a[0::2, 1::2], a[1::2, 0::2],
+                     a[1::2, 1::2]], axis=-1)
+
+
+def _modes8_flat(modes8: np.ndarray) -> np.ndarray:
+    """(nby, nbx, 4) z-order modes -> (2nby, 2nbx) 8x8 grid."""
+    nby, nbx = modes8.shape[:2]
+    m8 = np.empty((2 * nby, 2 * nbx), np.int32)
+    m8[0::2, 0::2] = modes8[..., 0]
+    m8[0::2, 1::2] = modes8[..., 1]
+    m8[1::2, 0::2] = modes8[..., 2]
+    m8[1::2, 1::2] = modes8[..., 3]
+    return m8
+
+
+def decide_tu4_split(y, sps, qp: int, modes8: np.ndarray,
+                     split_map: np.ndarray, device) -> np.ndarray:
+    """Per-NxN-quad TU4 (DST) split decision (nby, nbx, 4) bool: split an
+    8x8 luma TU into four DST 4x4 TBs when the level-units RD plus the
+    split syntax charge (8 bins) wins."""
+    h, w = sps.height, sps.width
+    nbx, nby = w // 16, h // 16
+    avail8, bx8, by8 = _grid(w, h, 8, sps.log2_ctu_size, device)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    qpt = torch.tensor(qp, dtype=I32, device=device)
+    rd8, rd4 = _tu4_costs(dev_i32(y, device), avail8, bx8, by8,
+                          t(_modes8_flat(modes8).ravel()), qpt,
+                          sps.bit_depth)
+    win = (rd4.cpu().numpy() + 0.134 * 8.0 <
+           rd8.cpu().numpy()).reshape(2 * nby, 2 * nbx)
+    return _z4(win) & split_map[..., None]
+
+
+def decide_modes_split(y, sps, qp: int, device, block: int = 16,
+                       tu4: bool = False):
+    """Mode decision with the NxN (4x 8x8 PU) candidate per block (see
+    the reference): SATD proposes, a level-units RD gate (with the TU4
+    option under tu4) confirms.  Returns (modes (nby, nbx) int32 with
+    PU0's mode on split blocks, split_map (nby, nbx) bool, modes8
+    (nby, nbx, 4) int32)."""
+    from .inter_mode import lambda_qp
+    h, w = sps.height, sps.width
+    nbx, nby = w // block, h // block
+    lam = lambda_qp(qp)[0] * (1 << (sps.bit_depth - 8))
+    modes = decide_modes_rd(y, sps, qp, device, block)
+    orig = dev_i32(y, device)
+    avail8, bx8, by8 = _grid(w, h, 8, sps.log2_ctu_size, device)
+    c8 = _mode_costs(orig, avail8, bx8, by8, 3, sps.bit_depth) \
+        .cpu().numpy().reshape(2 * nby, 2 * nbx, 35)
+    best8 = (c8 + lam * 5.5).min(axis=-1)
+    m8 = c8.argmin(axis=-1).astype(np.int32)
+    sum8 = (best8[0::2, 0::2] + best8[0::2, 1::2] +
+            best8[1::2, 0::2] + best8[1::2, 1::2])
+    modes8 = _z4(m8)
+    avail16, bx16, by16 = _grid(w, h, block, sps.log2_ctu_size, device)
+    c16 = _mode_costs(orig, avail16, bx16, by16, block.bit_length() - 1,
+                      sps.bit_depth).cpu().numpy().reshape(nby, nbx, 35)
+    cost16 = np.take_along_axis(c16, modes[..., None],
+                                axis=-1)[..., 0] + lam * 4.0
+    # NxN extra syntax: part bin + deeper-TU cbf flags ~ 6 bins
+    split = sum8 + lam * 6.0 < cost16
+    if split.any():
+        # RD gate (the reference's _nxn_rd_costs): every SATD-proposed
+        # split must also win in level-units RD, the TU16 of the 2Nx2N
+        # mode against the four TU8s of the NxN modes
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        qpt = torch.tensor(qp, dtype=I32, device=device)
+        m8t = t(m8.ravel())
+        rd16 = _tu_rd_for_modes(orig, avail16, bx16, by16, t(modes.ravel()),
+                                qpt, 4, sps.bit_depth).cpu().numpy() \
+            .reshape(nby, nbx)
+        rd8f = _tu_rd_for_modes(orig, avail8, bx8, by8, m8t, qpt, 3,
+                                sps.bit_depth).cpu().numpy()
+        if tu4:
+            _, rd4f = _tu4_costs(orig, avail8, bx8, by8, m8t, qpt,
+                                 sps.bit_depth)
+            # split charge mirrors decide_tu4_split (8 bins)
+            rd8f = np.minimum(rd8f, rd4f.cpu().numpy() + 0.134 * 8.0)
+        r8 = rd8f.reshape(2 * nby, 2 * nbx)
+        rd8 = (r8[0::2, 0::2] + r8[0::2, 1::2]
+               + r8[1::2, 0::2] + r8[1::2, 1::2])
+        # NxN syntax + model-bias charge, in level units (64 bins)
+        split &= rd8 + 0.134 * 64.0 < rd16
+    out = modes.copy()
+    out[split] = modes8[split][:, 0]
+    return out, split, modes8

@@ -15,13 +15,17 @@ scenecut by the lookahead's cost ratio — in 4:2:0 at 8, 10 or 12 bits,
 under CQP, CRF or ABR with one or two passes, adaptive quantisation
 (modes 1-4), the cuTree lookahead (or, in pass 2, its pass-1 offsets
 played back), zones, a qpfile, a VBV with the row-level re-encode, the
-HRD timing SEIs, HDR10+ metadata and Dolby Vision RPU pass-through.
-Options of the reference outside that scope raise NotImplementedError
-naming the option.  Host-only helpers (slice syntax
+HRD timing SEIs, HDR10+ metadata and Dolby Vision RPU pass-through,
+and the residual-side options: NxN intra PUs with TU4 (DST) splits,
+scaling lists, noise reduction, lossless (transquant bypass) and
+analysis save/load.  Options of the reference outside that scope raise
+NotImplementedError naming the option.  Host-only helpers (slice syntax
 assembly, headers, QP chain, AQ map, zones, stats, TMVP motion store,
-adaptive rate tables) are copied from the reference, since its module
-imports jax, without the rect, NxN, weighted-B and 4:2:2 branches that
-the scope above excludes.  B pictures of a mini-GOP are encoded one
+adaptive rate tables, the NR offsets) are copied from the reference,
+since its module imports jax, without the 4:2:2 branches that the
+scope above excludes; the one exception is `_encode_slice`, copied
+whole, whose 4:2:2 branch (`is422`) and `internal_csp == 1` guards
+are dead until 4:2:2 is ported.  B pictures of a mini-GOP are encoded one
 after another: the reference's frame-parallel B (--frame-threads > 1)
 gives the same bytes under CQP only, so it is rejected under CRF/ABR.
 """
@@ -52,7 +56,9 @@ from ..entropy.contexts import init_states
 from ..entropy.cu_syntax import CodedCU, SliceSyntaxEncoder
 from ..rc.ratecontrol import RateControl, frame_complexity
 from ..utils import trace
-from ..analysis.intra_mode import decide_modes_tree, decide_modes_rd
+from ..analysis.intra_mode import (decide_modes_rd, decide_modes_split,
+                                   decide_modes_tree, decide_tu4_split)
+from ..analysis.reuse import mc_for_b, mc_for_p
 from ..analysis.lookahead import CuTreeLookahead
 from ..analysis.inter_mode import (analyse_b_frame, analyse_p_frame,
                                    lambda_qp)
@@ -115,7 +121,6 @@ def _unsupported(p: EncoderParams) -> List[str]:
     out = []
     checks = (
         (p.mcstf, "--mcstf"),
-        (p.analysis_save or p.analysis_load, "analysis save/load"),
         (p.mesh_tile_rows > 1, "mesh_tile_rows > 1"),
         # the reference's frame-parallel B defers rate-control feedback
         # across the window, which the port's sequential B encode does
@@ -123,9 +128,6 @@ def _unsupported(p: EncoderParams) -> List[str]:
         (p.frame_parallel_window > 1 and p.rc_mode != "cqp",
          "--frame-threads > 1 with CRF/ABR"),
         (p.internal_csp != 1, "4:2:2 / 4:4:4 chroma"),
-        (p.nxn_intra, "--nxn-intra"), (p.lossless, "--lossless"),
-        (p.scaling_list != "off", "--scaling-list"),
-        (p.nr_intra or p.nr_inter, "--nr-intra/--nr-inter"),
         (getattr(p, "cutree_share_write", "") or
          getattr(p, "cutree_share_read", ""), "cuTree share"),
     )
@@ -149,6 +151,9 @@ class Encoder:
         self.pix_dtype = np.uint8 if self.p.internal_bit_depth == 8 \
             else np.uint16
         self.cshift = 1
+        # 4:2:2 is rejected by _unsupported: the is422 branch of the
+        # verbatim _encode_slice stays unreachable until it is ported
+        self.is422 = False
         self.sps = build_sps_info(self.p)
         self.pps = build_pps_info(self.p)
         self.pps.entropy_coding_sync = bool(self.p.wpp)
@@ -159,7 +164,6 @@ class Encoder:
         self._lowres = None           # lowres store, built on first use
         self._la_buf: deque = deque()
         self._ctshare_w = None        # the cuTree share is not ported
-        self._ana_store = None        # analysis save is not ported
         self._ct2pass = None          # pass-2 cuTree offsets playback
         self._ct1_offs = None         # pass-1 offsets to persist
         if (self.p.pass_num == 2 and self.p.cu_tree
@@ -214,6 +218,15 @@ class Encoder:
         self._queue: List[tuple] = []
         self._anchors: List[tuple] = []
         self._col_store: Dict[int, object] = {}
+        # DCT-domain noise reduction running state (x265 --nr-intra/
+        # --nr-inter; quant.h NoiseReduction, frameencoder.cpp:2305
+        # noiseReductionUpdate) — batched deviation: offsets update
+        # once per frame, not per TU (one-frame lag)
+        self._nr = None
+        if self.p.nr_intra or self.p.nr_inter:
+            self._nr = {"sy": np.zeros((2, 256), np.int64),
+                        "sc": np.zeros((2, 64), np.int64),
+                        "cnt": np.zeros(4, np.int64)}
         self.max_refs = max(1, min(self.p.max_num_references, 4))
         method_r = {"dia": 8, "hex": 16, "umh": 24, "sea": 32,
                     "star": 32, "full": 63}
@@ -279,6 +292,13 @@ class Encoder:
         if self.p.dhdr10_info:
             from ..bitstream.hdr10plus import load_dhdr10_json
             self._dhdr10 = load_dhdr10_json(self.p.dhdr10_info)
+        self._ana_store = self._ana_load = None
+        if self.p.analysis_save:
+            from ..analysis.reuse import AnalysisStore
+            self._ana_store = AnalysisStore(self.p.analysis_save)
+        if self.p.analysis_load:
+            from ..analysis.reuse import AnalysisLoad
+            self._ana_load = AnalysisLoad(self.p.analysis_load)
         # Dolby Vision RPU passthrough (reference frameencoder.cpp:1281
         # emits each picture's RPU as an UNSPECIFIED(62) NAL after the
         # slice): the side file is concatenated Annex-B RPU NALs, one
@@ -819,29 +839,51 @@ class Encoder:
         wp_b_l1 = None            # B-slice L1 luma weights
         rect_info = None          # (part_map, mvs_b) when rect PUs used
         intra_cand = None
-        split32 = mode32 = None
         keep_pocs: tuple = ()
         b_is_ref = False
+        disp = self._idr_base + poc
         trace.instant("picture", poc=poc, type=ftype, qp=qp)
+        rec_a = self._ana_load.get(disp, ftype) if self._ana_load else None
+        split_map = modes8 = split32 = mode32 = tu4_map = None
         if ftype == "I":
-            if p.var_cu_tree:
-                (modes, _, _, split32, mode32, cand16,
-                 cbits16) = decide_modes_tree(y, self.sps, qp, dev)
+            if rec_a is not None:
+                modes = rec_a["modes"]
+                split_map = rec_a.get("split_map")
+                modes8 = rec_a.get("modes8")
+                split32 = rec_a.get("split32")
+                mode32 = rec_a.get("mode32")
+            elif p.var_cu_tree:
+                (modes, split_map, modes8, split32, mode32, cand16,
+                 cbits16) = decide_modes_tree(y, self.sps, qp, dev,
+                                              nxn=p.nxn_intra)
                 if cand16 is not None and p.rd_level >= 3:
                     intra_cand = (cand16, cbits16)
-                recon_fn = lambda qpm: recon.run_tree(
-                    y, u, v, modes, split32, mode32, qp=qpm,
-                    cand=intra_cand, materialize=not p.deblock)
+            elif p.nxn_intra:
+                modes, split_map, modes8 = decide_modes_split(
+                    y, self.sps, qp, dev, block=16,
+                    tu4=p.tu_intra_depth >= 2)
+                if p.tu_intra_depth >= 2 and np.any(split_map):
+                    tu4_map = decide_tu4_split(y, self.sps, qp, modes8,
+                                               split_map, dev)
+                    if not tu4_map.any():
+                        tu4_map = None
             else:
-                if p.rd_level >= 3:
+                if p.rd_level >= 3 and not p.lossless:
                     modes, c16_, cb16_ = decide_modes_rd(
                         y, self.sps, qp, dev, block=16, topk=3)
                     intra_cand = (c16_, cb16_)
                 else:
                     modes = decide_modes_rd(y, self.sps, qp, dev, block=16)
+            if split32 is not None:
+                recon_fn = lambda qpm: recon.run_tree(
+                    y, u, v, modes, split32, mode32, qp=qpm,
+                    split_map=split_map, modes8=modes8,
+                    cand=intra_cand, materialize=not p.deblock)
+            else:
                 recon_fn = lambda qpm: recon.run(
-                    y, u, v, modes, qp=qpm, cand=intra_cand,
-                    materialize=not p.deblock)
+                    y, u, v, modes, qp=qpm, split_map=split_map,
+                    modes8=modes8, tu4_map=tu4_map, cand=intra_cand,
+                    nr=self._nr_offsets(), materialize=not p.deblock)
             inter_mask = np.zeros(modes.shape, bool)
             mvs = np.zeros(modes.shape + (2,), np.int32)
             ref_pocs = ((), ())
@@ -855,7 +897,9 @@ class Encoder:
                     cand = [analyse_weightp(y, rf[0]) for rf in refs]
                     wp_l0 = cand if any(c is not None for c in cand) \
                         else None
-                    if wp_l0 is not None:
+                    # analysis-reuse runs stay luma-only, as in the
+                    # reference
+                    if wp_l0 is not None and rec_a is None:
                         wp_chroma = [
                             analyse_weightp_chroma(u, rf[1], v, rf[2])
                             if wp_l0[i] is not None else None
@@ -863,20 +907,31 @@ class Encoder:
                         if not any(c is not None for c in wp_chroma):
                             wp_chroma = None
             rp_p = (tuple(a[1] for a in self._anchors), ())
-            col_a = self._col_store.get(rp_p[0][0]) \
-                if self.sps.temporal_mvp else None
-            with trace.scope("analysis", type="P"):
-                modes, inter_mask, mvs, ref_sel, mc, part_map, mvs_b = \
-                    analyse_p_frame(
-                        y, u, v, refs, self.sps, qp, dev,
-                        search_range=self._me_range, weights=wp_l0,
-                        subme=p.subpel_refine, rect=p.rect, amp=p.amp,
-                        chroma_weights=wp_chroma,
-                        me_sea=p.search_method == "sea", col=col_a,
-                        ref_pocs=rp_p, cur_poc=poc, pad_refs=self.max_refs,
-                        hme=p.hme, rounds=self._rounds_p)
-            if np.any(part_map):
-                rect_info = (part_map, mvs_b)
+            if rec_a is not None:
+                modes = rec_a["modes"]
+                inter_mask = rec_a["inter_mask"]
+                mvs = rec_a["mvs"]
+                ref_sel = rec_a["ref_sel"]
+                mc = mc_for_p(refs, mvs, ref_sel, self.sps, dev, wp_l0)
+            else:
+                # rect PUs are off while saving analysis (the file
+                # carries 2Nx2N motion only)
+                use_rect = p.rect and self._ana_store is None
+                col_a = self._col_store.get(rp_p[0][0]) \
+                    if self.sps.temporal_mvp else None
+                with trace.scope("analysis", type="P"):
+                    modes, inter_mask, mvs, ref_sel, mc, part_map, \
+                        mvs_b = analyse_p_frame(
+                            y, u, v, refs, self.sps, qp, dev,
+                            search_range=self._me_range, weights=wp_l0,
+                            subme=p.subpel_refine, rect=use_rect,
+                            amp=p.amp, chroma_weights=wp_chroma,
+                            me_sea=p.search_method == "sea", col=col_a,
+                            ref_pocs=rp_p, cur_poc=poc,
+                            pad_refs=self.max_refs, hme=p.hme,
+                            rounds=self._rounds_p)
+                if np.any(part_map):
+                    rect_info = (part_map, mvs_b)
             recon_fn = self._inter_recon_fn(
                 y, u, v, modes, mc, inter_mask, 1, mvs, None, None,
                 ref_sel, rect_info,
@@ -886,7 +941,7 @@ class Encoder:
         else:
             (list0, list1, keep_pocs, b_is_ref) = b_refs
             wpb = None
-            if getattr(p, "weightb", False):
+            if getattr(p, "weightb", False) and rec_a is None:
                 from ..analysis.weightp import analyse_weightp
                 c0 = analyse_weightp(y, list0[0][0][0])
                 c1 = analyse_weightp(y, list1[0][0][0])
@@ -900,21 +955,35 @@ class Encoder:
                     list1 = list1[:1]
             rp_b = (tuple(a[1] for a in list0),
                     tuple(a[1] for a in list1))
-            col_b = self._col_store.get(rp_b[0][0]) \
-                if self.sps.temporal_mvp else None
-            with trace.scope("analysis", type="B"):
-                (modes, inter_mask, dirs, mvs, mvs1, ref_sel, ref_sel1,
-                 mc, part_map_b, pu1_b) = analyse_b_frame(
-                    y, u, v, [a[0] for a in list0], [a[0] for a in list1],
-                    self.sps, qp, dev, search_range=self._me_range,
-                    subme=p.subpel_refine, weights_b=wpb, rect=p.rect,
-                    amp=p.amp, me_sea=p.search_method == "sea", col=col_b,
-                    ref_pocs=rp_b, cur_poc=poc,
-                    pad_refs=(self.max_refs, 2 if p.b_pyramid else 1),
-                    hme=p.hme, rounds=self._rounds_b)
-            if np.any(part_map_b):
-                # B rect: (part, PU1 dirs, PU1 mv L0, PU1 mv L1)
-                rect_info = (part_map_b, pu1_b[1], pu1_b[2], pu1_b[0])
+            if rec_a is not None:
+                modes = rec_a["modes"]
+                inter_mask = rec_a["inter_mask"]
+                dirs = rec_a["dirs"]
+                mvs = rec_a["mvs"]
+                mvs1 = rec_a["mvs1"]
+                ref_sel = rec_a.get("ref_sel")
+                ref_sel1 = rec_a.get("ref_sel1")
+                mc = mc_for_b([a[0] for a in list0], [a[0] for a in list1],
+                              dirs, mvs, mvs1, self.sps, dev,
+                              ref_sel0=ref_sel, ref_sel1=ref_sel1)
+            else:
+                use_rect_b = p.rect and self._ana_store is None
+                col_b = self._col_store.get(rp_b[0][0]) \
+                    if self.sps.temporal_mvp else None
+                with trace.scope("analysis", type="B"):
+                    (modes, inter_mask, dirs, mvs, mvs1, ref_sel, ref_sel1,
+                     mc, part_map_b, pu1_b) = analyse_b_frame(
+                        y, u, v, [a[0] for a in list0],
+                        [a[0] for a in list1], self.sps, qp, dev,
+                        search_range=self._me_range, subme=p.subpel_refine,
+                        weights_b=wpb, rect=use_rect_b, amp=p.amp,
+                        me_sea=p.search_method == "sea", col=col_b,
+                        ref_pocs=rp_b, cur_poc=poc,
+                        pad_refs=(self.max_refs, 2 if p.b_pyramid else 1),
+                        hme=p.hme, rounds=self._rounds_b)
+                if np.any(part_map_b):
+                    # B rect: (part, PU1 dirs, PU1 mv L0, PU1 mv L1)
+                    rect_info = (part_map_b, pu1_b[1], pu1_b[2], pu1_b[0])
             recon_fn = self._inter_recon_fn(
                 y, u, v, modes, mc, inter_mask, 0, mvs, mvs1, dirs,
                 ref_sel, rect_info, ref_sel1=ref_sel1,
@@ -951,8 +1020,8 @@ class Encoder:
             dqp_map = self._derived_qp_map(qpm, r, qp)
             with trace.scope("loopfilter", type=ftype):
                 self._deblock(r, inter_mask, mvs, mvs1, dirs, ref_pocs,
-                              dqp_map, recon, ref_sel, split32, rect_info,
-                              ref_sel1=ref_sel1)
+                              dqp_map, recon, ref_sel, split_map, split32,
+                              rect_info, ref_sel1=ref_sel1)
                 self._force_levels(r)
                 sao_maps = self._sao(r, y, u, v, qp) if p.sao else None
             with trace.scope("entropy", type=ftype):
@@ -960,7 +1029,8 @@ class Encoder:
                     ms, inter_mask, mvs, mvs1, dirs, r, ftype, poc, qp,
                     ref_pocs, sao_maps, ref_sel, keep_pocs, qpm, wp_l0,
                     split32, mode32, wp_chroma, nal_unit, rect_info,
-                    ref_sel1=ref_sel1, wp_b_l1=wp_b_l1)
+                    ref_sel1=ref_sel1, wp_b_l1=wp_b_l1,
+                    split_map=split_map, modes8=modes8, tu4_map=tu4_map)
             with trace.scope("recon_fetch", type=ftype):
                 self._finalize_recon(r)
             return r, sao_maps, rbsp
@@ -990,6 +1060,18 @@ class Encoder:
                 with trace.scope("vbv_reencode", type=ftype, retry=retry):
                     r, sao_maps, slice_rbsp = run_pipeline(qp_map)
                 runs += 1
+        self._nr_update(r)
+        if self._ana_store is not None:
+            # saved after the final pipeline run, so the stored modes are
+            # the in-wavefront RD winners the syntax coded
+            self._ana_store.save(
+                disp, ftype,
+                modes=np.asarray(r.get("modes_sel", modes)),
+                inter_mask=inter_mask,
+                mvs=mvs, ref_sel=ref_sel, ref_sel1=ref_sel1,
+                dirs=dirs, mvs1=mvs1,
+                split_map=split_map, modes8=modes8, split32=split32,
+                mode32=mode32)
         with trace.scope("md5"):
             md5 = plane_md5(r["recon_y"], r["recon_u"], r["recon_v"],
                             bit_depth=self.sps.bit_depth)
@@ -1083,6 +1165,42 @@ class Encoder:
                                if k == poc}
         return frame
 
+    def _nr_offsets(self):
+        """Current denoise offsets ((2,256) luma, (2,64) chroma int32,
+        [intra, inter] rows) from the running sums (the
+        noiseReductionUpdate formula; DC never denoised)."""
+        if self._nr is None:
+            return None
+        st = self._nr
+        caps = (1 << 14, 1 << 14, 1 << 16, 1 << 16)   # y-i y-p c-i c-p
+        for ci, cap in enumerate(caps):
+            if st["cnt"][ci] > cap:
+                arr = st["sy"] if ci < 2 else st["sc"]
+                arr[ci & 1] >>= 1
+                st["cnt"][ci] >>= 1
+        out = []
+        for arr, ci0 in ((st["sy"], 0), (st["sc"], 2)):
+            offs = np.zeros_like(arr, np.int32)
+            for j in (0, 1):
+                strength = self.p.nr_intra if j == 0 else self.p.nr_inter
+                cnt = st["cnt"][ci0 + j]
+                val = (strength * cnt + arr[j] // 2) // (arr[j] + 1)
+                offs[j] = val.astype(np.int32)
+                offs[j, 0] = 0                     # keep DC intact
+            out.append(offs)
+        return (out[0], out[1])
+
+    def _nr_update(self, r: dict) -> None:
+        if self._nr is None or "nr_stats" not in r:
+            return
+        ys_i, ys_p, cs_i, cs_p, cnt = [np.asarray(a, np.int64)
+                                       for a in r["nr_stats"]]
+        self._nr["sy"][0] += ys_i
+        self._nr["sy"][1] += ys_p
+        self._nr["sc"][0] += cs_i
+        self._nr["sc"][1] += cs_p
+        self._nr["cnt"] += cnt
+
     def _frame_stats(self, r, inter_mask, mvs, rect_info) -> dict:
         """Per-frame CU/MV/VBV stats (the x265 FrameStats subset the
         --csv-log-level 2 CSV reports, encoder.cpp writeLog)."""
@@ -1158,6 +1276,8 @@ class Encoder:
         r["nz_v"] = nzv.cpu().numpy()
         if "modes_sel" in r:
             r["modes_sel"] = r["modes_sel"].cpu().numpy()
+        if "nr_stats" in r:
+            r["nr_stats"] = tuple(a.cpu().numpy() for a in r["nr_stats"])
 
     def _force_levels(self, r: dict) -> None:
         pend = r.pop("_lev_pend", None)
@@ -1229,7 +1349,8 @@ class Encoder:
         (frame/inter_tu32.py)."""
         recon = self.recon
         i32_mask = None
-        if self.p.var_cu_tree and inter_mask is not None:
+        if (self.p.var_cu_tree and inter_mask is not None
+                and self._nr_offsets() is None):
             from ..frame.inter_tu32 import region_uniform_mask
             part_map = rect_info[0] if rect_info is not None else None
             m = region_uniform_mask(
@@ -1251,20 +1372,20 @@ class Encoder:
             dev_ok = self.p.deblock
             if i32 is None:
                 r = recon.run(y, u, v, modes, mc, inter_mask, qp=qpm,
-                              init_type=init_type, ebits=eb_rows,
-                              materialize=not dev_ok)
+                              init_type=init_type, nr=self._nr_offsets(),
+                              ebits=eb_rows, materialize=not dev_ok)
             else:
                 y2, u2, v2, mc2 = i32["spliced"]
                 r = recon.run(y2, u2, v2, modes, mc2, inter_mask, qp=qpm,
-                              init_type=init_type, ebits=eb_rows,
-                              materialize=not dev_ok)
+                              init_type=init_type, nr=self._nr_offsets(),
+                              ebits=eb_rows, materialize=not dev_ok)
                 r["inter32"] = i32
             return r
         return fn
 
     def _deblock(self, r: dict, inter_mask, mvs, mvs1, dirs, ref_pocs, qp,
-                 recon, ref_sel=None, split32=None, rect_info=None,
-                 ref_sel1=None) -> None:
+                 recon, ref_sel=None, split_map=None, split32=None,
+                 rect_info=None, ref_sel1=None) -> None:
         if not self.p.deblock:
             return
         p = self.p
@@ -1318,12 +1439,12 @@ class Encoder:
                            np.where(part16 > 0, p0, 0),
                            np.zeros_like(p0))
             bs_v, bs_h = inter_bs_maps(~inter_mask, mvs, cbf, w, h, 16,
-                                       dirs_m, mvs1_m, p0, p1, None,
+                                       dirs_m, mvs1_m, p0, p1, split_map,
                                        part_map=part16, pu1=pu1,
                                        tu32_mask=tu32_use)
         else:
             merge32 = ~split32 if split32 is not None else None
-            bs_v, bs_h = intra_bs_maps(w, h, 16, None, merge32)
+            bs_v, bs_h = intra_bs_maps(w, h, 16, split_map, merge32)
         on_v, on_h = chroma_on_maps(bs_v, bs_h, h >> 1, w >> 1, csp=1)
         dev = self.device
         keep_dev = isinstance(r["recon_y"], torch.Tensor)
@@ -1498,7 +1619,8 @@ class Encoder:
                       ftype: str, poc: int, qp: int, ref_pocs, sao_maps,
                       ref_sel, keep_pocs, qp_map, wp_l0, split32, mode32,
                       wp_chroma, nal, rect_info=None, ref_sel1=None,
-                      wp_b_l1=None):
+                      wp_b_l1=None, split_map=None, modes8=None,
+                      tu4_map=None):
         """Slice data of one picture: the rbsp bytes, or one rbsp per
         slice when the picture is cut into several."""
         sps, pps = self.sps, self.pps
@@ -1558,15 +1680,21 @@ class Encoder:
         nbx, nby = rec.nbx, rec.nby
         tree = self.p.var_cu_tree
 
-        # Per-TB nonzero maps, one vectorized reduction each (the coeffs
-        # dicts must only hold nonzero TBs — see CodedCU invariant).
+        # Per-4x4/8x8/TB nonzero maps, one vectorized reduction each
+        # (the coeffs dicts must only hold nonzero TBs — see CodedCU
+        # invariant).
         lvy = np.asarray(r["lev_y"])
         lvu = np.asarray(r["lev_u"])
         lvv = np.asarray(r["lev_v"])
         i32 = r.get("inter32")
-        nz16y = lvy.any((2, 3))
+        nz4y = lvy.reshape(nby, nbx, 4, 4, 4, 4).any((3, 5))
+        nz8y = nz4y.reshape(nby, nbx, 2, 2, 2, 2).any((3, 5))
+        nz16y = nz8y.any((2, 3))
         nzu = lvu.any((2, 3))
         nzv = lvv.any((2, 3))
+        if self.p.internal_csp == 1:
+            nz4u = lvu.reshape(nby, nbx, 2, 4, 2, 4).any((3, 5))
+            nz4v = lvv.reshape(nby, nbx, 2, 4, 2, 4).any((3, 5))
 
         # native fast path: for the common all-intra configuration the
         # whole phase-1 walk (quadtree + CU syntax + residual bins) runs
@@ -1574,7 +1702,9 @@ class Encoder:
         # intra_slice_bins); parity vs the python walker is enforced by
         # tests/test_intra_walker.py
         fast_rows = None
-        if (ftype == "I" and not pps.transquant_bypass
+        if (ftype == "I" and self.p.internal_csp == 1
+                and split_map is None and tu4_map is None
+                and not pps.transquant_bypass
                 and sps.log2_min_cu_size in (3, 4)
                 and (use_wpp or len(self._slice_bands) == 1)):
             fast_rows = self._native_intra_rows(
@@ -1583,20 +1713,24 @@ class Encoder:
 
         def build16(bx, by, tqb):
             x0, y0 = bx * 16, by * 16
-            if inter_mask[by, bx]:
+            if inter_mask is not None and inter_mask[by, bx]:
                 d = 1 if dirs is None else int(dirs[by, bx])
-                rsel = int(ref_sel[by, bx])
+                rsel = int(ref_sel[by, bx]) if ref_sel is not None else 0
+                rsel1 = int(ref_sel1[by, bx]) \
+                    if ref_sel1 is not None else 0
                 pm = 0
                 if rect_info is not None:
                     pm = int(rect_info[0][by, bx])
                 cu = CodedCU(
                     x0, y0, 4, (1,), 4, {}, is_inter=True,
-                    mv=(int(mvs[by, bx, 0]), int(mvs[by, bx, 1])),
-                    ref_idx=rsel, inter_dir=d,
-                    mv1=(0, 0) if mvs1 is None else
-                    (int(mvs1[by, bx, 0]), int(mvs1[by, bx, 1])),
-                    ref_idx1=0 if ref_sel1 is None
-                    else int(ref_sel1[by, bx]), part_mode=pm)
+                    mv=(int(mvs[by, bx, 0]),
+                        int(mvs[by, bx, 1])),
+                    ref_idx=rsel,
+                    inter_dir=d,
+                    mv1=(int(mvs1[by, bx, 0]),
+                         int(mvs1[by, bx, 1]))
+                    if mvs1 is not None else (0, 0),
+                    ref_idx1=rsel1, part_mode=pm)
                 if pm:
                     cu.mv_b = (int(rect_info[1][by, bx, 0]),
                                int(rect_info[1][by, bx, 1]))
@@ -1609,15 +1743,59 @@ class Encoder:
                         cu.ref_idx1_b = 0
                     else:
                         cu.inter_dir_b = d
+            elif split_map is not None and split_map[by, bx]:
+                # NxN intra: 4 PUs + forced TU8 split; the luma
+                # level store holds the 4 TU8s as quadrants (or, with
+                # a voluntary TU4 split, four 4x4 DST TBs as
+                # sub-quadrants)
+                cu = CodedCU(x0, y0, 4,
+                             tuple(int(m) for m in modes8[by, bx]), 4)
+                if tu4_map is not None:
+                    cu.tu_split8 = tuple(bool(t)
+                                         for t in tu4_map[by, bx])
+                lvq = lvy[by, bx]
+                for k, (dx8, dy8) in enumerate(
+                        ((0, 0), (8, 0), (0, 8), (8, 8))):
+                    sub = lvq[dy8:dy8 + 8, dx8:dx8 + 8]
+                    if cu.tu_split8 is not None and cu.tu_split8[k]:
+                        for (dx4, dy4) in ((0, 0), (4, 0), (0, 4),
+                                           (4, 4)):
+                            if nz4y[by, bx, (dy8 + dy4) >> 2,
+                                    (dx8 + dx4) >> 2]:
+                                cu.coeffs[(0, x0 + dx8 + dx4,
+                                           y0 + dy8 + dy4, 2)] = \
+                                    sub[dy4:dy4 + 4, dx4:dx4 + 4]
+                    elif nz8y[by, bx, dy8 >> 3, dx8 >> 3]:
+                        cu.coeffs[(0, x0 + dx8, y0 + dy8, 3)] = sub
+                for c_idx, lvc_f, nz4c in ((1, lvu, nz4u),
+                                           (2, lvv, nz4v)):
+                    lvc = lvc_f[by, bx]
+                    cx0, cy0 = x0 >> 1, y0 >> 1
+                    for (dx4, dy4) in ((0, 0), (4, 0), (0, 4), (4, 4)):
+                        if nz4c[by, bx, dy4 >> 2, dx4 >> 2]:
+                            cu.coeffs[(c_idx, cx0 + dx4, cy0 + dy4, 2)] \
+                                = lvc[dy4:dy4 + 4, dx4:dx4 + 4]
+                cu.tq_bypass = tqb
+                return cu
             else:
                 cu = CodedCU(x0, y0, 4, (int(modes[by, bx]),), 4)
-            for c_idx, lvc, nzc, clog2 in ((0, lvy, nz16y, 4),
-                                           (1, lvu, nzu, 3),
-                                           (2, lvv, nzv, 3)):
-                if nzc[by, bx]:
-                    sh_c = 1 if c_idx else 0
-                    cu.coeffs[(c_idx, x0 >> sh_c, y0 >> sh_c, clog2)] = \
-                        lvc[by, bx]
+            if self.is422:
+                if nz16y[by, bx]:
+                    cu.coeffs[(0, x0, y0, 4)] = lvy[by, bx]
+                for c_idx, lvc, nzc in ((1, lvu, nzu), (2, lvv, nzv)):
+                    for j in (0, 1):
+                        if nzc[2 * by + j, bx]:
+                            cu.coeffs[(c_idx, x0 >> 1, y0 + 8 * j, 3)] \
+                                = lvc[2 * by + j, bx]
+            else:
+                for c_idx, lvc, nzc, clog2 in (
+                        (0, lvy, nz16y, 4),
+                        (1, lvu, nzu, 4 - self.cshift),
+                        (2, lvv, nzv, 4 - self.cshift)):
+                    if nzc[by, bx]:
+                        cx0 = x0 >> (self.cshift if c_idx else 0)
+                        cy0 = y0 >> (self.cshift if c_idx else 0)
+                        cu.coeffs[(c_idx, cx0, cy0, clog2)] = lvc[by, bx]
             cu.tq_bypass = tqb
             return cu
 
@@ -1652,7 +1830,7 @@ class Encoder:
             # merge 4 identical-motion inter CUs into one 32x32 CU
             # (TU16 residual quads; with log2_max_tu 5 this needs the
             # voluntary TU split)
-            if (full and len(cus) == 4 and
+            if (self.p.internal_csp == 1 and full and len(cus) == 4 and
                     all(c.is_inter and c.part_mode == 0 for c in cus) and
                     len({_motion_key(c) for c in cus}) == 1):
                 c0 = cus[0]
@@ -1688,7 +1866,7 @@ class Encoder:
             # merge 4 same-mode intra CUs into one 32x32 intra CU
             # (legacy max_tu=16 forced-split form; superseded by true
             # TU32 CUs in tree mode)
-            if (not tree and full and
+            if (not tree and self.p.internal_csp == 1 and full and
                     len(cus) == 4 and
                     all((not c.is_inter) and not c.part_nxn
                         for c in cus) and

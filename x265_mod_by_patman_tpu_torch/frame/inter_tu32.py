@@ -23,21 +23,23 @@ I32 = torch.int32
 
 def _plane_rd(org, pred, qp_b, log2n: int, c_idx: int, bd: int,
               sign_hide: bool, rdoq: bool, init_type: int, psy256,
-              psy_rdoq, ebits=None):
+              psy_rdoq, qmats=None, dmats=None, ebits=None):
     """Residual-code one TB per batch row with the wavefront's machinery
     and the per-plane zero-residual RD test; returns (lev, recon, cost)
-    with cost = min(coded, zero) in SSE + lam2*bits units."""
+    with cost = min(coded, zero) in SSE + lam2*bits units.  qmats/dmats:
+    scaling-list quant/raw matrices of this TB size (None: flat)."""
     maxval = (1 << bd) - 1
     imask = torch.zeros(org.shape[:1], dtype=torch.bool, device=org.device)
     coef = dct_batch(org - pred, log2n, bd)
     if rdoq:
         lev = rdoq_levels(coef, imask, qp_b, log2n, bd, c_idx, init_type,
-                          psy_rdoq=psy_rdoq, bits_table=ebits)
+                          psy_rdoq=psy_rdoq, qmats=qmats, rawmats=dmats,
+                          bits_table=ebits)
     else:
-        lev = quant_dyn(coef, imask, qp_b, log2n, bd)
+        lev = quant_dyn(coef, imask, qp_b, log2n, bd, qmats)
     if sign_hide:
         lev = sbh_adjust(lev, coef, imask, qp_b, log2n, bd)
-    deq0 = dequant_dyn(lev, qp_b, log2n, bd, None, imask)
+    deq0 = dequant_dyn(lev, qp_b, log2n, bd, dmats, imask)
     rec0 = torch.clip(pred + idct_batch(deq0, log2n, bd), 0, maxval)
     sse_coded = ((org - rec0) ** 2).sum((1, 2), dtype=I32)
     sse_skip = ((org - pred) ** 2).sum((1, 2), dtype=I32)
@@ -66,10 +68,14 @@ def _plane_rd(org, pred, qp_b, log2n: int, c_idx: int, bd: int,
 
 def _tu32_core(oy32, py32, ou16, pu16, ov16, pv16, qp_y, qp_cb, qp_cr,
                init_type: int, psy256, psy_rdoq, bd: int, sign_hide: bool,
-               rdoq: bool, ebits=None):
-    """(R,32,32)/(R,16,16) region stacks -> TU32 coding + use32 RD pick."""
+               rdoq: bool, mats32=None, ebits=None):
+    """(R,32,32)/(R,16,16) region stacks -> TU32 coding + use32 RD pick.
+    mats32: (qm_y, dm_y, qm_c, dm_c) scaling-list tables of the TU32
+    luma / TU16 chroma, or None."""
+    qm_l, dm_l, qm_c, dm_c = mats32 if mats32 is not None else (None,) * 4
     levy, recy, cost32 = _plane_rd(oy32, py32, qp_y, 5, 0, bd, sign_hide,
-                                   rdoq, init_type, psy256, psy_rdoq, ebits)
+                                   rdoq, init_type, psy256, psy_rdoq, qm_l,
+                                   dm_l, ebits)
 
     def quads(a):
         r = a.shape[0]
@@ -84,9 +90,11 @@ def _tu32_core(oy32, py32, ou16, pu16, ov16, pv16, qp_y, qp_cb, qp_cr,
     lam2 = lam2_f32(qp_y, bd)
     use32 = cost32 <= cost16 + lam2 * 3.0
     levu, recu, _ = _plane_rd(ou16, pu16, qp_cb, 4, 1, bd, sign_hide, rdoq,
-                              init_type, psy256, psy_rdoq, ebits)
+                              init_type, psy256, psy_rdoq, qm_c, dm_c,
+                              ebits)
     levv, recv, _ = _plane_rd(ov16, pv16, qp_cr, 4, 2, bd, sign_hide, rdoq,
-                              init_type, psy256, psy_rdoq, ebits)
+                              init_type, psy256, psy_rdoq, qm_c, dm_c,
+                              ebits)
     nz = lambda a: (a != 0).any(2).any(1)
     return (use32, levy, recy, nz(levy), levu, recu, nz(levu), levv, recv,
             nz(levv))
@@ -175,7 +183,7 @@ def prepare_inter_tu32(y, u, v, mc, region_mask, qp_map, recon,
         t(qp_cb16[2 * ys, 2 * xs].astype(np.int32)),
         t(qp_cr16[2 * ys, 2 * xs].astype(np.int32)), int(init_type),
         recon.psy256, recon.psy_rdoq, recon.bd, recon.sign_hide,
-        recon.rdoq, None if ebits is None else
+        recon.rdoq, recon.mats32, None if ebits is None else
         t(np.asarray(ebits, np.float32)))
     (use32, levy, recy, nzy, levu, recu, nzu, levv, recv,
      nzv) = (a.cpu().numpy() for a in out)

@@ -16,13 +16,15 @@ import numpy as np
 import torch
 
 from ..constants.hevc_tables import CHROMA_QP_TABLE
+from ..constants.scaling import (default_matrix, list_matrix,
+                                 quant_mats_custom)
 from ..ops.cost import psy_cost_batch, psy_weight
 from ..ops.intra import (block_index, gather_ref_samples,
                          intra_pred_select_batch, substitute_filter_batch)
 from ..ops.numeric import flog2, fsum, lam2_f32
 from ..ops.rdoq import rdoq_levels, tb_bits_est
 from ..ops.transform import (dct_batch, dequant_dyn, idct_batch, quant_dyn,
-                             sbh_adjust)
+                             quant_mats, sbh_adjust)
 from .planes import dev_i32
 from .zscan import ctu_wavefront_order, frame_avail_masks
 
@@ -38,14 +40,34 @@ def chroma_qp(qp: int, offset: int = 0, csp: int = 1) -> int:
     return int(min(max(qp + offset, 0), 51))
 
 
+def _scan_sel_of(modes):
+    """Mode-dependent scan id per lane (spec 7.4.9.11 for 4x4 and 8x8
+    luma intra TBs): modes 6..14 -> vertical scan (2), 22..30 ->
+    horizontal (1), else diagonal (0)."""
+    return torch.where((modes >= 6) & (modes <= 14), 2,
+                       torch.where((modes >= 22) & (modes <= 30), 1, 0)) \
+        .to(I32)
+
+
 def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
                   qp, c_idx: int, bit_depth: int = 8, mc_pred=None,
                   inter_mask=None, sign_hide: bool = False,
                   rdoq: bool = False, init_type=None, psy256=None,
-                  psy_rdoq=None, cand_bits=None, ebits=None):
+                  psy_rdoq=None, cand_bits=None, ebits=None, qmats=None,
+                  dmats=None, split_map=None, modes8=None, av8=None,
+                  m8=(None, None), lossless: bool = False, tu4_map=None,
+                  av4y=None, nr=None, m4=(None, None)):
     """One wavefront substep for one component, updating `plane` and
-    `levels` in place.  Returns (skip (B,) or None, chosen modes or
-    None)."""
+    `levels` in place.
+
+    qmats/dmats: scaling-list quant/raw matrices of this TB size (None:
+    flat); split_map/modes8/av8: NxN intra (the block is four z-order
+    sub-TUs, luma 8x8 / chroma 4x4, each predicted from the partly
+    reconstructed plane), m8 the sub-TU matrices; tu4_map/av4y: the
+    voluntary TU4 (DST) split of each 8x8 luma sub-TU, m4 its 4x4
+    matrices; lossless: transquant bypass; nr: ((n*n,) intra, (n*n,)
+    inter) noise-reduction offsets.  Returns (skip (B,) or None, chosen modes or None, this
+    substep's NR sums or None)."""
     n = 1 << log2n
     maxval = (1 << bit_depth) - 1
     hp, wp = plane.shape
@@ -56,6 +78,7 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
                                             avail, log2n, bit_depth)
     ogy, ogx = block_index(x0, y0, n, orig.shape[0], orig.shape[1])
     org = orig[ogy, ogx].to(I32)
+    gy, gx = block_index(x0, y0, n, hp, 1 << 30)
 
     md_sel = None
     if cand_bits is not None:
@@ -68,8 +91,8 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
             pred_k = intra_pred_select_batch(s_sub, s_filt, md_k, log2n,
                                              c_idx, bit_depth)
             coef_k = dct_batch(org - pred_k, log2n, bit_depth)
-            lev_k = quant_dyn(coef_k, ones, qp, log2n, bit_depth)
-            deq_k = dequant_dyn(lev_k, qp, log2n, bit_depth, None, ones)
+            lev_k = quant_dyn(coef_k, ones, qp, log2n, bit_depth, qmats)
+            deq_k = dequant_dyn(lev_k, qp, log2n, bit_depth, dmats, ones)
             rec_k = torch.clip(pred_k + idct_batch(deq_k, log2n, bit_depth),
                                0, maxval)
             sse = ((org - rec_k) ** 2).sum((1, 2), dtype=I32).to(F32)
@@ -96,19 +119,49 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
     else:
         intra_mask = torch.ones(bx.shape, dtype=torch.bool, device=dev)
     resi = org - pred
+    if lossless:
+        # transquant bypass (spec 8.6.1): the residual samples are the
+        # coded coefficients and the reconstruction is exact
+        lev = resi
+        skip = None
+        if mc_pred is not None:
+            skip = (~intra_mask) & (torch.abs(resi).sum((1, 2),
+                                                        dtype=I32) == 0)
+            lev = torch.where(skip[:, None, None], 0, lev)
+        plane[gy, gx] = org
+        levels[by.long(), bx.long()] = lev
+        return skip, md_sel, None
     coef = dct_batch(resi, log2n, bit_depth)
+    nr_out = None
+    if nr is not None:
+        # noise reduction: this substep's per-position |coef| sums (the
+        # next picture's offsets) and the offsets subtracted from |coef|
+        off_i, off_p = nr
+        ac = torch.abs(coef)
+        acf = ac.reshape(ac.shape[0], -1)
+        lane_ok = (by < levels.shape[0] - 1).to(I32)
+        im = intra_mask.to(I32)
+        imask_f = (im * lane_ok)[:, None]
+        pmask_f = ((1 - im) * lane_ok)[:, None]
+        nr_out = ((acf * imask_f).sum(0, dtype=I32),
+                  (acf * pmask_f).sum(0, dtype=I32),
+                  imask_f.sum(dtype=I32), pmask_f.sum(dtype=I32))
+        off = torch.where(intra_mask[:, None], off_i[None, :],
+                          off_p[None, :]).reshape(ac.shape)
+        coef = torch.sign(coef) * torch.clamp(ac - off, min=0)
     if rdoq:
         lev = rdoq_levels(coef, intra_mask, qp, log2n, bit_depth, c_idx,
-                          init_type, psy_rdoq=psy_rdoq, bits_table=ebits)
+                          init_type, psy_rdoq=psy_rdoq, qmats=qmats,
+                          rawmats=dmats, bits_table=ebits)
     else:
-        lev = quant_dyn(coef, intra_mask, qp, log2n, bit_depth)
+        lev = quant_dyn(coef, intra_mask, qp, log2n, bit_depth, qmats)
     if sign_hide:
         lev = sbh_adjust(lev, coef, intra_mask, qp, log2n, bit_depth)
 
     skip = None
     if mc_pred is not None:
         # inter zero-residual RD test, per component (see the reference)
-        deq0 = dequant_dyn(lev, qp, log2n, bit_depth, None, intra_mask)
+        deq0 = dequant_dyn(lev, qp, log2n, bit_depth, dmats, intra_mask)
         rec0 = torch.clip(pred + idct_batch(deq0, log2n, bit_depth), 0,
                           maxval)
         sse_coded = ((org - rec0) ** 2).sum((1, 2), dtype=I32)
@@ -137,20 +190,106 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
                 psy_cost_batch(org, rec0).to(F32)
         skip = (~intra_mask) & (cost_skip <= cost_coded)
         lev = torch.where(skip[:, None, None], 0, lev)
-    deq = dequant_dyn(lev, qp, log2n, bit_depth, None, intra_mask)
+    deq = dequant_dyn(lev, qp, log2n, bit_depth, dmats, intra_mask)
     recon = torch.clip(pred + idct_batch(deq, log2n, bit_depth), 0, maxval)
-    gy, gx = block_index(x0, y0, n, hp, 1 << 30)
+
+    if split_map is not None:
+        recon, lev = _nxn_split(plane, orig, bx, by, x0, y0, modes, n,
+                                log2n, qp, c_idx, bit_depth, sign_hide,
+                                rdoq, init_type, psy_rdoq,
+                                split_map[by.long(), bx.long()] & intra_mask,
+                                modes8, av8, m8, tu4_map, av4y, m4, recon,
+                                lev, levels.shape)
     plane[gy, gx] = recon
     levels[by.long(), bx.long()] = lev
-    return skip, md_sel
+    return skip, md_sel, nr_out
+
+
+def _sub_tb(plane, orig, x0, y0, md, avail, log2n: int, qp, c_idx: int,
+            bit_depth: int, sign_hide: bool, rdoq: bool, init_type, qm, dm,
+            psy_rdoq=None, dst: bool = False):
+    """Predict one sub-TU per lane from the current plane (no write) and
+    code it: returns (rec, lev, gy, gx)."""
+    n = 1 << log2n
+    hp = plane.shape[0]
+    ones = torch.ones(x0.shape, dtype=torch.bool, device=plane.device)
+    ss, sf = substitute_filter_batch(gather_ref_samples(plane, x0, y0, n),
+                                     avail, log2n, bit_depth)
+    pred = intra_pred_select_batch(ss, sf, md, log2n, c_idx, bit_depth)
+    ogy, ogx = block_index(x0, y0, n, orig.shape[0], orig.shape[1])
+    coef = dct_batch(orig[ogy, ogx].to(I32) - pred, log2n, bit_depth, dst=dst)
+    if rdoq:
+        lv = rdoq_levels(coef, ones, qp, log2n, bit_depth, c_idx, init_type,
+                         psy_rdoq=psy_rdoq, qmats=qm, rawmats=dm)
+    else:
+        lv = quant_dyn(coef, ones, qp, log2n, bit_depth, qm)
+    if sign_hide:
+        # 4x4 and 8x8 luma scans are mode-dependent: the hidden-sign
+        # parity must follow the real scan
+        lv = sbh_adjust(lv, coef, ones, qp, log2n, bit_depth,
+                        scan_sel=_scan_sel_of(md))
+    deq = dequant_dyn(lv, qp, log2n, bit_depth, dm, ones)
+    rec = torch.clip(pred + idct_batch(deq, log2n, bit_depth, dst=dst), 0,
+                     (1 << bit_depth) - 1)
+    gy, gx = block_index(x0, y0, n, hp, 1 << 30)
+    return rec, lv, gy, gx
+
+
+_Z4 = ((0, 0), (1, 0), (0, 1), (1, 1))       # z-order (dx, dy) quadrants
+
+
+def _nxn_split(plane, orig, bx, by, x0, y0, modes, n: int, log2n: int, qp,
+               c_idx: int, bit_depth: int, sign_hide: bool, rdoq: bool,
+               init_type, psy_rdoq, split, modes8, av8, m8, tu4_map, av4y,
+               m4, recon, lev, lshape):
+    """The NxN path of a substep (see the reference's _substep_body):
+    the four z-order sub-TUs run one after another, each written into
+    the plane where `split` holds so the next one predicts from it;
+    luma 8x8 sub-TUs may split again into four 4x4 DST TUs (tu4_map).
+    Returns the block's (recon, levels) with the split lanes' values."""
+    ns = n // 2
+    l2s = log2n - 1
+    byc = torch.clip(by, 0, lshape[0] - 2).long()
+    bxc = torch.clip(bx, 0, lshape[1] - 1).long()
+    lev8 = torch.zeros_like(lev)
+    for k, (dxs, dys) in enumerate(_Z4):
+        x8 = x0 + dxs * ns
+        y8 = y0 + dys * ns
+        md8 = modes8[byc, bxc, k] if c_idx == 0 else modes
+        rec8, lv8, gy8, gx8 = _sub_tb(plane, orig, x8, y8, md8, av8[:, k],
+                                      l2s, qp, c_idx, bit_depth, sign_hide,
+                                      rdoq, init_type, m8[0], m8[1])
+        keep = plane[gy8, gx8]
+        if c_idx == 0 and tu4_map is not None:
+            t4 = tu4_map[byc, bxc, k] & split
+            plane[gy8, gx8] = torch.where((split & ~t4)[:, None, None], rec8,
+                                          keep)
+            lev4 = torch.zeros_like(lv8)
+            for j, (dxq, dyq) in enumerate(_Z4):
+                rec4, lv4, gy4, gx4 = _sub_tb(
+                    plane, orig, x8 + dxq * 4, y8 + dyq * 4, md8,
+                    av4y[:, k, j], 2, qp, 0, bit_depth, sign_hide, rdoq,
+                    init_type, m4[0], m4[1], psy_rdoq=psy_rdoq, dst=True)
+                keep4 = plane[gy4, gx4]
+                plane[gy4, gx4] = torch.where(t4[:, None, None], rec4, keep4)
+                lev4[:, dyq * 4:dyq * 4 + 4, dxq * 4:dxq * 4 + 4] = lv4
+            lv8 = torch.where(t4[:, None, None], lev4, lv8)
+        else:
+            plane[gy8, gx8] = torch.where(split[:, None, None], rec8, keep)
+        lev8[:, dys * ns:dys * ns + ns, dxs * ns:dxs * ns + ns] = lv8
+    gy, gx = block_index(x0, y0, n, plane.shape[0], 1 << 30)
+    sp = split[:, None, None]
+    return (torch.where(sp, plane[gy, gx], recon),
+            torch.where(sp, lev8, lev))
 
 
 def _intra_tb_whole(plane, orig, x0, y0, modes, avail, log2n: int, qp,
                     c_idx: int, bit_depth: int, sign_hide: bool, rdoq: bool,
-                    strong: bool, init_type=None, psy_rdoq=None):
+                    qm, dm, strong: bool, init_type=None, psy_rdoq=None):
     """Whole-TB intra predict + transform + recon for (B,) lanes at pixel
-    coords (x0, y0); does not write the plane.  Returns
-    (rec, lev, gy, gx)."""
+    coords (x0, y0); does not write the plane.  qm/dm: scaling-list
+    matrices for the flat quantizer and the dequantizer (RDOQ runs
+    without them, as in the reference).  Returns (rec, lev, gy, gx)."""
     n = 1 << log2n
     maxval = (1 << bit_depth) - 1
     hp, wp = plane.shape
@@ -170,24 +309,32 @@ def _intra_tb_whole(plane, orig, x0, y0, modes, avail, log2n: int, qp,
         lev = rdoq_levels(coef, ones, qp, log2n, bit_depth, c_idx,
                           init_type, psy_rdoq=psy_rdoq)
     else:
-        lev = quant_dyn(coef, ones, qp, log2n, bit_depth)
+        lev = quant_dyn(coef, ones, qp, log2n, bit_depth, qm)
     if sign_hide:
         lev = sbh_adjust(lev, coef, ones, qp, log2n, bit_depth)
-    deq = dequant_dyn(lev, qp, log2n, bit_depth, None, ones)
+    deq = dequant_dyn(lev, qp, log2n, bit_depth, dm, ones)
     rec = torch.clip(pred + idct_batch(deq, log2n, bit_depth), 0, maxval)
     gy, gx = block_index(x0, y0, n, hp, 1 << 30)
     return rec, lev, gy, gx
+
+
+def _mats_or_none(mats, k: int = 4):
+    return mats if mats is not None else (None,) * k
 
 
 def _wavefront_tree(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes,
                     sched, split32, mode32, qp, qp_cb, qp_cr,
                     bit_depth: int, sign_hide: bool, rdoq: bool,
                     strong: bool, init_type: int, psy_rdoq, cand16,
-                    cbits16):
+                    cbits16, mats=None, mats32=None, split_map=None,
+                    modes8=None, mats_nxn=None):
     """Variable CU-tree intra wavefront (see the reference's
     _wavefront_tree_body): each step runs the four z-ordered 16x16
-    substeps and the whole-region 32x32 CU, committing per split32.
-    Returns the luma mode map (with a dump row)."""
+    substeps (with their NxN splits) and the whole-region 32x32 CU,
+    committing per split32.  mats/mats32: (qm_y, dm_y, qm_c, dm_c)
+    scaling-list tables of the 16/8 and 32/16 TBs, mats_nxn those of
+    the NxN sub-TUs (IntraReconstructor._build_mats).  Returns the luma
+    mode map (with a dump row)."""
     nby = lev_y.shape[0] - 1
     nbx = lev_y.shape[1]
     n32y, n32x = split32.shape
@@ -195,6 +342,9 @@ def _wavefront_tree(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes,
                                           device=modes.device)], 0)
     t_bx, t_by, t_avy, t_avc = sched["bx"], sched["by"], sched["avy"], \
         sched["avc"]
+    qm_y, dm_y, qm_c, dm_c = _mats_or_none(mats)
+    q8y, d8y, q4y, d4y, q4c, d4c = _mats_or_none(mats_nxn, 6)
+    nxn = dict(split_map=split_map, modes8=modes8)
     for s in range(t_bx.shape[0]):
         for z in range(4):
             bx = t_bx[s, z]
@@ -203,25 +353,31 @@ def _wavefront_tree(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes,
             cx = torch.clip(bx, 0, qp.shape[1] - 1).long()
             byc = torch.clip(by, 0, nby - 1).long()
             bxc = torch.clip(bx, 0, nbx - 1).long()
+            av8 = sched["av8"][s, z] if split_map is not None else None
+            av4c = sched["av4c"][s, z] if split_map is not None else None
             if cand16 is not None:
-                _, md_w = _substep_body(
+                _, md_w, _ = _substep_body(
                     yp, lev_y, oy, bx, by, cand16[byc, bxc], t_avy[s, z], 4,
                     qp[cy, cx], 0, bit_depth, sign_hide=sign_hide,
                     rdoq=rdoq, init_type=init_type, psy_rdoq=psy_rdoq,
-                    cand_bits=cbits16[byc, bxc])
+                    cand_bits=cbits16[byc, bxc], qmats=qm_y, dmats=dm_y,
+                    av8=av8, m8=(q8y, d8y), **nxn)
                 m_map[by.long(), bx.long()] = md_w
             md = m_map[byc, bxc]
             if cand16 is None:
                 _substep_body(yp, lev_y, oy, bx, by, md, t_avy[s, z], 4,
                               qp[cy, cx], 0, bit_depth,
                               sign_hide=sign_hide, rdoq=rdoq,
-                              init_type=init_type, psy_rdoq=psy_rdoq)
-            _substep_body(up, lev_u, ou, bx, by, md, t_avc[s, z], 3,
-                          qp_cb[cy, cx], 1, bit_depth, sign_hide=sign_hide,
-                          rdoq=rdoq, init_type=init_type)
-            _substep_body(vp, lev_v, ov, bx, by, md, t_avc[s, z], 3,
-                          qp_cr[cy, cx], 2, bit_depth, sign_hide=sign_hide,
-                          rdoq=rdoq, init_type=init_type)
+                              init_type=init_type, psy_rdoq=psy_rdoq,
+                              qmats=qm_y, dmats=dm_y, av8=av8,
+                              m8=(q8y, d8y), **nxn)
+            for (cpl, lev_c, opl, qpc, ci) in ((up, lev_u, ou, qp_cb, 1),
+                                               (vp, lev_v, ov, qp_cr, 2)):
+                _substep_body(cpl, lev_c, opl, bx, by, md, t_avc[s, z], 3,
+                              qpc[cy, cx], ci, bit_depth,
+                              sign_hide=sign_hide, rdoq=rdoq,
+                              init_type=init_type, qmats=qm_c, dmats=dm_c,
+                              av8=av4c, m8=(q4c, d4c), **nxn)
 
         # whole-region 32x32 CU path
         px = sched["px"][s]
@@ -233,9 +389,10 @@ def _wavefront_tree(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes,
         md32 = mode32[r32y, r32x]
         cy = torch.clip(py >> 4, 0, qp.shape[0] - 1).long()
         cx = torch.clip(px >> 4, 0, qp.shape[1] - 1).long()
+        q32y, d32y, q32c, d32c = _mats_or_none(mats32)
         rec32, lv32, gy, gx = _intra_tb_whole(
             yp, oy, px, py, md32, sched["ravy"][s], 5, qp[cy, cx], 0,
-            bit_depth, sign_hide, rdoq, strong, init_type,
+            bit_depth, sign_hide, rdoq, q32y, d32y, strong, init_type,
             psy_rdoq=psy_rdoq)
         cur = yp[gy, gx]
         yp[gy, gx] = torch.where(commit[:, None, None], rec32, cur)
@@ -243,8 +400,8 @@ def _wavefront_tree(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes,
                                            (vp, lev_v, ov, qp_cr, 2)):
             recc, lvc, gyc, gxc = _intra_tb_whole(
                 cpl, opl, px >> 1, py >> 1, md32, sched["ravc"][s], 4,
-                qpc[cy, cx], mi, bit_depth, sign_hide, rdoq, False,
-                init_type)
+                qpc[cy, cx], mi, bit_depth, sign_hide, rdoq, q32c, d32c,
+                False, init_type)
             curc = cpl[gyc, gxc]
             cpl[gyc, gxc] = torch.where(commit[:, None, None], recc, curc)
             _store_quads(lev_c, lvc, px, py, valid, commit, nby, 8)
@@ -262,12 +419,33 @@ def _store_quads(lev, lv, px, py, valid, commit, nby: int, q: int):
         lev[bq_y, bq_x] = torch.where(commit[:, None, None], part, curl)
 
 
+def _nr_add(acc, out, luma: bool):
+    """Add one substep's NR sums to the frame's int32 accumulators
+    (ys_i, ys_p, cs_i, cs_p, counts)."""
+    si, sp, ci, cp = out
+    ys_i, ys_p, cs_i, cs_p, cnt = acc
+    z = torch.zeros((), dtype=I32, device=cnt.device)
+    if luma:
+        return (ys_i + si, ys_p + sp, cs_i, cs_p,
+                cnt + torch.stack([ci, cp, z, z]))
+    return (ys_i, ys_p, cs_i + si, cs_p + sp,
+            cnt + torch.stack([z, z, ci, cp]))
+
+
 def _wavefront(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes, sched,
                mc_y, mc_u, mc_v, inter_mask, qp, qp_cb, qp_cr,
                bit_depth: int, sign_hide: bool, rdoq: bool, init_type: int,
-               psy256, psy_rdoq, clog2: int, cand16, cbits16, ebits):
+               psy256, psy_rdoq, clog2: int, cand16, cbits16, ebits,
+               mats=None, split_map=None, modes8=None,
+               lossless: bool = False, tu4_map=None, nr_y=None, nr_c=None,
+               mats_nxn=None):
     """Fixed 16-grid wavefront (see the reference's _wavefront_body).
-    Returns the luma mode map (with a dump row)."""
+    mats: (qm_y, dm_y, qm_c, dm_c) scaling-list tables, mats_nxn those
+    of the NxN sub-TUs; split_map / modes8 / tu4_map: NxN intra and its
+    TU4 splits; nr_y / nr_c: (2, 256) / (2, 64) [intra, inter]
+    noise-reduction offsets.  Returns the
+    luma mode map (with a dump row) and the frame's int32 NR sums
+    (ys_i, ys_p, cs_i, cs_p, counts) or None."""
     nby = lev_y.shape[0] - 1
     nbx = lev_y.shape[1]
     dev = lev_y.device
@@ -275,6 +453,19 @@ def _wavefront(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes, sched,
                                           device=dev)], 0)
     sb_bx, sb_by, sb_avy, sb_avc = sched["bx"], sched["by"], sched["avy"], \
         sched["avc"]
+    qm_y, dm_y, qm_c, dm_c = _mats_or_none(mats)
+    q8y, d8y, q4y, d4y, q4c, d4c = _mats_or_none(mats_nxn, 6)
+    have_nr = nr_y is not None
+    nr_acc = None
+    if have_nr:
+        z = lambda k: torch.zeros(k, dtype=I32, device=dev)
+        nl2 = lev_y.shape[2] * lev_y.shape[3]
+        nc2 = lev_u.shape[2] * lev_u.shape[3]
+        nr_acc = (z(nl2), z(nl2), z(nc2), z(nc2), z(4))
+        nr_l = (nr_y[0], nr_y[1])
+        nr_cc = (nr_c[0], nr_c[1])
+    else:
+        nr_l = nr_cc = None
     for s in range(sb_bx.shape[0]):
         bx = sb_bx[s]
         by = sb_by[s]
@@ -286,25 +477,39 @@ def _wavefront(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes, sched,
         qp_b = qp[cy, cx]
         byc = torch.clip(by, 0, nby - 1).long()
         bxc = torch.clip(bx, 0, nbx - 1).long()
+        luma = dict(qmats=qm_y, dmats=dm_y, split_map=split_map,
+                    modes8=modes8,
+                    av8=sched["av8"][s] if split_map is not None else None,
+                    m8=(q8y, d8y), lossless=lossless, tu4_map=tu4_map,
+                    av4y=sched["av4y"][s] if tu4_map is not None else None,
+                    m4=(q4y, d4y), nr=nr_l, ebits=eb_s)
         if cand16 is not None:
-            _, md_w = _substep_body(
+            _, md_w, nr_o = _substep_body(
                 yp, lev_y, oy, bx, by, cand16[byc, bxc], sb_avy[s], 4, qp_b,
                 0, bit_depth, mc_y, inter_mask, sign_hide, rdoq, init_type,
-                psy256, psy_rdoq, cand_bits=cbits16[byc, bxc], ebits=eb_s)
+                psy256, psy_rdoq, cand_bits=cbits16[byc, bxc], **luma)
             m_map[by.long(), bx.long()] = md_w
         md = m_map[byc, bxc]
         if cand16 is None:
-            _substep_body(
+            _, _, nr_o = _substep_body(
                 yp, lev_y, oy, bx, by, md, sb_avy[s], 4, qp_b, 0,
                 bit_depth, mc_y, inter_mask, sign_hide, rdoq, init_type,
-                psy256, psy_rdoq, ebits=eb_s)
-        _substep_body(up, lev_u, ou, bx, by, md, sb_avc[s], clog2,
-                      qp_cb[cy, cx], 1, bit_depth, mc_u, inter_mask,
-                      sign_hide, rdoq, init_type, ebits=eb_s)
-        _substep_body(vp, lev_v, ov, bx, by, md, sb_avc[s], clog2,
-                      qp_cr[cy, cx], 2, bit_depth, mc_v, inter_mask,
-                      sign_hide, rdoq, init_type, ebits=eb_s)
-    return m_map
+                psy256, psy_rdoq, **luma)
+        if have_nr:
+            nr_acc = _nr_add(nr_acc, nr_o, True)
+        for (cpl, lev_c, opl, mc_c, qpc, ci) in (
+                (up, lev_u, ou, mc_u, qp_cb, 1),
+                (vp, lev_v, ov, mc_v, qp_cr, 2)):
+            _, _, nr_o = _substep_body(
+                cpl, lev_c, opl, bx, by, md, sb_avc[s], clog2, qpc[cy, cx],
+                ci, bit_depth, mc_c, inter_mask, sign_hide, rdoq, init_type,
+                ebits=eb_s, qmats=qm_c, dmats=dm_c, split_map=split_map,
+                modes8=modes8,
+                av8=sched["av4c"][s] if split_map is not None else None,
+                m8=(q4c, d4c), lossless=lossless, nr=nr_cc)
+            if have_nr:
+                nr_acc = _nr_add(nr_acc, nr_o, False)
+    return m_map, nr_acc
 
 
 class IntraReconstructor:
@@ -317,15 +522,8 @@ class IntraReconstructor:
                  nxn: bool = False, lossless: bool = False,
                  tree: bool = False, psy_rd: float = 0.0,
                  psy_rdoq: float = 0.0, tu4: bool = False) -> None:
-        if nxn or tu4:
-            raise NotImplementedError("NxN intra / TU4 splits are not "
-                                      "ported")
-        if lossless:
-            raise NotImplementedError("lossless (transquant bypass) is not "
-                                      "ported")
-        if getattr(sps, "scaling_list_enabled", False):
-            raise NotImplementedError("scaling lists are not ported")
         self.device = torch.device(device)
+        self.tu4 = bool(tu4)
         self.sps = sps
         self.cb_qp_offset = cb_qp_offset
         self.cr_qp_offset = cr_qp_offset
@@ -334,6 +532,11 @@ class IntraReconstructor:
         self.psy256 = int(round(psy_rd * 256.0)) if psy_rd > 0 else None
         self.psy_rdoq = float(np.float32(psy_rdoq)) \
             if (psy_rdoq > 0 and rdoq) else None
+        self.mats = None
+        self.mats32 = None
+        self.mats_nxn = None
+        if getattr(sps, "scaling_list_enabled", False):
+            self._build_mats(getattr(sps, "scaling_lists", None), tree)
         self.bd = sps.bit_depth
         self.log2_ctu = sps.log2_ctu_size
         self.csp = getattr(sps, "chroma_format_idc", 1)
@@ -351,9 +554,11 @@ class IntraReconstructor:
         self.n_ctu_y = sps.pic_height_in_ctus
         self.bpc = (1 << self.log2_ctu) // self.nl
         self.slice_tops = tuple(slice_tops)
+        self.nxn = bool(nxn)
+        self.lossless = bool(lossless)
         self.tree = bool(tree)
         if self.tree:
-            assert self.log2_ctu >= 5
+            assert self.log2_ctu >= 5 and not self.lossless
             self.n32x = w // 32
             self.n32y = h // 32
             self._build_tree_schedule()
@@ -361,6 +566,66 @@ class IntraReconstructor:
 
     def _t(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _build_mats(self, sl, tree: bool) -> None:
+        """Scaling-list tables (qm_y, dm_y, qm_c, dm_c) for the 16/8 TBs
+        (and the 32/16 TBs of the CU tree) from the default lists or the
+        parsed custom ones (luma and chroma each from their own
+        listId), as the reference builds them; and the NxN sub-TUs'
+        tables (luma 8x8, luma 4x4, chroma 4x4).
+
+        The NxN sub-TUs depart from the reference, which quantizes a
+        luma 8x8 sub-TU with the chroma 8x8 list and every 4x4 TB as
+        flat, so that its stream does not decode to its recon under a
+        custom list whose luma and chroma 8x8 lists differ or whose 4x4
+        lists are not flat.  The port takes each TB's own list (the
+        decoder's).  Under the default lists these are the tables the
+        reference uses (the 8x8 lists do not depend on the component)
+        or flat (4x4, kept as None), so the bytes are the reference's."""
+        if sl is not None:
+            qm = lambda l2, c: quant_mats_custom(l2, sl[0], sl[1], c)
+            raw = lambda l2, c: np.stack(
+                [list_matrix(sl[0], sl[1], l2, True, c),
+                 list_matrix(sl[0], sl[1], l2, False, c)])
+        else:
+            qm = lambda l2, c: quant_mats(l2)
+            raw = lambda l2, c: np.stack([default_matrix(l2, True),
+                                          default_matrix(l2, False)])
+        t = lambda a: self._t(np.asarray(a).astype(np.int32))
+        self.mats = tuple(t(a) for a in (qm(4, 0), raw(4, 0), qm(3, 1),
+                                         raw(3, 1)))
+        m4 = (None,) * 4 if sl is None else \
+            tuple(t(a) for a in (qm(2, 0), raw(2, 0), qm(2, 1), raw(2, 1)))
+        self.mats_nxn = (t(qm(3, 0)), t(raw(3, 0))) + m4
+        if tree:
+            self.mats32 = tuple(t(a) for a in (qm(5, 0), raw(5, 0),
+                                               qm(4, 1), raw(4, 1)))
+
+    def _sub_avail(self, byp, bxp, valid, av8_full, av4c_full,
+                   av4y_full=None):
+        """(B, 4, 33) luma 8x8 and (B, 4, 17) chroma 4x4 sub-block
+        availability of the NxN quadrants (and (B, 4, 4, 17) of the TU4
+        sub-blocks) for the lanes (byp, bxp); invalid lanes all False."""
+        nb = len(valid)
+        a8 = np.zeros((len(bxp), 4, 33), bool)
+        a4 = np.zeros((len(bxp), 4, 17), bool)
+        a4y = np.zeros((len(bxp), 4, 4, 17), bool) \
+            if av4y_full is not None else None
+        byv, bxv = byp[:nb], bxp[:nb]
+        for k, (dx8, dy8) in enumerate(_Z4):
+            a8[:nb, k] = av8_full[np.where(valid, 2 * byv + dy8, 0),
+                                  np.where(valid, 2 * bxv + dx8, 0)] \
+                & valid[:, None]
+            a4[:nb, k] = av4c_full[np.where(valid, 2 * byv + dy8, 0),
+                                   np.where(valid, 2 * bxv + dx8, 0)] \
+                & valid[:, None]
+            if a4y is not None:
+                for j, (dxq, dyq) in enumerate(_Z4):
+                    a4y[:nb, k, j] = av4y_full[
+                        np.where(valid, 4 * byv + 2 * dy8 + dyq, 0),
+                        np.where(valid, 4 * bxv + 2 * dx8 + dxq, 0)] \
+                        & valid[:, None]
+        return a8, a4, a4y
 
     def _build_tree_schedule(self) -> None:
         """(S, 4, B) 16-block + (S, B) 32-region schedule (same order as
@@ -374,11 +639,19 @@ class IntraReconstructor:
                                  self.slice_tops)
         av16c = frame_avail_masks(w, h, 16, self.log2_ctu, 1,
                                   self.slice_tops)
+        av8_full = av4c_full = None
+        if self.nxn:
+            av8_full = frame_avail_masks(w, h, 8, self.log2_ctu, 0,
+                                         self.slice_tops)
+            av4c_full = frame_avail_masks(w, h, 4, self.log2_ctu, 1,
+                                          self.slice_tops)
         waves = ctu_wavefront_order(self.n_ctu_x, self.n_ctu_y)
         B = max(len(wv[0]) for wv in waves)
         rpc = self.bpc // 2
-        st = {k: [] for k in ("bx", "by", "avy", "avc", "px", "py",
-                              "valid", "ravy", "ravc")}
+        sub_keys = ("bx", "by", "avy", "avc") + \
+            (("av8", "av4c") if self.nxn else ())
+        st = {k: [] for k in sub_keys + ("px", "py", "valid", "ravy",
+                                         "ravc")}
         for (cxs, cys) in waves:
             nb = len(cxs)
             pad = B - nb
@@ -389,7 +662,7 @@ class IntraReconstructor:
                 ry = cys * rpc + qy
                 rvalid = ((rx + 1) * 32 <= w) & ((ry + 1) * 32 <= h)
                 any_blk = False
-                zb = {"bx": [], "by": [], "avy": [], "avc": []}
+                zb = {k: [] for k in sub_keys}
                 for z in range(4):
                     zx, zy = z & 1, z >> 1
                     bx = rx * 2 + zx
@@ -414,6 +687,11 @@ class IntraReconstructor:
                     zb["by"].append(byp)
                     zb["avy"].append(avy)
                     zb["avc"].append(avc)
+                    if av8_full is not None:
+                        a8, a4, _ = self._sub_avail(byp, bxp, valid,
+                                                    av8_full, av4c_full)
+                        zb["av8"].append(a8)
+                        zb["av4c"].append(a4)
                 if not any_blk:
                     continue
                 px = np.where(rvalid, rx * 32, 0).astype(np.int32)
@@ -435,7 +713,7 @@ class IntraReconstructor:
                         [ravy, np.zeros((pad, 129), bool)])
                     ravc = np.concatenate(
                         [ravc, np.zeros((pad, 65), bool)])
-                for k in ("bx", "by", "avy", "avc"):
+                for k in sub_keys:
                     st[k].append(np.stack(zb[k]))
                 st["px"].append(px)
                 st["py"].append(py)
@@ -445,15 +723,26 @@ class IntraReconstructor:
         self.tree_sched = {k: self._t(np.stack(v)) for k, v in st.items()}
 
     def _build_schedule(self) -> None:
-        """Stacked (S, B) 16-grid wavefront schedule."""
+        """Stacked (S, B) 16-grid wavefront schedule (with the NxN and
+        TU4 sub-block availability when those are on)."""
         w, h = self.sps.width, self.sps.height
         avail_y = frame_avail_masks(w, h, self.nl, self.log2_ctu, 0,
                                     self.slice_tops)
         avail_c = frame_avail_masks(w, h, self.nc, self.log2_ctu,
                                     self.cshift, self.slice_tops)
+        av8_full = av4c_full = av4y_full = None
+        if self.nxn:
+            av8_full = frame_avail_masks(w, h, 8, self.log2_ctu, 0,
+                                         self.slice_tops)
+            av4c_full = frame_avail_masks(w, h, 4, self.log2_ctu, 1,
+                                          self.slice_tops)
+            if self.tu4:
+                av4y_full = frame_avail_masks(w, h, 4, self.log2_ctu, 0,
+                                              self.slice_tops)
         waves = ctu_wavefront_order(self.n_ctu_x, self.n_ctu_y)
         B = max(len(wv[0]) for wv in waves)
-        bxs, bys, avys, avcs = [], [], [], []
+        st = {k: [] for k in ("bx", "by", "avy", "avc", "av8", "av4c",
+                              "av4y")}
         for (cxs, cys) in waves:
             nb = len(cxs)
             for z in range(self.bpc * self.bpc):
@@ -472,18 +761,23 @@ class IntraReconstructor:
                     valid = np.concatenate([valid, np.zeros(pad, bool)])
                 if not valid.any():
                     continue
-                avy = avail_y[np.where(valid, byp, 0),
-                              np.where(valid, bxp, 0)] & valid[:, None]
-                avc = avail_c[np.where(valid, byp, 0),
-                              np.where(valid, bxp, 0)] & valid[:, None]
-                bxs.append(bxp)
-                bys.append(byp)
-                avys.append(avy)
-                avcs.append(avc)
-        self.sched = {"bx": self._t(np.stack(bxs)),
-                      "by": self._t(np.stack(bys)),
-                      "avy": self._t(np.stack(avys)),
-                      "avc": self._t(np.stack(avcs))}
+                st["bx"].append(bxp)
+                st["by"].append(byp)
+                st["avy"].append(avail_y[np.where(valid, byp, 0),
+                                         np.where(valid, bxp, 0)]
+                                 & valid[:, None])
+                st["avc"].append(avail_c[np.where(valid, byp, 0),
+                                         np.where(valid, bxp, 0)]
+                                 & valid[:, None])
+                if av8_full is not None:
+                    a8, a4, a4y = self._sub_avail(byp, bxp, valid,
+                                                  av8_full, av4c_full,
+                                                  av4y_full)
+                    st["av8"].append(a8)
+                    st["av4c"].append(a4)
+                    if a4y is not None:
+                        st["av4y"].append(a4y)
+        self.sched = {k: self._t(np.stack(v)) for k, v in st.items() if v}
 
     def _qp_maps(self, qp):
         """(luma, cb, cr) per-16-block QP maps from a scalar or a
@@ -510,22 +804,34 @@ class IntraReconstructor:
                 z(self.nby + 1, self.nbx, nc, nc),
                 z(self.nby + 1, self.nbx, nc, nc))
 
+    def _padb(self, a):
+        """Append a dump block row."""
+        a = torch.as_tensor(a, device=self.device)
+        return torch.cat([a, torch.zeros((1,) + tuple(a.shape[1:]),
+                                         dtype=a.dtype, device=self.device)],
+                         0)
+
+    def _nxn_maps(self, split_map, modes8):
+        if split_map is None:
+            return None, None
+        return (self._padb(self._t(np.asarray(split_map, bool))),
+                self._t(np.asarray(modes8, np.int32)))
+
     def run_tree(self, y, u, v, modes, split32, mode32, qp=32,
                  split_map=None, modes8=None, materialize: bool = True,
                  init_type: int = 2, cand=None):
         """Intra variable-CU-tree reconstruction (32x32 CUs where split32
-        is False, the 16-grid elsewhere)."""
+        is False, the 16-grid with its NxN splits elsewhere)."""
         assert self.tree
-        if split_map is not None:
-            raise NotImplementedError("NxN intra is not ported")
         qp_map = self._qp_maps(qp)
         w, h = self.sps.width, self.sps.height
         wc, hc = w // 2, h // 2
         yp, up, vp, lev_y, lev_u, lev_v = self._alloc(h, w, hc, wc, 32, 16)
         dev = self.device
         oy, ou, ov = (dev_i32(a, dev) for a in (y, u, v))
+        sm, m8j = self._nxn_maps(split_map, modes8)
         c16 = cb16 = None
-        if cand is not None:
+        if cand is not None and split_map is None:
             c16 = self._t(np.asarray(cand[0], np.int32))
             cb16 = self._t(np.asarray(cand[1], np.float32))
         m_map = _wavefront_tree(
@@ -536,7 +842,8 @@ class IntraReconstructor:
             qp_map[0], qp_map[1], qp_map[2], self.bd, self.sign_hide,
             self.rdoq, bool(getattr(self.sps, "strong_intra_smoothing",
                                     True)),
-            int(init_type), self.psy_rdoq, c16, cb16)
+            int(init_type), self.psy_rdoq, c16, cb16, self.mats,
+            self.mats32, sm, m8j, self.mats_nxn)
         rd = {"recon_y": yp[:h], "recon_u": up[:hc], "recon_v": vp[:hc],
               "lev_y": lev_y[:self.nby], "lev_u": lev_u[:self.nby],
               "lev_v": lev_v[:self.nby]}
@@ -550,13 +857,10 @@ class IntraReconstructor:
             ebits=None):
         """16-grid reconstruction.  mc_pred: optional (mc_y, mc_u, mc_v)
         inter predictions (nby, nbx, N, N) tensors; inter_mask:
-        (nby, nbx) bool."""
-        if split_map is not None or tu4_map is not None:
-            raise NotImplementedError("NxN intra / TU4 splits are not "
-                                      "ported")
-        if nr is not None:
-            raise NotImplementedError("noise reduction (--nr-intra/"
-                                      "--nr-inter) is not ported")
+        (nby, nbx) bool; split_map / modes8 / tu4_map: NxN intra and
+        its TU4 splits; nr: ((2, 256), (2, 64)) int32 [intra, inter]
+        noise-reduction offsets, which add the frame's int32 |coef|
+        sums to the result as "nr_stats"."""
         qp_map = self._qp_maps(qp)
         nl, nc = self.nl, self.nc
         w, h = self.sps.width, self.sps.height
@@ -565,12 +869,6 @@ class IntraReconstructor:
         yp, up, vp, lev_y, lev_u, lev_v = self._alloc(h, w, hc, wc, nl, nc)
         oy, ou, ov = (dev_i32(a, dev) for a in (y, u, v))
         modes_j = self._t(np.asarray(modes, np.int32))
-
-        def padb(a):
-            a = torch.as_tensor(a, device=dev)
-            return torch.cat([a, torch.zeros((1,) + tuple(a.shape[1:]),
-                                             dtype=a.dtype, device=dev)], 0)
-
         if mc_pred is None:
             z = lambda *s: torch.zeros(s, dtype=I32, device=dev)
             mc_y = z(self.nby + 1, self.nbx, nl, nl)
@@ -579,27 +877,37 @@ class IntraReconstructor:
             imask = torch.zeros((self.nby + 1, self.nbx), dtype=torch.bool,
                                 device=dev)
         else:
-            mc_y = padb(mc_pred[0])
-            mc_u = padb(mc_pred[1])
-            mc_v = padb(mc_pred[2])
-            imask = padb(torch.as_tensor(np.asarray(inter_mask, bool),
-                                         device=dev))
+            mc_y = self._padb(mc_pred[0])
+            mc_u = self._padb(mc_pred[1])
+            mc_v = self._padb(mc_pred[2])
+            imask = self._padb(np.asarray(inter_mask, bool))
+        sm, m8j = self._nxn_maps(split_map, modes8)
+        t4j = None
+        if split_map is not None and tu4_map is not None and self.tu4:
+            t4j = self._t(np.asarray(tu4_map, bool))
         c16 = cb16 = None
-        if cand is not None:
+        if cand is not None and split_map is None and not self.lossless:
             c16 = self._t(np.asarray(cand[0], np.int32))
             cb16 = self._t(np.asarray(cand[1], np.float32))
+        nr_y = nr_c = None
+        if nr is not None and not self.lossless:
+            nr_y = self._t(np.asarray(nr[0], np.int32))
+            nr_c = self._t(np.asarray(nr[1], np.int32))
         eb = None if ebits is None else \
             self._t(np.asarray(ebits, np.float32))
-        m_map = _wavefront(
+        m_map, nr_stats = _wavefront(
             yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes_j,
             self.sched, mc_y, mc_u, mc_v, imask, qp_map[0], qp_map[1],
             qp_map[2], self.bd, self.sign_hide, self.rdoq, int(init_type),
-            self.psy256, self.psy_rdoq, 3, c16, cb16, eb)
+            self.psy256, self.psy_rdoq, 3, c16, cb16, eb, self.mats, sm,
+            m8j, self.lossless, t4j, nr_y, nr_c, self.mats_nxn)
         out = {"recon_y": yp[:h], "recon_u": up[:hc], "recon_v": vp[:hc],
                "lev_y": lev_y[:self.nby], "lev_u": lev_u[:self.nby],
                "lev_v": lev_v[:self.nby]}
         if c16 is not None:
             out["modes_sel"] = m_map[:self.nby]
+        if nr_stats is not None:
+            out["nr_stats"] = nr_stats
         return self.materialize(out) if materialize else out
 
     def materialize(self, rd: dict) -> dict:
@@ -611,4 +919,6 @@ class IntraReconstructor:
             out[k] = rd[k].cpu().numpy()
         if "modes_sel" in rd:
             out["modes_sel"] = rd["modes_sel"].cpu().numpy()
+        if "nr_stats" in rd:
+            out["nr_stats"] = tuple(a.cpu().numpy() for a in rd["nr_stats"])
         return out

@@ -12,7 +12,8 @@ from ..constants.hevc_tables import scan_order
 from ..entropy.est_bits import (
     BITS_TABLE, residual_ctx_scalars, sig_ctx_map)
 from .numeric import exp2_ref, fsqrt, fsum
-from .transform import (MAX_TR_DYNAMIC_RANGE, QUANT_SHIFT, _qp_vec, const)
+from .transform import (MAX_TR_DYNAMIC_RANGE, QUANT_SHIFT, _mat_sel, _qp_vec,
+                        const)
 
 F32 = torch.float32
 I32 = torch.int32
@@ -85,16 +86,18 @@ def rdoq_levels(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
                 psy_rdoq=None, qmats=None, rawmats=None, bits_table=None):
     """RD-quantize a batch of TUs; drop-in for quant_dyn.  sign_hide:
     the reference's RDOQ-integrated sign-bit hiding (see below)."""
-    if qmats is not None or rawmats is not None:
-        raise NotImplementedError("scaling lists (--scaling-list) are not "
-                                  "ported")
     dev = coef.device
     b = coef.shape[0]
     qp = _qp_vec(qp, b, dev)
     per, rem6 = qp // 6, qp % 6
     transform_shift = MAX_TR_DYNAMIC_RANGE - bit_depth - log2_size
     qbits = (QUANT_SHIFT + per + transform_shift)[:, None, None]
-    scale = const("qs", None, dev)[rem6.long()][:, None, None]
+    sel_m = _mat_sel(intra_mask, b, dev)
+    if qmats is None:
+        scale = const("qs", None, dev)[rem6.long()][:, None, None]
+    else:
+        # scaling-list-aware RDOQ: the per-coefficient forward scale
+        scale = qmats[sel_m, rem6.long()]
     c = coef.to(I32)
     cs = torch.abs(c).to(F32) * scale.to(F32) / exp2_ref(qbits)
     if intra_mask is None:
@@ -102,6 +105,11 @@ def rdoq_levels(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
     else:
         k = torch.where(intra_mask, K_INTRA, K_INTER).to(F32)
     k = k[:, None, None]
+    if rawmats is not None:
+        # a level-unit error on a coefficient with scaling m costs
+        # (m/16)^2 the distortion of the flat step
+        w = rawmats[sel_m].to(F32) / 16.0
+        k = k * w * w
     hi = torch.ceil(cs)
     lo = torch.floor(cs)
 

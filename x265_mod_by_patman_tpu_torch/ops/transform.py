@@ -107,13 +107,31 @@ def quant_batch_mask(coef, intra_mask, qp: int, log2_size: int,
     return (torch.sign(c) * level).to(I32)
 
 
+def quant_mats(log2_size: int):
+    """(2, 6, n, n) int32 forward-quant coefficient tables for the spec
+    DEFAULT scaling lists, [intra/inter][qp%6] (host numpy, copied from
+    the reference)."""
+    from ..constants.scaling import default_matrix
+    out = np.zeros((2, 6, 1 << log2_size, 1 << log2_size), np.int32)
+    for ii, intra in enumerate((True, False)):
+        m = default_matrix(log2_size, intra).astype(np.float64)
+        for r in range(6):
+            out[ii, r] = np.round(QUANT_SCALES[r] * 16.0 / m)
+    return out
+
+
+def _mat_sel(intra_mask, b: int, device):
+    """(B,) row of a [intra, inter] matrix stack per block."""
+    if intra_mask is None:
+        return torch.zeros(b, dtype=torch.long, device=device)
+    return torch.where(intra_mask, 0, 1).long()
+
+
 def quant_dyn(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
               mats=None):
     """Quantization with a runtime qp (scalar or (B,)) and per-block
-    intra/inter rounding."""
-    if mats is not None:
-        raise NotImplementedError("scaling lists (--scaling-list) are not "
-                                  "ported")
+    intra/inter rounding; mats: optional (2, 6, n, n) int32 scaling-list
+    quant tables (quant_mats)."""
     dev = coef.device
     qp = _qp_vec(qp, coef.shape[0], dev)
     per, rem = qp // 6, qp % 6
@@ -121,7 +139,10 @@ def quant_dyn(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
     qbits = (QUANT_SHIFT + per + transform_shift)[:, None, None]
     add = (torch.where(intra_mask, 171, 85).to(I32)[:, None, None]
            << (qbits - 9))
-    scale = const("qs", None, dev)[rem.long()][:, None, None]
+    if mats is None:
+        scale = const("qs", None, dev)[rem.long()][:, None, None]
+    else:
+        scale = mats[_mat_sel(intra_mask, coef.shape[0], dev), rem.long()]
     c = coef.to(I32)
     level = torch.clip((torch.abs(c) * scale + add) >> qbits, 0, 32767)
     return (torch.sign(c) * level).to(I32)
@@ -203,17 +224,23 @@ def sbh_adjust(lev, coef, intra_mask, qp, log2_size: int,
 
 def dequant_dyn(level, qp, log2_size: int, bit_depth: int = 8, dmats=None,
                 intra_mask=None):
-    if dmats is not None:
-        raise NotImplementedError("scaling lists (--scaling-list) are not "
-                                  "ported")
+    """dmats: optional (2, n, n) int32 [intra, inter] raw scaling
+    matrices (spec 8.6.3 per-coefficient dequant; the flat path folds
+    m = 16 into a 4-bit smaller shift)."""
     dev = level.device
     qp = _qp_vec(qp, level.shape[0], dev)
     per, rem = qp // 6, qp % 6
     transform_shift = MAX_TR_DYNAMIC_RANGE - bit_depth - log2_size
     shift = IQUANT_SHIFT - QUANT_SHIFT - transform_shift
     lv = level.to(I32)
-    scale = (const("iqs", None, dev)[rem.long()] << per)[:, None, None]
-    coef = (lv * scale + (1 << (shift - 1))) >> shift
+    if dmats is None:
+        scale = (const("iqs", None, dev)[rem.long()] << per)[:, None, None]
+        coef = (lv * scale + (1 << (shift - 1))) >> shift
+    else:
+        m = dmats[_mat_sel(intra_mask, lv.shape[0], dev)]
+        base = const("iqs", None, dev)[rem.long()][:, None, None]
+        scale = (m * base) << per[:, None, None]
+        coef = (lv * scale + (1 << (shift + 3))) >> (shift + 4)
     return torch.clip(coef, -32768, 32767).to(I32)
 
 
