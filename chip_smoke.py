@@ -18,7 +18,10 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    where every SAD ties; K2 `window_gather` at every main-path window
    size: 11, 16, 23, 25 on the frame plane, 8 (lattice source blocks),
    15 (lattice MC) and 17 (lattice subpel) on the lowres plane, and on
-   the stacked-reference plane the merge/AMVP MC reads.  For each kernel and shape its device
+   the stacked-reference plane the merge/AMVP MC reads, and at the
+   chroma MC windows of the 4:2:2 and 4:4:4 paths (11 on the full-height
+   1088x960 4:2:2 chroma plane, 19 on the 1088x1920 4:4:4 plane;
+   phase_k2_chroma).  For each kernel and shape its device
    time per call (CUDA-graph replays; also one call with its Python
    wrapper between CUDA events), its bound (the least time the card
    could take for the same work, from the published peak rates and the
@@ -75,11 +78,17 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    under build/ and --rdoq-level 2, saving its analysis; that case
    loading the card's analysis file (its bytes must equal the saving
    run's); --lossless with 2 B-frames (recon equal to the source).
+   Then park with its chroma brought to 4:2:2 or 4:4:4 (park_chroma), 4
+   frames each: 4:2:2 at 10 bits under CRF 28 + AQ 2 + cuTree, also
+   through the CLI on a C422p10 y4m; 4:4:4 at 8 bits at the repo
+   defaults (a B picture must occur).
    The frame counts keep the script inside its time limit.  Each
    case's card encode runs in one of three card worker processes and
-   its CPU encode in one of two CPU worker processes, five groups of
-   cases at once, and the CLI subprocesses run beside the cases that
-   follow them;
+   its CPU encode in one of three one-thread CPU worker processes, six
+   groups of cases at once, and the CLI subprocesses run beside the
+   cases that follow them.  The phase runs in a thread beside phases 7
+   and 8a, whose host thread leaves the other cores idle; their
+   seconds per picture include its load;
 5. the rate-control path: the same 1080p clip as phase 3, cut to 2
    frames (I P), under CRF 28 with AQ 2 and the cuTree
    lookahead (rc_lookahead at its default); prints, besides what phase
@@ -99,15 +108,15 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    and the peak device memory; fails on a VBV underflow, an AU that
    misses its CPB removal time, a decode order other than I0 P1, or a
    per-CTU QP map that never varies;
-7. the UHD slow path (run after phase 4, before 5 and 6): 3 frames (I
+7. the UHD slow path (run beside phase 4, before 5 and 6): 3 frames (I
    P B) of 3840x2160 park as BASELINE config 4, parameters built as the
    CLI builds them (--preset slow --hme --rc-lookahead 40 --crf 24
    --vbv-bufsize 25000 --vbv-maxrate 25000, 60 fps): row-banded
    analysis, rect PUs, HME, RDOQ with sign hiding, --me star; prints
    what phase 6 prints, the analysis bands, the share of inter 16x16
    blocks coded as rect PUs and the launches with the HME tier counted;
-   fails on a decode order other than I P B, a VBV underflow, no rect
-   PU on any picture or a recon below 28 dB;
+   fails on a decode order other than I0 P2 B1, a VBV underflow, no
+   rect PU on any picture or a recon below 28 dB;
 8. the inter tools at full width (run after phase 7, before 5 and 6),
    1920x1080 park: 8a, 3 frames (I P B), `--preset
    veryslow --crf 24` as the CLI builds it (AMP in P and B, rect, star
@@ -116,7 +125,8 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    a luma fade (x0.82 a frame) with `--weightb --me sea --no-scenecut`
    (weighted P and B, the SEA search), with the slices' explicit
    weights and the analysis span.  Each prints what phase 3 prints and
-   fails on a decode order other than I P B or a recon below 28 dB; 8b also fails when the B slice carries no
+   fails on a decode order other than I0 P2 B1 or a recon below 28 dB;
+   8b also fails when the B slice carries no
    explicit weight;
 9. the residual-side options at full width (run after phase
    8, before 5 and 6): 9b 1080p park, 2 frames (I P), --lossless
@@ -128,19 +138,32 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    and of TU4-split 8x8 TUs and each picture's mean NR offsets; fails
    without an NxN block on the I picture, with all-zero NR offsets
    from the second picture on, without the SPS scaling-list flag, on a
-   decode order other than I P B or a recon below 28 dB.  Each prints
-   what phase 3 prints.
+   decode order other than I0 P2 B1 or a recon below 28 dB.  Each prints
+   what phase 3 prints;
+10. the 4:2:2 and 4:4:4 paths at full width (run after phase 9b, before
+   9a, 5 and 6), 1080p park with its chroma brought to the format (rows,
+   or rows and columns, repeated plus a seeded sigma = 1 noise), on the
+   fixed-grid wavefront: 10a Main 4:2:2 10, 3 frames (I P B), --crf 24
+   --aq-mode 2 with cuTree as the CLI builds it for a C422p10 y4m; 10b
+   Main 4:4:4 at 8 bits, 2 frames (I P), the repo defaults.  Each
+   prints what phase 3 prints and per picture PSNR-Y/Cb/Cr and the
+   `wavefront` and `entropy` span shares, the per-CTU QP maps and each
+   kernel's launches by shape (the wrappers' own counts); fails unless
+   the SPS carries chroma_format_idc 2 / 3 and the RExt profile (4), on a
+   decode order other than I0 P2 B1 / I0 P1, a recon below 28 dB, or
+   when K2 never ran at the format's chroma MC window.
 
-Every stream of phases 3-9 is decoded with the port's own decoder in
+Every stream of phases 3-10 is decoded with the port's own decoder in
 two worker processes on the host while the card runs the next phases;
 each picture must equal the card's recon and carry a matching MD5 SEI.
 
-Phases 3 and 5-9 each set the kernel counts to 0 just before their
+Phases 3 and 5-10 each set the kernel counts to 0 just before their
 encode and read them just after.  Each phase prints its seconds.
 
 Prints SEA's time beside K1's, the kernels' JSON line (launches from
 phase 9a, the residual-side path, and per path; K1's times at the analysis
-shape n = 16, r = 32, every slow-path shape under "shapes"), the card
+shape n = 16, r = 32, every slow-path shape under "shapes"; K2's at size
+23, its two chroma shapes under "shapes"), the card
 line, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is
 then non-zero and no result line is printed.
@@ -177,6 +200,12 @@ K2_SIZES = (11, 16, 23, 25)
 # 8x8 source blocks, 8x8 MC, 8x8 subpel superset window
 K2_LOWRES_SIZES = (8, 15, 17)
 LOWRES_HW = (FRAME_HW[0] // 2, FRAME_HW[1] // 2)
+# K2's chroma MC windows of the 4:2:2 and 4:4:4 paths (phase 10): the
+# 11x11 window of each stacked 8x8 chroma TB on the full-height 1088x960
+# 4:2:2 chroma plane (two launches per reference, one per half), and the
+# 19x19 window of a 16x16 chroma block on the 1088x1920 4:4:4 plane
+K2_CHROMA_SHAPES = ((11, (FRAME_HW[0], FRAME_HW[1] // 2), "4:2:2"),
+                    (19, FRAME_HW, "4:4:4"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peak
 FP32_LANES_PER_SM = 128
 
@@ -220,6 +249,22 @@ def fade_frames(frames, fade: float = 0.82):
     tests/test_weightb.py makes it), chroma as it is."""
     return [((y.astype(np.float64) * fade ** i).astype(np.uint8), u, v)
             for i, (y, u, v) in enumerate(frames)]
+
+
+def park_chroma(frames, csp: int, seed: int):
+    """park's 4:2:0 frames with the chroma brought to 4:2:2 (rows
+    repeated) or 4:4:4 (rows and columns repeated), plus a seeded
+    sigma = 1 noise, as park adds to its chroma, so that no two samples
+    are copies; uint8."""
+    rng = np.random.default_rng(seed)
+
+    def up(p):
+        q = np.repeat(p, 2, axis=0)
+        if csp == 3:
+            q = np.repeat(q, 2, axis=1)
+        q = q.astype(np.float64) + rng.normal(0, 1.0, q.shape)
+        return np.clip(np.rint(q), 0, 255).astype(np.uint8)
+    return [(y, up(u), up(v)) for y, u, v in frames]
 
 
 def deep(plane, bd: int, rng):
@@ -686,7 +731,53 @@ def phase_k2(dev, rng, card: str):
     xs = bxs.ravel() * n + (mvx >> 2) - 3
     _check_k2(tall, t(ys.astype(np.int32)), t(xs.astype(np.int32)), n + 7,
               "stacked refs", res)
+    res["shapes"] = phase_k2_chroma(dev, rng, card, res)
     return res
+
+
+def phase_k2_chroma(dev, rng, card: str, res):
+    """K2 at the chroma MC shapes of the 4:2:2 and 4:4:4 paths, started as
+    the final MC starts them (analysis/inter_mode._p_mc): each 16x16
+    luma block's chroma window at its chroma origin displaced by an MV
+    within +-16 px (4:2:2: the two stacked 8x8 halves, the vertical MV
+    doubled; 4:4:4: both components doubled into the eighth-pel chroma
+    filter), exact against the plain version and timed with its bound
+    and the library call.  Returns one entry per shape for the kernels
+    line."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda.gather import (
+        window_gather, window_gather_plain)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    bys, bxs = np.mgrid[0:FRAME_HW[0] // 16, 0:FRAME_HW[1] // 16]
+    bx, by = bxs.ravel() * 16, bys.ravel() * 16
+    out = []
+    for size, (h, w), fmt in K2_CHROMA_SHAPES:
+        plane = t(rng.integers(0, 1024, (h, w), dtype=np.int32))
+        mvx = rng.integers(-64, 65, bx.size)
+        mvy = rng.integers(-64, 65, bx.size)
+        if fmt == "4:2:2":
+            # the lower halves (j = 1); the upper ones differ by 8 rows
+            xs, ys = (bx >> 1) + (mvx >> 3) - 1, by + 8 + (2 * mvy >> 3) - 1
+        else:
+            xs, ys = bx + (2 * mvx >> 3) - 1, by + (2 * mvy >> 3) - 1
+        ys, xs = t(ys.astype(np.int32)), t(xs.astype(np.int32))
+        _check_k2(plane, ys, xs, size, f"{fmt} chroma MC (10-bit samples)",
+                  res)
+        ar = torch.arange(size, device=dev)
+        gy = torch.clip(ys.long()[:, None, None] + ar[None, :, None], 0,
+                        h - 1)
+        gx = torch.clip(xs.long()[:, None, None] + ar[None, None, :], 0,
+                        w - 1)
+        k2 = lambda: window_gather(plane, ys, xs, size)
+        e = dict(shape=f"{fmt} chroma MC: B={ys.shape[0]} size={size} "
+                 f"plane={h}x{w}", format=fmt, ms=time_ms(k2),
+                 plain_ms=time_ms(lambda: window_gather_plain(
+                     plane, ys, xs, size)),
+                 bound_ms=k2_bound_ms(ys.shape[0], size, (h, w)),
+                 bound_by="bytes", library_ms=time_ms(lambda: plane[gy, gx]))
+        _report("K2", e["shape"], e["ms"], call_ms(k2), e["bound_ms"],
+                e["plain_ms"], card, e["library_ms"])
+        out.append(e)
+    return out
 
 
 def psnr(a, b, peak: int = 255) -> float:
@@ -818,13 +909,14 @@ def drive(enc, frames):
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         counts = kernels.counts()
+        by_shape = kernels.counts_by_shape()
         spans = trace._events[ev0:]
     finally:
         (Encoder._encode_picture, SlicetypeLookahead._eval_triples,
          CuTreeLookahead._cost_vs) = originals
         for (m, a, _), fn in zip(hme_fns, hme_orig):
             setattr(m, a, fn)
-    return dict(out=out, pics=pics, counts=counts,
+    return dict(out=out, pics=pics, counts=counts, by_shape=by_shape,
                 split=split, spans=spans, total=total,
                 peak=torch.cuda.max_memory_allocated())
 
@@ -985,7 +1077,7 @@ def phase_uhd(dev, w=UHD_HW[1], h=UHD_HW[0], n=3):
     25000 --vbv-maxrate 25000) at 60 fps.  Prints what phase 6 prints,
     the analysis bands, each picture's share of inter 16x16 blocks coded
     as rect PUs, and the launches with the HME tier counted; fails on a
-    decode order other than I P B, a VBV underflow, no rect PU on any
+    decode order other than I0 P2 B1, a VBV underflow, no rect PU on any
     picture or a recon below 28 dB.  Returns launch counts."""
     from x265_mod_by_patman_tpu_torch.analysis.inter_mode import \
         _analysis_bands
@@ -1044,7 +1136,7 @@ def phase_veryslow(dev, w=1920, h=1080, n=3):
     star r = 32, 4 references, subme 4, 8 B-frames, rc-lookahead 40.
     Prints what phase 3 prints and each picture's AMP and rect shares
     (AMP rarely pays on park: informational); fails on a decode order
-    other than I P B or a recon below 28 dB.  Returns launch counts."""
+    other than I0 P2 B1 or a recon below 28 dB.  Returns launch counts."""
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     frames = park_frames(w, h, n)
     enc = Encoder(cli_params(w, h, n, VERYSLOW_OPTS, preset="veryslow"),
@@ -1135,17 +1227,21 @@ RESIDUAL_OPTS = (("crf", "24"), ("aq-mode", "2"), ("nxn-intra", ""),
                  ("nr-intra", "200"), ("nr-inter", "400"))
 
 
-def sps_scaling_list_flag(stream: bytes) -> bool:
-    """scaling_list_enabled_flag of the stream's SPS, as the port's
-    decoder parses it."""
+def sps_of(stream: bytes):
+    """The stream's SPS as the port's decoder parses it."""
     from x265_mod_by_patman_tpu_torch.bitstream.nal import (
         remove_emulation, split_annexb)
     from x265_mod_by_patman_tpu_torch.decoder.decoder import parse_sps
     for u in split_annexb(stream):
         if u and (u[0] >> 1) & 0x3F == 33:
-            return bool(parse_sps(remove_emulation(u[2:]))
-                        .scaling_list_enabled)
+            return parse_sps(remove_emulation(u[2:]))
     raise AssertionError("no SPS in the stream")
+
+
+def sps_scaling_list_flag(stream: bytes) -> bool:
+    """scaling_list_enabled_flag of the stream's SPS, as the port's
+    decoder parses it."""
+    return bool(sps_of(stream).scaling_list_enabled)
 
 
 def phase_residual(dev, w=1920, h=1080, n=3):
@@ -1157,8 +1253,8 @@ def phase_residual(dev, w=1920, h=1080, n=3):
     to TU4 and the mean NR offsets (luma intra, luma inter) it coded
     with; fails without an NxN block on the I picture, with all-zero NR
     offsets from the second picture in coding order on, without the
-    SPS scaling-list flag, on a decode order other than I P B or a recon
-    below 28 dB.  Returns launch counts."""
+    SPS scaling-list flag, on a decode order other than I0 P2 B1 or a
+    recon below 28 dB.  Returns launch counts."""
     from x265_mod_by_patman_tpu_torch.encoder import top
     frames = park_frames(w, h, n)
     enc = top.Encoder(cli_params(w, h, n, RESIDUAL_OPTS), dev)
@@ -1262,15 +1358,116 @@ def phase_lossless(dev, w=1920, h=1080, n=2):
     return run["counts"]
 
 
+def shapes_line(by_shape) -> str:
+    """Each kernel's launches by shape, from the wrappers' own counts: K1
+    by block size n, range r and plane, K2 by window size and plane."""
+    fmt = lambda d, f: ", ".join(f"{f(*k)}: {v}"
+                                 for k, v in sorted(d.items()))
+    return ("K1 launches by shape: " + fmt(
+        by_shape["full_search"],
+        lambda n, r, h, w: f"n={n} r={r} plane={h}x{w}") +
+        "; K2 launches by window: " + fmt(
+        by_shape["window_gather"],
+        lambda size, h, w: f"size={size} plane={h}x{w}"))
+
+
+# K2's launches at each format's chroma MC window in phase 10 (the
+# kernels line gives them beside the shapes' times)
+K2_CHROMA_LAUNCHES = {}
+# phase 10a's options, as the CLI takes them on a C422p10 y4m (cuTree is
+# on by default under CRF)
+CHROMA422_OPTS = (("crf", "24"), ("aq-mode", "2"))
+
+
+def phase_chroma(dev, csp: int, bd: int, opts, n: int, order, what: str,
+                 w=1920, h=1080):
+    """Phase 10: 1080p park with its chroma brought to 4:2:2 or 4:4:4
+    (park_chroma), at `bd` bits, `n` frames, parameters built as the CLI
+    builds them for a C422 / C444 y4m with `opts`.  Prints what phase 3
+    prints and per picture the PSNR of Y, Cb and Cr, the `wavefront` and
+    `entropy` span shares, and each kernel's launches by shape; fails
+    unless the SPS signals the format (chroma_format_idc, RExt profile
+    4), on a decode order other than `order`, a recon below 28 dB, or
+    when K2 never ran at the format's chroma MC window.  Returns the
+    launch counts."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
+    frames = park_frames(w, h, n)
+    frames = park_chroma(frames, csp, 10 * csp + bd)
+    peak = (1 << bd) - 1
+    if bd > 8:
+        frames = deep_frames(frames, bd, 2026 + csp)
+    enc = Encoder(cli_params(w, h, n, opts, bd, csp=csp), dev)
+    p = enc.p
+    print(f"{what}: chroma planes {frames[0][1].shape}, rd {p.rd_level}, "
+          f"var_cu_tree {p.var_cu_tree}, rect {p.rect}, amp {p.amp}, "
+          f"cuTree {enc._cutree is not None}, AQ {p.aq_mode}, rc "
+          f"{p.rc_mode}")
+    run = drive(enc, frames)
+    report_drive(run, frames, w, h, what, peak=peak)
+    out = run["out"]
+    decode_later(f"phase 10, {what}", out)
+    got = [(f.slice_type, f.disp) for f in out]
+    if got != order:
+        raise AssertionError(f"decode order {got}, not {order}")
+    for f, (sec, ev) in zip(out, run["pics"]):
+        span = lambda name: sum(e["dur"] for e in ev if e.get("ph") == "X"
+                                and e["name"] == name) / 1e6
+        q = [psnr(src, np.asarray(rec)[:src.shape[0], :src.shape[1]], peak)
+             for src, rec in zip(frames[f.disp], f.recon)]
+        print(f"picture {f.slice_type}{f.disp}: PSNR Y/Cb/Cr "
+              f"{q[0]:.2f}/{q[1]:.2f}/{q[2]:.2f} dB (peak {peak}); "
+              f"wavefront {span('wavefront'):.3f} s "
+              f"({span('wavefront') / sec:.3f}), entropy "
+              f"{span('entropy'):.3f} s ({span('entropy') / sec:.3f}) of "
+              f"{sec:.3f} s")
+    qm = [np.asarray(f.qp_map) for f in out]
+    print("per-CTU QP maps (min/mean/max): " + ", ".join(
+        f"{f.slice_type}{f.disp} {m.min()}/{m.mean():.2f}/{m.max()}"
+        for f, m in zip(out, qm)))
+    print(shapes_line(run["by_shape"]))
+    sps = sps_of(out[0].bitstream)
+    print(f"SPS: chroma_format_idc {sps.chroma_format_idc}, bit depth "
+          f"{sps.bit_depth}, general_profile_idc {sps.ptl.profile_idc}")
+    if sps.chroma_format_idc != csp or sps.ptl.profile_idc != 4:
+        raise AssertionError("the SPS does not signal the format")
+    size, (ph, pw), fmt = [k for k in K2_CHROMA_SHAPES
+                           if k[2] == {2: "4:2:2", 3: "4:4:4"}[csp]][0]
+    got = run["by_shape"]["window_gather"].get((size, ph, pw), 0)
+    if not got:
+        raise AssertionError(f"K2 never ran at the chroma window {size} "
+                             f"on the {ph}x{pw} plane")
+    K2_CHROMA_LAUNCHES[fmt] = got
+    return run["counts"]
+
+
+def phase_chroma422(dev):
+    """10a: Main 4:2:2 10 (broadcast contribution and mezzanine encodes):
+    1080p park in 4:2:2 at 10 bits, 3 frames (I P B), --crf 24 --aq-mode
+    2 with cuTree, the repo defaults otherwise."""
+    return phase_chroma(dev, 2, 10, CHROMA422_OPTS, 3,
+                        [("I", 0), ("P", 2), ("B", 1)],
+                        "4:2:2 10-bit path 1920x1080, --crf 24 --aq-mode 2")
+
+
+def phase_chroma444(dev):
+    """10b: Main 4:4:4 (screen content, graphics, RGB-sourced masters):
+    1080p park in 4:4:4 at 8 bits, 2 frames (I P), the repo defaults
+    (CQP 32)."""
+    return phase_chroma(dev, 3, 8, (), 2, [("I", 0), ("P", 1)],
+                        "4:4:4 8-bit path 1920x1080, CQP defaults")
+
+
 def cli_params(w: int, h: int, n: int, opts, bit_depth: int = 8,
-               preset=None, fps: int = 25):
+               preset=None, fps: int = 25, csp: int = 1):
     """Parameters built as the CLI builds them for an n-frame y4m at
-    `fps` (cli.py: defaults, the y4m's rate, length and bit depth, the
-    --preset, --qp 32, CQP, then each option through
-    EncoderParams.parse)."""
+    `fps` (cli.py: defaults, the y4m's rate, length, chroma format (csp
+    2 for C422, 3 for C444) and bit depth, the --preset, --qp 32, CQP,
+    then each option through EncoderParams.parse)."""
     from x265_mod_by_patman_tpu_torch.params import default_params
     p = default_params(w, h)
     p.fps_num, p.fps_denom, p.total_frames = fps, 1, n
+    if csp != 1:
+        p.internal_csp = csp
     if bit_depth > 8:
         p.internal_bit_depth = bit_depth
     if preset:
@@ -1315,16 +1512,17 @@ HDR10PLUS_RECORD = {
 
 # phase 4's worker processes: the card side of several cases runs at
 # once (each card encode at 416x240 is bound by its one host thread),
-# beside as many CPU-side encodes
+# beside as many one-thread CPU-side encodes; with the main process's
+# encode and the two decode workers they fill the card host's 8 cores
 CARD_WORKERS = 3
-CPU_WORKERS = 2
+CPU_WORKERS = 3
 
 
 def _cpu_worker_init():
-    """Phase 4's CPU encoder processes: two threads each, no trace."""
+    """Phase 4's CPU encoder processes: one thread each, no trace."""
     from x265_mod_by_patman_tpu_torch.utils import trace
     trace._path = None
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
 
 
 def _card_worker_init():
@@ -1518,20 +1716,23 @@ def _agree(pools, frames, what, p_gpu, p_cpu, count_replay=False):
     return s_gpu, e_gpu
 
 
-def phase_agree(w=416, h=240):
+def phase_agree(w=416, h=240) -> float:
+    """Phase 4; returns its seconds."""
+    t0 = time.perf_counter()
     with Pools() as pools:
         agree_all(pools, w, h)
+    return time.perf_counter() - t0
 
 
 def agree_all(pools, w: int, h: int):
-    """The same clip on cuda and on cpu must give identical bytes.  Five
+    """The same clip on cuda and on cpu must give identical bytes.  Six
     groups of cases run at once, each in a thread (within a group the
     cases run in turn): agree_rc (CQP, CRF, ABR), agree_deep,
-    agree_slow, agree_inter_tools and agree_residual."""
+    agree_slow, agree_inter_tools, agree_residual and agree_chroma."""
     import concurrent.futures
     checks = []
     groups = (agree_rc, agree_deep, agree_slow, agree_inter_tools,
-              agree_residual)
+              agree_residual, agree_chroma)
     try:
         with concurrent.futures.ThreadPoolExecutor(len(groups)) as ex:
             futs = [ex.submit(g, pools, w, h, checks) for g in groups]
@@ -1568,8 +1769,9 @@ def agree_rc(pools, w: int, h: int, checks):
 
 
 def cli_on_card(frames, opts, s_gpu, name: str, bit_depth: int = 8,
-                preset=None):
-    """Write `frames` as a y4m under build/ and start the port's CLI on it
+                preset=None, csp: str = "420"):
+    """Write `frames` as a y4m (chroma format `csp`: "420", "422" or
+    "444") under build/ and start the port's CLI on it
     (with `--preset preset` when given) in a subprocess on the card,
     which runs beside the phase's next cases.  Returns the check to call
     later: it waits for the CLI, whose .hevc must equal `s_gpu`."""
@@ -1581,7 +1783,7 @@ def cli_on_card(frames, opts, s_gpu, name: str, bit_depth: int = 8,
     src = os.path.join(build, f"{name}.y4m")
     dst = os.path.join(build, f"{name}_cli.hevc")
     wr = Y4MWriter(src, VideoInfo(w, h, 25, 1, bit_depth=bit_depth,
-                                  total_frames=n))
+                                  total_frames=n, csp=csp))
     for f in frames:
         wr.write(*f)
     wr.close()
@@ -1892,10 +2094,44 @@ def agree_residual(pools, w: int, h: int, checks):
                                      "source")
 
 
+# phase 4's 4:2:2 case: Main 4:2:2 10 under CRF 28 + AQ 2 + cuTree
+# (rc_lookahead 4, so cuTree pops inside the stream), also through the
+# CLI on a C422p10 y4m
+CHROMA422_AGREE = (4, (("crf", "28"), ("aq-mode", "2"),
+                       ("rc-lookahead", "4")))
+
+
+def agree_chroma(pools, w: int, h: int, checks):
+    """Phase 4's 4:2:2 and 4:4:4 cases, cuda against cpu, 4 frames each:
+    4:2:2 at 10 bits under CRF 28 + AQ 2 + cuTree, also through the CLI
+    on a C422p10 y4m on the card; 4:4:4 at 8 bits at the repo defaults
+    (a B picture must occur)."""
+    n, opts = CHROMA422_AGREE
+    frames = deep_frames(park_chroma(park_frames(w, h, n), 2, 422), 10, 422)
+    pc = lambda: cli_params(w, h, n, opts, 10, csp=2)
+    s, e = _agree(pools, frames, f"{w}x{h} x{n} 4:2:2 10-bit " + " ".join(
+        f"--{k} {v}" for k, v in opts), pc(), pc())
+    if sps_of(s).chroma_format_idc != 2:
+        raise AssertionError("the 4:2:2 stream's SPS is not 4:2:2")
+    checks.append(cli_on_card(frames, opts, s, f"smoke_{w}x{h}_422p10", 10,
+                              csp="422"))
+    frames = park_chroma(park_frames(w, h, n), 3, 444)
+    p4 = lambda: cli_params(w, h, n, (), csp=3)
+    _s, e = _agree(pools, frames, f"{w}x{h} x{n} 4:4:4 8-bit defaults",
+                   p4(), p4())
+    if "B" not in [f.slice_type for f in e]:
+        raise AssertionError("the 4:4:4 default encode made no B picture")
+
+
 def run_phases(dev, rng, cap: str, clock: float):
-    """Phases 2-9; phases 7, 8 and 9 run before 5 and 6, so that their
-    pictures decode on the host while the card runs the next ones.
+    """Phases 2-10; phases 7, 8, 9b, 10 and 9a run before 5 and 6, so
+    that their pictures decode on the host while the card runs the next
+    ones (phase 10's slow 4:2:2 / 4:4:4 decodes under 9a's I picture).
+    Phase 4 runs in its worker processes, driven from a thread, beside
+    phases 7 and 8a: their encode holds one host thread and the card
+    is idle most of the time, so the two overlap on the 8-core host.
     Returns the launch counts per path, the kernels' numbers and SEA's."""
+    import concurrent.futures
     t0 = time.perf_counter()
     k1, main_shape, shapes = phase_k1_slow(dev, rng, cap, clock)
     res = {"full_search": phase_k1(dev, rng, cap, clock),
@@ -1913,21 +2149,32 @@ def run_phases(dev, rng, cap: str, clock: float):
     t0 = time.perf_counter()
     counts["cqp_defaults"] = phase_main(dev)
     print(f"phase 3 main path: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    phase_agree()
-    print(f"phase 4 agreement: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    counts["uhd_slow"] = phase_uhd(dev)
-    print(f"phase 7 UHD slow path: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    counts["veryslow"] = phase_veryslow(dev)
-    print(f"phase 8a veryslow path: {time.perf_counter() - t0:.2f} s")
+    t4 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        agree = ex.submit(phase_agree)
+        t0 = time.perf_counter()
+        counts["uhd_slow"] = phase_uhd(dev)
+        print(f"phase 7 UHD slow path: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        counts["veryslow"] = phase_veryslow(dev)
+        print(f"phase 8a veryslow path: {time.perf_counter() - t0:.2f} s")
+        t_agree = agree.result()
+    print(f"phase 4 agreement: {t_agree:.2f} s (beside phases 7 and 8a; "
+          f"the three took {time.perf_counter() - t4:.2f} s)")
     t0 = time.perf_counter()
     counts["weightb_sea"] = phase_weightb_sea(dev)
     print(f"phase 8b weightb/SEA path: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     counts["lossless"] = phase_lossless(dev)
     print(f"phase 9b lossless path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts["chroma422_10bit"] = phase_chroma422(dev)
+    print(f"phase 10a 4:2:2 10-bit path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts["chroma444"] = phase_chroma444(dev)
+    print(f"phase 10b 4:4:4 path: {time.perf_counter() - t0:.2f} s")
+    for e in res["window_gather"]["shapes"]:
+        e["launches"] = K2_CHROMA_LAUNCHES[e["format"]]
     t0 = time.perf_counter()
     counts["residual"] = phase_residual(dev)
     print(f"phase 9a residual path: {time.perf_counter() - t0:.2f} s")

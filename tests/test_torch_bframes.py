@@ -72,7 +72,16 @@ def _defs(rel):
     ("analysis/inter_mode.py", ("_b_tmvp_field",)),
     ("encoder/top.py", ("_aq_map", "_zone_qp", "_cutree_pop",
                         "write_stats", "_nr_offsets", "_nr_update",
-                        "build16", "build_region")),
+                        "build16", "build_region", "_pad",
+                        "_frame_stats")),
+    # the host halves of the loop filters, with their 4:2:2 / 4:4:4
+    # branches (chroma edge maps, rectangular SAO tiles)
+    ("ops/deblock.py", ("intra_bs_maps", "inter_bs_maps",
+                        "chroma_on_maps", "clear_merge32_edges",
+                        "mark_split_edges")),
+    ("ops/sao.py", ("sao_decide", "sao_decide_chroma", "sao_merge_pass",
+                    "_param_dist", "_best_offset_vec")),
+    ("frame/recon_intra.py", ("chroma_qp",)),
 ])
 def test_host_functions_are_verbatim(rel, names):
     """The host-side decision logic is a copy of the reference's."""

@@ -102,8 +102,12 @@ def test_api_device_and_bit_depths():
     assert tapi.api_get(16) is None
     p = tapi.param_alloc()
     tapi.param_parse(p, "input-res", "96x64")
-    p.internal_csp = 2                  # 4:2:2 stays unported
-    with pytest.raises(NotImplementedError, match="4:2:2"):
+    p.internal_csp = 2                  # 4:2:2 is ported
+    assert tapi.encoder_open(p, "cpu").enc.sps.chroma_format_idc == 2
+    p = tapi.param_alloc()
+    tapi.param_parse(p, "input-res", "96x64")
+    p.internal_csp = 0                  # 4:0:0 is not (nor in the JAX API)
+    with pytest.raises(NotImplementedError, match="4:0:0"):
         tapi.encoder_open(p, "cpu")
     p = tapi.param_alloc()
     tapi.param_parse(p, "input-res", "96x64")

@@ -54,6 +54,7 @@ def test_full_search_kernel_equals_plain(dev, b, n, r, kind):
         kernels.reset_counts()
         got = full_search(ref, org, x0, y0, pmx, pmy, lam, n, r)
         assert kernels.counts()["full_search"] == 1
+        assert kernels.counts_by_shape()["full_search"] == {(n, r, h, w): 1}
         exp = full_search_plain(ref, org, x0, y0, pmx, pmy, lam, n, r)
         for g, e in zip(got, exp):
             assert torch.equal(g, e), (lam, g, e)
@@ -73,6 +74,7 @@ def test_window_gather_kernel_equals_plain(dev, size):
     kernels.reset_counts()
     got = window_gather(plane, ys, xs, size)
     assert kernels.counts()["window_gather"] == 1
+    assert kernels.counts_by_shape()["window_gather"] == {(size, 72, 130): 1}
     assert torch.equal(got, window_gather_plain(plane, ys, xs, size))
 
 

@@ -44,17 +44,31 @@ def test_port_stream_equals_jax_and_decodes(case):
 
 @pytest.mark.parametrize("kw,name", [
     (dict(bframes=0, mcstf=True), "--mcstf"),
-    (dict(bframes=0, internal_csp=2), "4:2:2"),
+    (dict(bframes=0, internal_csp=0), "4:0:0"),
     (dict(bframes=0, rc_mode="crf", frame_parallel_window=2),
      "--frame-threads"),
     (dict(bframes=0, cutree_share_write="ring"), "cuTree share"),
     (dict(bframes=0, mesh_tile_rows=2), "mesh_tile_rows"),
-    (dict(bframes=0, internal_csp=3), "4:4:4"),
+    (dict(bframes=0, internal_csp=3, scaling_list="default"),
+     "--scaling-list in 4:4:4"),
     (dict(bframes=0, cutree_share_read="ring"), "cuTree share"),
 ])
 def test_unported_options_raise(kw, name):
     with pytest.raises(NotImplementedError, match=name):
         ttop.Encoder(default_params(96, 64, **kw), "cpu")
+
+
+@pytest.mark.parametrize("csp", [2, 3])
+def test_chroma_formats_are_accepted(csp):
+    """4:2:2 and 4:4:4 are ported (their streams are held to the
+    reference in tests/test_torch_chroma422.py and _chroma444.py), with
+    the reference's own restrictions on their tools."""
+    enc = ttop.Encoder(default_params(96, 64, internal_csp=csp, rect=True,
+                                      amp=True), "cpu")
+    assert enc.sps.chroma_format_idc == csp
+    assert (enc.cshift, enc.is422) == ((1, True) if csp == 2 else (0, False))
+    assert not (enc.p.rect or enc.p.amp or enc.p.var_cu_tree)
+    assert "4:" not in ", ".join(ttop._unsupported(enc.p))
 
 
 @pytest.mark.parametrize("kw", [

@@ -107,6 +107,8 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     full_search(plane, plane, ys, ys, ys, ys, 100, 8, 4)
     window_gather(plane, ys, ys, 9)
     assert kernels.counts() == {"full_search": 0, "window_gather": 0}
+    assert kernels.counts_by_shape() == {"full_search": {},
+                                         "window_gather": {}}
 
 
 def test_wrappers_reject_bad_inputs():

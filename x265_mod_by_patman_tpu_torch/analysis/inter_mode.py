@@ -330,7 +330,7 @@ def _banded_analysis(fn, bands, sps, block, plane_args, col_field,
     full-frame TMVP tuple of (nby, nbx) arrays, or None.  Each band is
     analysed as a frame of height y1 - y0, so its reads clamp at the
     band's edges (decision-only: entropy derives the true candidates)."""
-    cs_y = 1                                    # 4:2:0 chroma rows
+    cs_y = 1 if getattr(sps, "chroma_format_idc", 1) == 1 else 0
 
     def dev_planes(t):
         return tuple(dev_i32(a, device) for a in t)
@@ -381,12 +381,13 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
     2Nx2N, 1 2NxN, 2 Nx2N; mvs_b: PU1's MV of a rect block.
     _tmvp_field: set by _banded_analysis (the full-frame TMVP field cut
     to the band, or () for none).  part_map codes 4-7 are the AMP
-    shapes 2NxnU, 2NxnD, nLx2N, nRx2N (amp: searched where rect is)."""
-    if getattr(sps, "chroma_format_idc", 1) != 1:
-        raise NotImplementedError("only 4:2:0 is ported")
+    shapes 2NxnU, 2NxnD, nLx2N, nRx2N (amp: searched where rect is).
+    In 4:2:2 mc_u / mc_v are (nby, nbx, 16, 8): each block's two stacked
+    8x8 chroma TBs; in 4:4:4 they are full-size 16x16 blocks."""
     if block != 16:
         raise NotImplementedError("only 16x16 analysis blocks are ported")
     device = torch.device(device)
+    csp = getattr(sps, "chroma_format_idc", 1)
     bands = None if _tmvp_field is not None \
         else _analysis_bands(sps, block, search_range)
     if bands is not None:
@@ -417,7 +418,7 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
         return (o[0], o[1], o[2], o[3],
                 _whole_frame_mc(o, refs, weights, chroma_weights, rect,
                                 amp, hme, search_range, block,
-                                sps.bit_depth, device), o[7], o[8])
+                                sps.bit_depth, device, csp), o[7], o[8])
     bd = sps.bit_depth
     if weights is None:
         weights = [None] * len(refs)
@@ -456,7 +457,7 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
                   torch.from_numpy(avail.reshape(-1, avail.shape[-1]))
                   .to(device), lam256, qp, search_range, block, bd,
                   sps.log2_ctu_size, subme, tmvp, n_real, tuple(rounds),
-                  rect_eff, hme, amp_eff, me_sea)
+                  rect_eff, hme, amp_eff, me_sea, csp)
     modes, inter, mvs, rsel, mcy, mcu, mcv, part, mvs_b = out
     h = lambda a: a.cpu().numpy()
     return (h(modes), h(inter), h(mvs), h(rsel), (mcy, mcu, mcv), h(part),
@@ -466,9 +467,11 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
 def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
             qp: int, search_range: int, n: int, bd: int, log2_ctu: int,
             subme: int, tmvp, n_real: int, rounds, rect: bool = False,
-            hme: bool = False, amp: bool = False, me_sea: bool = False):
+            hme: bool = False, amp: bool = False, me_sea: bool = False,
+            csp: int = 1):
     """P analysis of one frame or row band on one device (the
-    reference's _p_core for a call outside shard_map)."""
+    reference's _p_core for a call outside shard_map); csp: the chroma
+    format of rus / rvs (1, 2 or 3)."""
     dev = oy.device
     h, w = oy.shape
     nbx = w // n
@@ -823,7 +826,7 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
     # 5. MC predictions of the chosen (ref, mv) per block
     mc = [p.reshape(nby, nbx, p.shape[1], p.shape[2]) for p in _p_mc(
         rys, rus, rvs, weights, chroma_weights, bx, by, mvx, mvy, ref_sel,
-        part, mvbx, mvby, n, bd, m_pad, rect, tall, amp)]
+        part, mvbx, mvby, n, bd, m_pad, rect, tall, amp, csp)]
 
     mvs = torch.stack([mvx, mvy], -1).reshape(nby, nbx, 2).to(I32)
     mvs_b = torch.stack([mvbx, mvby], -1).reshape(nby, nbx, 2).to(I32)
@@ -832,18 +835,39 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
             part.reshape(nby, nbx), mvs_b)
 
 
+def _mc_parts(bx, by, n: int, csp: int, pi: int):
+    """The MC blocks of component `pi` of each n x n luma block at (bx,
+    by): (x and y origins, size, MV scale in x and y) per block.  4:2:0
+    chroma is one half-size block at the luma MV; 4:4:4 chroma one
+    full-size block, the quarter-pel MV doubled into the chroma MC's
+    eighth-pel convention; 4:2:2 chroma two stacked half-width TBs, the
+    vertical MV component doubled."""
+    if pi == 0:
+        return [(bx, by, n, 1, 1)]
+    if csp == 2:
+        return [(bx >> 1, by + (n >> 1) * j, n >> 1, 1, 2) for j in (0, 1)]
+    if csp == 3:
+        return [(bx, by, n, 2, 2)]
+    return [(bx >> 1, by >> 1, n >> 1, 1, 1)]
+
+
+def _scaled(mvx, mvy, sx: int, sy: int):
+    return (mvx if sx == 1 else mvx * sx), (mvy if sy == 1 else mvy * sy)
+
+
 def _p_mc(rys, rus, rvs, weights, chroma_weights, bx, by, mvx, mvy,
           ref_sel, part, mvbx, mvby, n: int, bd: int, m_pad: int,
-          rect: bool, tall=None, amp: bool = False):
+          rect: bool, tall=None, amp: bool = False, csp: int = 1):
     """Final P predictions (B, sz, sz) of the planes' three components:
     the chosen (ref, mv) per block from the per-ref planes (weighted refs
     take the exact 14-bit path), for rect blocks the per-sub-block MC and
     for AMP blocks the quarter-strip combine of two full-block MCs (PU0's
     and PU1's MV), both from the references stacked with `m_pad`-row pads
-    (`tall`: the stacked luma planes, when the caller holds them)."""
+    (`tall`: the stacked luma planes, when the caller holds them).
+    csp: the chroma format (rect and AMP are 4:2:0 only); 4:2:2 chroma
+    comes as (B, n, n // 2), the block's two stacked TBs."""
     dev = bx.device
     nref = len(rys)
-    nc = n >> 1
     if rect:
         # per-sub-block final MVs: PU1 covers the bottom row (2NxN) or
         # the right column (Nx2N) of the 2x2 sub-block grid
@@ -864,25 +888,28 @@ def _p_mc(rys, rus, rvs, weights, chroma_weights, bx, by, mvx, mvy,
         ytall_c = sy4 // 2 + rsel4 * strip_c + m_c
     mc = []
     for pi in range(3):
-        sz = n if pi == 0 else nc
-        bx_ = bx if pi == 0 else bx >> 1
-        by_ = by if pi == 0 else by >> 1
-        sel = None
-        for r_i in range(nref):
-            rp = (rys, rus, rvs)[pi][r_i]
-            wp = weights[r_i]
-            cw = chroma_weights[r_i]
-            if pi == 0 and wp is not None:
-                p14 = mc_batch_14(rp, bx_, by_, mvx, mvy, sz, 0, bd)
-                pr = wp_apply_batch(p14, int(wp[0]), int(wp[1]), 6, bd)
-            elif pi != 0 and cw is not None:
-                p14 = mc_batch_14(rp, bx_, by_, mvx, mvy, sz, pi, bd)
-                pr = wp_apply_batch(p14, int(cw[pi - 1][0]),
-                                    int(cw[pi - 1][1]), 6, bd)
-            else:
-                pr = mc_batch(rp, bx_, by_, mvx, mvy, sz, pi, bd)
-            sel = pr if sel is None else torch.where(
-                (ref_sel == r_i)[:, None, None], pr, sel)
+        parts = []
+        for bx_, by_, sz, sx, sy in _mc_parts(bx, by, n, csp, pi):
+            mx, my = _scaled(mvx, mvy, sx, sy)
+            sel = None
+            for r_i in range(nref):
+                rp = (rys, rus, rvs)[pi][r_i]
+                wp = weights[r_i]
+                cw = chroma_weights[r_i]
+                if pi == 0 and wp is not None:
+                    p14 = mc_batch_14(rp, bx_, by_, mx, my, sz, 0, bd)
+                    pr = wp_apply_batch(p14, int(wp[0]), int(wp[1]), 6, bd)
+                elif pi != 0 and cw is not None:
+                    p14 = mc_batch_14(rp, bx_, by_, mx, my, sz, pi, bd)
+                    pr = wp_apply_batch(p14, int(cw[pi - 1][0]),
+                                        int(cw[pi - 1][1]), 6, bd)
+                else:
+                    pr = mc_batch(rp, bx_, by_, mx, my, sz, pi, bd)
+                sel = pr if sel is None else torch.where(
+                    (ref_sel == r_i)[:, None, None], pr, sel)
+            parts.append(sel)
+        sel = torch.cat(parts, 1)
+        # rect and AMP are 4:2:0 only: one block per component, `sz`
         if rect:
             if pi == 0:
                 rp8 = mc_batch(tall, sx4, ytall, fmvx, fmvy, 8, 0, bd)
@@ -915,7 +942,8 @@ def _grid(nby: int, nbx: int, n: int, device):
 
 
 def _whole_frame_mc(o, refs, weights, chroma_weights, rect: bool,
-                    amp: bool, hme: bool, sr: int, n: int, bd: int, device):
+                    amp: bool, hme: bool, sr: int, n: int, bd: int, device,
+                    csp: int = 1):
     """The final P predictions of a banded analysis (outputs `o` of the
     band runs), read again from the whole-frame planes.  A band's own
     MC clamps its reads at the band's edges, which differs from the
@@ -937,12 +965,13 @@ def _whole_frame_mc(o, refs, weights, chroma_weights, rect: bool,
     m_pad = (6 * sr + 12) if hme else (sr + 12)
     mc = _p_mc(*pl, weights, chroma_weights, bx, by, mvs[:, 0], mvs[:, 1],
                t(o[3]).reshape(-1), t(o[7]).reshape(-1), mvs_b[:, 0],
-               mvs_b[:, 1], n, bd, m_pad, rect, amp=amp)
+               mvs_b[:, 1], n, bd, m_pad, rect, amp=amp, csp=csp)
     return tuple(p.reshape(nby, nbx, p.shape[1], p.shape[2]) for p in mc)
 
 
 def _whole_frame_mc_b(o, refs0, refs1, rect: bool, amp: bool, hme: bool,
-                      sr: int, n: int, bd: int, device, weights_b=None):
+                      sr: int, n: int, bd: int, device, weights_b=None,
+                      csp: int = 1):
     """The final B predictions of a banded analysis, read again from the
     whole-frame planes (see _whole_frame_mc)."""
     nby, nbx = o[1].shape
@@ -957,7 +986,7 @@ def _whole_frame_mc_b(o, refs0, refs1, rect: bool, amp: bool, hme: bool,
     mc = _b_mc(pl(refs0), pl(refs1), bx, by, t(o[2]), m0[:, 0], m0[:, 1],
                m1[:, 0], m1[:, 1], t(o[5]), t(o[6]), t(o[10]), t(o[11]),
                p0[:, 0], p0[:, 1], p1[:, 0], p1[:, 1], n, bd, m_pad, rect,
-               amp=amp, weights_b=weights_b)
+               amp=amp, weights_b=weights_b, csp=csp)
     return tuple(p.reshape(nby, nbx, p.shape[1], p.shape[2]) for p in mc)
 
 
@@ -994,7 +1023,7 @@ def _wb_pairs(weights_b):
 def _b_mc(refs0, refs1, bx, by, dirs, mv0x, mv0y, mv1x, mv1y, ref0_f,
           ref1_f, part, dirs_b, pu1_0x, pu1_0y, pu1_1x, pu1_1y, n: int,
           bd: int, m_pad: int, rect: bool, talls=(None, None),
-          amp: bool = False, weights_b=None):
+          amp: bool = False, weights_b=None, csp: int = 1):
     """Final B predictions (B, sz, sz) of the three components: the chosen
     (dir, ref, mv) per block from the per-ref planes with a select (so
     edge clamping matches the decoder's spec MC), for rect blocks the
@@ -1003,7 +1032,9 @@ def _b_mc(refs0, refs1, bx, by, dirs, mv0x, mv0y, mv1x, mv1y, ref0_f,
     list, when the caller holds them), and for AMP blocks the
     quarter-strip combine of each PU's full-block uni MC from ref 0 of
     its list.  refs0 / refs1: (y, u, v) plane lists per list.
-    weights_b: per-list luma (w, o) or None (weighted B: luma only)."""
+    weights_b: per-list luma (w, o) or None (weighted B: luma only).
+    csp: the chroma format (rect and AMP are 4:2:0 only); 4:2:2 chroma
+    comes as (B, n, n // 2), the block's two stacked TBs."""
     r0ys, ru0s, rv0s = refs0
     r1ys, ru1s, rv1s = refs1
     dev = bx.device
@@ -1036,31 +1067,35 @@ def _b_mc(refs0, refs1, bx, by, dirs, mv0x, mv0y, mv1x, mv1y, ref0_f,
                 (rsel_f == ridx)[:, None, None], pr, sel)
         return sel
 
-    nc = n >> 1
     mc = []
     for (pls0, pls1, c_idx) in ((r0ys, r1ys, 0), (ru0s, ru1s, 1),
                                 (rv0s, rv1s, 2)):
-        sz = n if c_idx == 0 else nc
-        bx_ = bx if c_idx == 0 else bx >> 1
-        by_ = by if c_idx == 0 else by >> 1
-        per = lambda fn, p, mx, my: fn(p, bx_, by_, mx, my, sz, c_idx, bd)
-        b0 = sel_ref_mc(pls0, ref0_f,
-                        lambda p: per(mc_batch_14, p, mv0x, mv0y))
-        b1 = sel_ref_mc(pls1, ref1_f,
-                        lambda p: per(mc_batch_14, p, mv1x, mv1y))
-        if c_idx == 0 and weights_b is not None:
-            # weighted B is luma-only (the chroma flags stay 0)
-            (w0, o0), (w1, o1) = _wb_pairs(weights_b)
-            u0 = wp_apply_batch(b0, w0, o0, 6, bd)
-            u1 = wp_apply_batch(b1, w1, o1, 6, bd)
-            bi = wp_bi_combine(b0, b1, w0, o0, w1, o1, 6, bd)
-        else:
-            u0 = sel_ref_mc(pls0, ref0_f,
-                            lambda p: per(mc_batch, p, mv0x, mv0y))
-            u1 = sel_ref_mc(pls1, ref1_f,
-                            lambda p: per(mc_batch, p, mv1x, mv1y))
-            bi = bi_combine(b0, b1, bd)
-        sel = torch.where(is_bi, bi, torch.where(use_l0, u0, u1))
+        parts = []
+        for bx_, by_, sz, sx, sy in _mc_parts(bx, by, n, csp, c_idx):
+            m0x, m0y = _scaled(mv0x, mv0y, sx, sy)
+            m1x, m1y = _scaled(mv1x, mv1y, sx, sy)
+            per = lambda fn, p, mx, my: fn(p, bx_, by_, mx, my, sz, c_idx,
+                                           bd)
+            b0 = sel_ref_mc(pls0, ref0_f,
+                            lambda p: per(mc_batch_14, p, m0x, m0y))
+            b1 = sel_ref_mc(pls1, ref1_f,
+                            lambda p: per(mc_batch_14, p, m1x, m1y))
+            if c_idx == 0 and weights_b is not None:
+                # weighted B is luma-only (the chroma flags stay 0)
+                (w0, o0), (w1, o1) = _wb_pairs(weights_b)
+                u0 = wp_apply_batch(b0, w0, o0, 6, bd)
+                u1 = wp_apply_batch(b1, w1, o1, 6, bd)
+                bi = wp_bi_combine(b0, b1, w0, o0, w1, o1, 6, bd)
+            else:
+                u0 = sel_ref_mc(pls0, ref0_f,
+                                lambda p: per(mc_batch, p, m0x, m0y))
+                u1 = sel_ref_mc(pls1, ref1_f,
+                                lambda p: per(mc_batch, p, m1x, m1y))
+                bi = bi_combine(b0, b1, bd)
+            parts.append(torch.where(is_bi, bi, torch.where(use_l0, u0, u1)))
+        sel = torch.cat(parts, 1)
+        # rect and AMP are 4:2:0 only: one block per component, `per`
+        # and `sz` its own
         if rect:
             # rect winners: per-sub-block uni MC from ref 0 of each sub's
             # list, reassembled into the full block (MVs stay inside the
@@ -1118,9 +1153,10 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
     luma weights per list (--weightb): the lists collapse to their first
     reference, ME searches pre-weighted planes and rect / AMP are off.
     amp: AMP PUs with a per-strip (list, MV) choice, where rect is on.
-    _tmvp_field: set by _banded_analysis (see analyse_p_frame)."""
-    if getattr(sps, "chroma_format_idc", 1) != 1:
-        raise NotImplementedError("only 4:2:0 is ported")
+    _tmvp_field: set by _banded_analysis (see analyse_p_frame).  Outside
+    4:2:0 the lists collapse to their first reference and rect / AMP
+    are off, as in the reference; the chroma mc planes are shaped as
+    analyse_p_frame's."""
     if block != 16:
         raise NotImplementedError("only 16x16 analysis blocks are ported")
 
@@ -1131,10 +1167,14 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
     refs0 = _norm(refs0)
     refs1 = _norm(refs1)
     device = torch.device(device)
+    csp = getattr(sps, "chroma_format_idc", 1)
     if weights_b is not None and all(wp is None for wp in weights_b):
         weights_b = None
-    rect_eff = rect and weights_b is None
+    rect_eff = rect and weights_b is None and csp == 1
     amp_eff = amp and rect_eff
+    # multi-reference lists assume 4:2:0 and unweighted lists: otherwise
+    # they collapse to 1 + 1, as in the reference
+    one_ref = weights_b is not None or csp != 1
     bands = None if _tmvp_field is not None \
         else _analysis_bands(sps, block, search_range)
     if bands is not None:
@@ -1158,14 +1198,13 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
                              {"cur": (y, u, v), "refs0": list(refs0),
                               "refs1": list(refs1)},
                              field, set(range(14)), device)
-        cut = slice(None) if weights_b is None else slice(0, 1)
+        cut = slice(0, 1) if one_ref else slice(None)
         return (o[0], o[1], o[2], o[3], o[4], o[5], o[6],
                 _whole_frame_mc_b(o, refs0[cut], refs1[cut], rect_eff,
                                   amp_eff, hme, search_range, block,
-                                  sps.bit_depth, device, weights_b),
+                                  sps.bit_depth, device, weights_b, csp),
                 o[10], (o[11], o[12], o[13]))
-    if weights_b is not None:
-        # one weight set per list: the lists collapse to 1 + 1
+    if one_ref:
         refs0 = refs0[:1]
         refs1 = refs1[:1]
         if ref_pocs is not None:
@@ -1199,7 +1238,7 @@ def analyse_b_frame(y, u, v, refs0, refs1, sps, qp: int, device,
                   search_range, block, bd, subme, sps.log2_ctu_size, tmvp,
                   t(np.asarray(l0p, np.int64)),
                   t(np.asarray(l1p, np.int64)), tuple(rounds), rect_eff,
-                  hme, amp_eff, me_sea, weights_b)
+                  hme, amp_eff, me_sea, weights_b, csp)
     (modes, inter, dirs, mv0, mv1, rs0, rs1, mcy, mcu, mcv, part,
      dirs_b, mv0_b, mv1_b) = out
     h = lambda a: a.cpu().numpy()
@@ -1211,10 +1250,11 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
             qp: int, search_range: int, n: int, bd: int, subme: int,
             log2_ctu: int, tmvp, poc0, poc1, rounds, rect: bool = False,
             hme: bool = False, amp: bool = False, me_sea: bool = False,
-            weights_b=None):
+            weights_b=None, csp: int = 1):
     """B analysis of one frame or row band on one device (the
-    reference's _b_core for a 4:2:0 call).  weights_b: per-list luma
-    (w, o) or None, for a weighted call (lists of one reference)."""
+    reference's _b_core).  weights_b: per-list luma (w, o) or None, for
+    a weighted call (lists of one reference); csp: the chroma format of
+    the chroma reference planes."""
     dev = oy.device
     h, w = oy.shape
     nbx, nby = w // n, h // n
@@ -1766,7 +1806,7 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
     mc = [p.reshape(nby, nbx, p.shape[1], p.shape[2]) for p in _b_mc(
         (r0ys, ru0s, rv0s), (r1ys, ru1s, rv1s), bx, by, dirs, mv0x, mv0y,
         mv1x, mv1y, ref0_f, ref1_f, part, dirs_b, pu1_0x, pu1_0y, pu1_1x,
-        pu1_1y, n, bd, m_pad, rect, (tall0, tall1), amp, weights_b)]
+        pu1_1y, n, bd, m_pad, rect, (tall0, tall1), amp, weights_b, csp)]
 
     f = lambda a: a.reshape(nby, nbx).to(I32)
     mv2 = lambda mx, my: torch.stack([mx, my], -1).reshape(nby, nbx, 2) \

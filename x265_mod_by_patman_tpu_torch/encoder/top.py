@@ -11,21 +11,23 @@ C CABAC engine, ``rc``).
 
 Scope: the default encode — I, P and B pictures with the b-adapt
 lookahead, the B pyramid, open-GOP CRA keyframes with RASL leaders and
-scenecut by the lookahead's cost ratio — in 4:2:0 at 8, 10 or 12 bits,
-under CQP, CRF or ABR with one or two passes, adaptive quantisation
-(modes 1-4), the cuTree lookahead (or, in pass 2, its pass-1 offsets
-played back), zones, a qpfile, a VBV with the row-level re-encode, the
-HRD timing SEIs, HDR10+ metadata and Dolby Vision RPU pass-through,
-and the residual-side options: NxN intra PUs with TU4 (DST) splits,
-scaling lists, noise reduction, lossless (transquant bypass) and
-analysis save/load.  Options of the reference outside that scope raise
-NotImplementedError naming the option.  Host-only helpers (slice syntax
-assembly, headers, QP chain, AQ map, zones, stats, TMVP motion store,
-adaptive rate tables, the NR offsets) are copied from the reference,
-since its module imports jax, without the 4:2:2 branches that the
-scope above excludes; the one exception is `_encode_slice`, copied
-whole, whose 4:2:2 branch (`is422`) and `internal_csp == 1` guards
-are dead until 4:2:2 is ported.  B pictures of a mini-GOP are encoded one
+scenecut by the lookahead's cost ratio — in 4:2:0, 4:2:2 and 4:4:4 at
+8, 10 or 12 bits (4:2:2 / 4:4:4 within the reference's own limits: no
+NxN, AMP, rect PUs, NR or analysis reuse there, and the fixed 16-grid
+wavefront), under CQP, CRF or ABR with one or two passes, adaptive
+quantisation (modes 1-4), the cuTree lookahead (or, in pass 2, its
+pass-1 offsets played back), zones, a qpfile, a VBV with the row-level
+re-encode, the HRD timing SEIs, HDR10+ metadata and Dolby Vision RPU
+pass-through, and the residual-side options: NxN intra PUs with TU4
+(DST) splits, scaling lists, noise reduction, lossless (transquant
+bypass) and analysis save/load.  Options of the reference outside that
+scope raise NotImplementedError naming the option.  Host-only helpers
+(slice syntax assembly, headers, QP chain, AQ map, zones, stats, TMVP
+motion store, adaptive rate tables, the NR offsets, source padding)
+are copied whole from the reference, since its module imports jax;
+the slice assembly's `internal_csp == 1` guards (NxN chroma, the
+native intra walker) keep 4:2:2 and 4:4:4 on the Python syntax
+walker, as in the reference.  B pictures of a mini-GOP are encoded one
 after another: the reference's frame-parallel B (--frame-threads > 1)
 gives the same bytes under CQP only, so it is rejected under CRF/ABR.
 """
@@ -127,7 +129,12 @@ def _unsupported(p: EncoderParams) -> List[str]:
         # not reproduce (same bytes under CQP only)
         (p.frame_parallel_window > 1 and p.rc_mode != "cqp",
          "--frame-threads > 1 with CRF/ABR"),
-        (p.internal_csp != 1, "4:2:2 / 4:4:4 chroma"),
+        # 4:0:0 is not encoded by the reference either (it asserts)
+        (p.internal_csp not in (1, 2, 3), "4:0:0 chroma"),
+        # the reference quantizes 4:4:4's 16x16 chroma TBs with its 8x8
+        # chroma tables and fails on the shape mismatch
+        (p.internal_csp == 3 and p.scaling_list != "off",
+         "--scaling-list in 4:4:4"),
         (getattr(p, "cutree_share_write", "") or
          getattr(p, "cutree_share_read", ""), "cuTree share"),
     )
@@ -150,10 +157,11 @@ class Encoder:
         self.device = resolve(device)
         self.pix_dtype = np.uint8 if self.p.internal_bit_depth == 8 \
             else np.uint16
-        self.cshift = 1
-        # 4:2:2 is rejected by _unsupported: the is422 branch of the
-        # verbatim _encode_slice stays unreachable until it is ported
-        self.is422 = False
+        # chroma geometry shifts: x halves except 4:4:4; y halves
+        # only for 4:2:0 (4:2:2 keeps full-height chroma)
+        self.cshift = 0 if self.p.internal_csp == 3 else 1
+        self.cshift_y = 1 if self.p.internal_csp == 1 else 0
+        self.is422 = self.p.internal_csp == 2
         self.sps = build_sps_info(self.p)
         self.pps = build_pps_info(self.p)
         self.pps.entropy_coding_sync = bool(self.p.wpp)
@@ -897,9 +905,10 @@ class Encoder:
                     cand = [analyse_weightp(y, rf[0]) for rf in refs]
                     wp_l0 = cand if any(c is not None for c in cand) \
                         else None
-                    # analysis-reuse runs stay luma-only, as in the
-                    # reference
-                    if wp_l0 is not None and rec_a is None:
+                    # analysis-reuse runs and the 4:2:2 / 4:4:4 formats
+                    # stay luma-only, as in the reference
+                    if wp_l0 is not None and rec_a is None \
+                            and p.internal_csp == 1:
                         wp_chroma = [
                             analyse_weightp_chroma(u, rf[1], v, rf[2])
                             if wp_l0[i] is not None else None
@@ -1209,11 +1218,18 @@ class Encoder:
         if getattr(rc, "vbv_buffer", 0):
             st["vbv_fill_pct"] = round(
                 100.0 * rc.vbv_fullness / rc.vbv_buffer, 2)
-        lv_any = None
-        for key in ("lev_y", "lev_u", "lev_v"):
-            lv = r[key]
-            nz = (lv.reshape(lv.shape[0], lv.shape[1], -1) != 0).any(-1)
-            lv_any = nz if lv_any is None else lv_any | nz
+        try:
+            lv_any = ((r["lev_y"].reshape(r["lev_y"].shape[0],
+                                          r["lev_y"].shape[1], -1)
+                       != 0).any(-1) |
+                      (r["lev_u"].reshape(r["lev_u"].shape[0],
+                                          r["lev_u"].shape[1], -1)
+                       != 0).any(-1) |
+                      (r["lev_v"].reshape(r["lev_v"].shape[0],
+                                          r["lev_v"].shape[1], -1)
+                       != 0).any(-1))
+        except Exception:
+            lv_any = None
         if inter_mask is None or not inter_mask.any():
             st["cu_intra_pct"] = 100.0
             st["cu_inter_pct"] = st["cu_skip_pct"] = 0.0
@@ -1223,7 +1239,7 @@ class Encoder:
                 100.0 * (~inter_mask).sum() / nb, 2)
             st["cu_inter_pct"] = round(
                 100.0 * inter_mask.sum() / nb, 2)
-            if lv_any.shape == inter_mask.shape:
+            if lv_any is not None and lv_any.shape == inter_mask.shape:
                 st["cu_skip_pct"] = round(
                     100.0 * (inter_mask & ~lv_any).sum() / nb, 2)
             if rect_info is not None:
@@ -1445,18 +1461,20 @@ class Encoder:
         else:
             merge32 = ~split32 if split32 is not None else None
             bs_v, bs_h = intra_bs_maps(w, h, 16, split_map, merge32)
-        on_v, on_h = chroma_on_maps(bs_v, bs_h, h >> 1, w >> 1, csp=1)
+        csp = p.internal_csp
+        on_v, on_h = chroma_on_maps(bs_v, bs_h, h >> self.cshift_y,
+                                    w >> self.cshift, csp=csp)
         dev = self.device
         keep_dev = isinstance(r["recon_y"], torch.Tensor)
         dy, du, dv = deblock_frame_batch(
             dev_i32(r["recon_y"], dev), dev_i32(r["recon_u"], dev),
             dev_i32(r["recon_v"], dev), bs_v, bs_h, on_v, on_h, qp,
             p.cb_qp_offset if not np.isscalar(qp)
-            else chroma_qp(qp, p.cb_qp_offset, 1),
+            else chroma_qp(qp, p.cb_qp_offset, csp),
             p.cr_qp_offset if not np.isscalar(qp)
-            else chroma_qp(qp, p.cr_qp_offset, 1),
+            else chroma_qp(qp, p.cr_qp_offset, csp),
             p.deblock_beta_offset, p.deblock_tc_offset,
-            self.sps.bit_depth, 1, self.sps.log2_ctu_size)
+            self.sps.bit_depth, csp, self.sps.log2_ctu_size)
         if keep_dev:
             r["recon_y"], r["recon_u"], r["recon_v"] = dy, du, dv
         else:
@@ -1474,21 +1492,24 @@ class Encoder:
         sps = self.sps
         dev = self.device
         ctu = 1 << sps.log2_ctu_size
-        cctu = ctu >> 1
+        cctu = ctu >> self.cshift if not self.is422 \
+            else (ctu, ctu >> 1)      # 4:2:2: rectangular chroma tiles
         lam2 = lambda_qp(qp)[1]
         keep_dev = isinstance(r["recon_y"], torch.Tensor)
 
         def padded(pl, tile):
+            th, tw = (tile, tile) if isinstance(tile, int) else tile
             d = dev_i32(pl, dev)
             h, w = d.shape
-            ph = -(-h // tile) * tile
-            pw = -(-w // tile) * tile
+            ph = -(-h // th) * th
+            pw = -(-w // tw) * tw
             if (ph, pw) == (h, w):
                 return d
             return torch.nn.functional.pad(d, (0, pw - w, 0, ph - h))
 
         h, w = sps.height, sps.width
-        hc, wc = h >> 1, w >> 1
+        hc = h >> self.cshift_y
+        wc = w >> self.cshift
         bd = sps.bit_depth
         host = lambda st: tuple(a.cpu().numpy() for a in st)
         st_y = host(sao_stats_batch(padded(oy, ctu),
@@ -1524,7 +1545,8 @@ class Encoder:
     def _pad(self, plane: np.ndarray, comp_shift: int) -> np.ndarray:
         """Pad a source plane to the coded (min-CU aligned) size by edge
         replication (reference PicYuv padding, picyuv.cpp)."""
-        th = self.sps.height >> comp_shift
+        sy = comp_shift if not self.is422 else 0
+        th = self.sps.height >> sy
         tw = self.sps.width >> comp_shift
         h, w = plane.shape
         if (h, w) == (th, tw):

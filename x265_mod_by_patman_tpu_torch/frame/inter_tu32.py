@@ -4,6 +4,10 @@
 to reproduce that reconstruction (TU32 recon spliced into both source
 and prediction, so the in-wavefront residual is zero).
 
+It runs only under the variable CU tree (`var_cu_tree`,
+Encoder._inter_recon_fn), which the parameters turn off outside 4:2:0,
+so its chroma is always the 4:2:0 TU16 of a 32x32 region.
+
 region_uniform_mask is a host numpy function copied unchanged from the
 reference (its module imports jax)."""
 from __future__ import annotations

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants.hevc_tables import CHROMA_QP_TABLE
+from ..constants.hevc_tables import CHROMA_422_ANGLE_MAP, CHROMA_QP_TABLE
 from ..constants.scaling import (default_matrix, list_matrix,
                                  quant_mats_custom)
 from ..ops.cost import psy_cost_batch, psy_weight
@@ -56,7 +56,8 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
                   psy_rdoq=None, cand_bits=None, ebits=None, qmats=None,
                   dmats=None, split_map=None, modes8=None, av8=None,
                   m8=(None, None), lossless: bool = False, tu4_map=None,
-                  av4y=None, nr=None, m4=(None, None)):
+                  av4y=None, nr=None, m4=(None, None),
+                  fchroma: bool = False):
     """One wavefront substep for one component, updating `plane` and
     `levels` in place.
 
@@ -66,8 +67,9 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
     reconstructed plane), m8 the sub-TU matrices; tu4_map/av4y: the
     voluntary TU4 (DST) split of each 8x8 luma sub-TU, m4 its 4x4
     matrices; lossless: transquant bypass; nr: ((n*n,) intra, (n*n,)
-    inter) noise-reduction offsets.  Returns (skip (B,) or None, chosen modes or None, this
-    substep's NR sums or None)."""
+    inter) noise-reduction offsets; fchroma: 4:4:4 chroma filters its
+    reference samples as luma does (spec 8.4.4.2.3).  Returns (skip (B,)
+    or None, chosen modes or None, this substep's NR sums or None)."""
     n = 1 << log2n
     maxval = (1 << bit_depth) - 1
     hp, wp = plane.shape
@@ -110,7 +112,8 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
         modes = md_sel
 
     pred = intra_pred_select_batch(s_sub, s_filt, modes, log2n, c_idx,
-                                   bit_depth)
+                                   bit_depth,
+                                   filt_chroma=fchroma and c_idx > 0)
     if mc_pred is not None:
         is_inter = inter_mask[by.long(), bx.long()]
         pred = torch.where(is_inter[:, None, None],
@@ -438,12 +441,16 @@ def _wavefront(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes, sched,
                psy256, psy_rdoq, clog2: int, cand16, cbits16, ebits,
                mats=None, split_map=None, modes8=None,
                lossless: bool = False, tu4_map=None, nr_y=None, nr_c=None,
-               mats_nxn=None):
+               mats_nxn=None, fchroma: bool = False, csp422: bool = False,
+               imask_c=None):
     """Fixed 16-grid wavefront (see the reference's _wavefront_body).
     mats: (qm_y, dm_y, qm_c, dm_c) scaling-list tables, mats_nxn those
     of the NxN sub-TUs; split_map / modes8 / tu4_map: NxN intra and its
     TU4 splits; nr_y / nr_c: (2, 256) / (2, 64) [intra, inter]
-    noise-reduction offsets.  Returns the
+    noise-reduction offsets; clog2: the chroma TB size (3, or 4 in
+    4:4:4, whose chroma filters its references: fchroma); csp422: each
+    block carries two stacked 8x8 chroma TBs on the row-doubled chroma
+    grid, whose inter mask is imask_c.  Returns the
     luma mode map (with a dump row) and the frame's int32 NR sums
     (ys_i, ys_p, cs_i, cs_p, counts) or None."""
     nby = lev_y.shape[0] - 1
@@ -497,6 +504,23 @@ def _wavefront(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes, sched,
                 psy256, psy_rdoq, **luma)
         if have_nr:
             nr_acc = _nr_add(nr_acc, nr_o, True)
+        if csp422:
+            # 4:2:2: two stacked 8x8 chroma TBs per 16x16 block (spec
+            # 7.3.8.10, ChromaArrayType 2) on the row-doubled chroma
+            # grid, predicted with the Table 8-3 remapped mode; the
+            # reference gives them no rate tables and flat 4x4 lists
+            md_c = _angle422(dev)[torch.clip(md, 0, 34).long()]
+            for j in (0, 1):
+                byj = by * 2 + j
+                for (cpl, lev_c, opl, mc_c, qpc, ci) in (
+                        (up, lev_u, ou, mc_u, qp_cb, 1),
+                        (vp, lev_v, ov, mc_v, qp_cr, 2)):
+                    _substep_body(
+                        cpl, lev_c, opl, bx, byj, md_c, sb_avc[s][:, j],
+                        clog2, qpc[cy, cx], ci, bit_depth, mc_c, imask_c,
+                        sign_hide, rdoq, init_type, qmats=qm_c,
+                        dmats=dm_c, lossless=lossless)
+            continue
         for (cpl, lev_c, opl, mc_c, qpc, ci) in (
                 (up, lev_u, ou, mc_u, qp_cb, 1),
                 (vp, lev_v, ov, mc_v, qp_cr, 2)):
@@ -506,10 +530,17 @@ def _wavefront(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes, sched,
                 ebits=eb_s, qmats=qm_c, dmats=dm_c, split_map=split_map,
                 modes8=modes8,
                 av8=sched["av4c"][s] if split_map is not None else None,
-                m8=(q4c, d4c), lossless=lossless, nr=nr_cc)
+                m8=(q4c, d4c), lossless=lossless, nr=nr_cc,
+                fchroma=fchroma)
             if have_nr:
                 nr_acc = _nr_add(nr_acc, nr_o, False)
     return m_map, nr_acc
+
+
+def _angle422(device):
+    """Table 8-3's 4:2:2 chroma intra mode remap on `device`."""
+    return torch.as_tensor(np.asarray(CHROMA_422_ANGLE_MAP, np.int64),
+                           device=device)
 
 
 class IntraReconstructor:
@@ -540,11 +571,12 @@ class IntraReconstructor:
         self.bd = sps.bit_depth
         self.log2_ctu = sps.log2_ctu_size
         self.csp = getattr(sps, "chroma_format_idc", 1)
-        if self.csp != 1:
-            raise NotImplementedError("only 4:2:0 is ported")
-        self.cshift = 1
+        # horizontal chroma shift (0 only for 4:4:4); 4:2:2 halves x but
+        # keeps full-height chroma on a row-doubled 8x8 block grid
+        self.cshift = 0 if self.csp == 3 else 1
+        self.is422 = self.csp == 2
         self.nl = 16
-        self.nc = 8
+        self.nc = self.nl >> self.cshift
         w, h = sps.width, sps.height
         assert w % self.nl == 0 and h % self.nl == 0, \
             "v1 requires 16-aligned dimensions"
@@ -728,8 +760,13 @@ class IntraReconstructor:
         w, h = self.sps.width, self.sps.height
         avail_y = frame_avail_masks(w, h, self.nl, self.log2_ctu, 0,
                                     self.slice_tops)
-        avail_c = frame_avail_masks(w, h, self.nc, self.log2_ctu,
-                                    self.cshift, self.slice_tops)
+        if self.is422:
+            # 4:2:2 chroma availability on the row-doubled 8x8 grid
+            avail_c = frame_avail_masks(w, h, 8, self.log2_ctu, 1,
+                                        self.slice_tops, comp_shift_y=0)
+        else:
+            avail_c = frame_avail_masks(w, h, self.nc, self.log2_ctu,
+                                        self.cshift, self.slice_tops)
         av8_full = av4c_full = av4y_full = None
         if self.nxn:
             av8_full = frame_avail_masks(w, h, 8, self.log2_ctu, 0,
@@ -766,9 +803,16 @@ class IntraReconstructor:
                 st["avy"].append(avail_y[np.where(valid, byp, 0),
                                          np.where(valid, bxp, 0)]
                                  & valid[:, None])
-                st["avc"].append(avail_c[np.where(valid, byp, 0),
-                                         np.where(valid, bxp, 0)]
-                                 & valid[:, None])
+                if self.is422:
+                    # both stacked 8x8 chroma TBs' masks (B, 2, 33)
+                    st["avc"].append(np.stack(
+                        [avail_c[np.where(valid, 2 * byp + j, 0),
+                                 np.where(valid, bxp, 0)] & valid[:, None]
+                         for j in (0, 1)], axis=1))
+                else:
+                    st["avc"].append(avail_c[np.where(valid, byp, 0),
+                                             np.where(valid, bxp, 0)]
+                                     & valid[:, None])
                 if av8_full is not None:
                     a8, a4, a4y = self._sub_avail(byp, bxp, valid,
                                                   av8_full, av4c_full,
@@ -789,27 +833,43 @@ class IntraReconstructor:
             bpc = self.bpc
             qy = np.repeat(np.repeat(qc, bpc, 0), bpc, 1)[
                 :self.nby, :self.nbx]
-        tab = CHROMA_QP_TABLE
-        qcb = tab[np.clip(qy + self.cb_qp_offset, 0, 69)]
-        qcr = tab[np.clip(qy + self.cr_qp_offset, 0, 69)]
+        if self.csp == 1:
+            tab = CHROMA_QP_TABLE
+            qcb = tab[np.clip(qy + self.cb_qp_offset, 0, 69)]
+            qcr = tab[np.clip(qy + self.cr_qp_offset, 0, 69)]
+        else:                   # 4:2:2 / 4:4:4: qPi clipped, no remap
+            qcb = np.clip(qy + self.cb_qp_offset, 0, 51)
+            qcr = np.clip(qy + self.cr_qp_offset, 0, 51)
         return (self._t(qy), self._t(qcb.astype(np.int32)),
                 self._t(qcr.astype(np.int32)))
 
     def _alloc(self, h: int, w: int, hc: int, wc: int, dump_l: int,
-               dump_c: int):
+               dump_c: int, nbc: int = None, cdump: int = 1):
+        """Recon planes with their dump rows and the level stores with
+        their dump block rows (nbc + cdump chroma block rows)."""
         z = lambda *s: torch.zeros(s, dtype=I32, device=self.device)
         nl, nc = self.nl, self.nc
+        nbc = self.nby if nbc is None else nbc
         return (z(h + dump_l, w), z(hc + dump_c, wc), z(hc + dump_c, wc),
                 z(self.nby + 1, self.nbx, nl, nl),
-                z(self.nby + 1, self.nbx, nc, nc),
-                z(self.nby + 1, self.nbx, nc, nc))
+                z(nbc + cdump, self.nbx, nc, nc),
+                z(nbc + cdump, self.nbx, nc, nc))
 
-    def _padb(self, a):
-        """Append a dump block row."""
+    def _padb(self, a, k: int = 1):
+        """Append k dump block rows."""
         a = torch.as_tensor(a, device=self.device)
-        return torch.cat([a, torch.zeros((1,) + tuple(a.shape[1:]),
+        return torch.cat([a, torch.zeros((k,) + tuple(a.shape[1:]),
                                          dtype=a.dtype, device=self.device)],
                          0)
+
+    def _chroma_blocks(self, a):
+        """(nby, nbx, 16, 8) 4:2:2 chroma predictions -> the row-doubled
+        (2 * nby + 2, nbx, 8, 8) block store."""
+        nc = self.nc
+        a = torch.as_tensor(a, device=self.device)
+        t = a.reshape(self.nby, self.nbx, 2, nc, nc).transpose(1, 2) \
+            .reshape(2 * self.nby, self.nbx, nc, nc)
+        return self._padb(t, 2)
 
     def _nxn_maps(self, split_map, modes8):
         if split_map is None:
@@ -856,7 +916,8 @@ class IntraReconstructor:
             init_type: int = 2, tu4_map=None, cand=None, nr=None,
             ebits=None):
         """16-grid reconstruction.  mc_pred: optional (mc_y, mc_u, mc_v)
-        inter predictions (nby, nbx, N, N) tensors; inter_mask:
+        inter predictions (nby, nbx, N, N) tensors (4:2:2 chroma
+        (nby, nbx, 16, 8), the two stacked TBs); inter_mask:
         (nby, nbx) bool; split_map / modes8 / tu4_map: NxN intra and
         its TU4 splits; nr: ((2, 256), (2, 64)) int32 [intra, inter]
         noise-reduction offsets, which add the frame's int32 |coef|
@@ -864,23 +925,38 @@ class IntraReconstructor:
         qp_map = self._qp_maps(qp)
         nl, nc = self.nl, self.nc
         w, h = self.sps.width, self.sps.height
-        wc, hc = w >> 1, h >> 1
+        wc = w >> self.cshift
+        hc = h if self.is422 else h >> self.cshift
+        # 4:2:2: chroma stores live on a row-doubled 8x8 block grid
+        nbc = 2 * self.nby if self.is422 else self.nby
+        cdump = 2 if self.is422 else 1
         dev = self.device
-        yp, up, vp, lev_y, lev_u, lev_v = self._alloc(h, w, hc, wc, nl, nc)
+        yp, up, vp, lev_y, lev_u, lev_v = self._alloc(
+            h, w, hc, wc, nl, cdump * nc, nbc, cdump)
         oy, ou, ov = (dev_i32(a, dev) for a in (y, u, v))
         modes_j = self._t(np.asarray(modes, np.int32))
+        imask_c = None
         if mc_pred is None:
             z = lambda *s: torch.zeros(s, dtype=I32, device=dev)
             mc_y = z(self.nby + 1, self.nbx, nl, nl)
-            mc_u = z(self.nby + 1, self.nbx, nc, nc)
-            mc_v = z(self.nby + 1, self.nbx, nc, nc)
+            mc_u = z(nbc + cdump, self.nbx, nc, nc)
+            mc_v = z(nbc + cdump, self.nbx, nc, nc)
             imask = torch.zeros((self.nby + 1, self.nbx), dtype=torch.bool,
                                 device=dev)
+            if self.is422:
+                imask_c = torch.zeros((nbc + cdump, self.nbx),
+                                      dtype=torch.bool, device=dev)
         else:
             mc_y = self._padb(mc_pred[0])
-            mc_u = self._padb(mc_pred[1])
-            mc_v = self._padb(mc_pred[2])
             imask = self._padb(np.asarray(inter_mask, bool))
+            if self.is422:
+                mc_u = self._chroma_blocks(mc_pred[1])
+                mc_v = self._chroma_blocks(mc_pred[2])
+                imask_c = self._padb(self._t(np.repeat(
+                    np.asarray(inter_mask, bool), 2, axis=0)), 2)
+            else:
+                mc_u = self._padb(mc_pred[1])
+                mc_v = self._padb(mc_pred[2])
         sm, m8j = self._nxn_maps(split_map, modes8)
         t4j = None
         if split_map is not None and tu4_map is not None and self.tu4:
@@ -890,7 +966,7 @@ class IntraReconstructor:
             c16 = self._t(np.asarray(cand[0], np.int32))
             cb16 = self._t(np.asarray(cand[1], np.float32))
         nr_y = nr_c = None
-        if nr is not None and not self.lossless:
+        if nr is not None and self.csp == 1 and not self.lossless:
             nr_y = self._t(np.asarray(nr[0], np.int32))
             nr_c = self._t(np.asarray(nr[1], np.int32))
         eb = None if ebits is None else \
@@ -899,11 +975,12 @@ class IntraReconstructor:
             yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes_j,
             self.sched, mc_y, mc_u, mc_v, imask, qp_map[0], qp_map[1],
             qp_map[2], self.bd, self.sign_hide, self.rdoq, int(init_type),
-            self.psy256, self.psy_rdoq, 3, c16, cb16, eb, self.mats, sm,
-            m8j, self.lossless, t4j, nr_y, nr_c, self.mats_nxn)
+            self.psy256, self.psy_rdoq, 4 - self.cshift, c16, cb16, eb,
+            self.mats, sm, m8j, self.lossless, t4j, nr_y, nr_c,
+            self.mats_nxn, self.cshift == 0, self.is422, imask_c)
         out = {"recon_y": yp[:h], "recon_u": up[:hc], "recon_v": vp[:hc],
-               "lev_y": lev_y[:self.nby], "lev_u": lev_u[:self.nby],
-               "lev_v": lev_v[:self.nby]}
+               "lev_y": lev_y[:self.nby], "lev_u": lev_u[:nbc],
+               "lev_v": lev_v[:nbc]}
         if c16 is not None:
             out["modes_sel"] = m_map[:self.nby]
         if nr_stats is not None:

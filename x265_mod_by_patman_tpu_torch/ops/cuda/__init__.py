@@ -12,7 +12,14 @@ KERNELS = {"full_search": full_search, "window_gather": window_gather}
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        fn.launches_by_shape.clear()
 
 
 def counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def counts_by_shape() -> dict:
+    """Launches per kernel by shape: full_search's keyed by (n, r, H, W),
+    window_gather's by (size, H, W)."""
+    return {name: dict(fn.launches_by_shape) for name, fn in KERNELS.items()}

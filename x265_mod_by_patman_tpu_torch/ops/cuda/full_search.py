@@ -137,7 +137,11 @@ def full_search(ref, orig, x0, y0, pred_mv_x, pred_mv_y, lambda_x256: int,
         mx.data_ptr(), my.data_ptr(), cost.data_ptr(), b, n, r, stream),
         "full_search")
     full_search.launches += 1
+    key = (n, r, h, w)
+    full_search.launches_by_shape[key] = \
+        full_search.launches_by_shape.get(key, 0) + 1
     return mx, my, cost
 
 
 full_search.launches = 0
+full_search.launches_by_shape = {}    # (n, r, H, W) -> launches

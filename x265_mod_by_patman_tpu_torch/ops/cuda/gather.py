@@ -57,7 +57,11 @@ def window_gather(plane: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                                    xs.data_ptr(), out.data_ptr(), b, h, w,
                                    size, stream), "window_gather")
     window_gather.launches += 1
+    key = (size, h, w)
+    window_gather.launches_by_shape[key] = \
+        window_gather.launches_by_shape.get(key, 0) + 1
     return out
 
 
 window_gather.launches = 0
+window_gather.launches_by_shape = {}  # (size, H, W) -> launches

@@ -471,26 +471,34 @@ def _qp_edge_maps(qp, h, w, log2_ctu=5):
     return qp_v, qp_h
 
 
-def _chroma_qp_edge_maps(qp, hc, wc, off_cb, off_cr, log2_ctu=5):
-    """Per-sample 4:2:0 chroma-edge QpC maps (see the reference)."""
+def _chroma_qp_edge_maps(qp, hc, wc, off_cb, off_cr, log2_ctu=5, csp=1):
+    """Per-sample chroma-edge QpC maps from the luma QP map or scalar:
+    the Table 8-10 remap for 4:2:0, a clip at 51 for 4:2:2 / 4:4:4
+    (spec 8.7.2.5.5); the chroma-to-luma shifts follow csp."""
     dev = qp.device
-    tab = _tables(dev)[2]
+    if csp == 1:
+        tab = _tables(dev)[2]
 
-    def qc(a, off):
-        return tab[torch.clip(a + off, 0, 69).long()]
+        def qc(a, off):
+            return tab[torch.clip(a + off, 0, 69).long()]
+    else:
+        def qc(a, off):
+            return torch.clip(a + off, 0, 51)
+    ssx = 0 if csp == 3 else 1
+    ssy = 1 if csp == 1 else 0
     if qp.dim() == 0:
         return (qc(qp, off_cb), qc(qp, off_cr),
                 qc(qp, off_cb), qc(qp, off_cr))
     ctu = 1 << log2_ctu
     ar = lambda *a: torch.arange(*a, device=dev)
-    rows = (ar(hc) << 1) // ctu
-    exc = ar(1, wc // 8) * 16
+    rows = (ar(hc) << ssy) // ctu
+    exc = ar(1, wc // 8) * (8 << ssx)          # luma x of chroma edges
     cxp = torch.clip((exc - 1) // ctu, 0, qp.shape[1] - 1)
     cxq = torch.clip(exc // ctu, 0, qp.shape[1] - 1)
     avg_v = (qp[rows[:, None], cxp[None, :]] +
              qp[rows[:, None], cxq[None, :]] + 1) >> 1
-    cols = (ar(wc) << 1) // ctu
-    eyc = ar(1, hc // 8) * 16
+    cols = (ar(wc) << ssx) // ctu
+    eyc = ar(1, hc // 8) * (8 << ssy)
     cyp = torch.clip((eyc - 1) // ctu, 0, qp.shape[0] - 1)
     cyq = torch.clip(eyc // ctu, 0, qp.shape[0] - 1)
     avg_h = (qp[cyp[:, None], cols[None, :]] +
@@ -503,11 +511,10 @@ def deblock_frame_batch(y, u, v, bs_v, bs_h, on_vc, on_hc, qp, qpc_cb,
                         qpc_cr, beta_off: int = 0, tc_off: int = 0,
                         bit_depth: int = 8, csp: int = 1,
                         log2_ctu: int = 5):
-    """Deblock a 4:2:0 frame: luma + chroma, V edges then H edges.
+    """Deblock a frame: luma + chroma, V edges then H edges; csp 1, 2
+    or 3 (4:2:0, 4:2:2, 4:4:4) sets the chroma planes' geometry and QpC.
     qp: scalar or per-CTU (nCtuY, nCtuX) map; qpc_cb/qpc_cr are chroma QP
     offsets when qp is a map, absolute chroma QPs when it is a scalar."""
-    if csp != 1:
-        raise NotImplementedError("only 4:2:0 deblocking is ported")
     dev = y.device
     h, w = y.shape
     qp_j = torch.as_tensor(np.asarray(qp, np.int32), device=dev)
@@ -526,7 +533,7 @@ def deblock_frame_batch(y, u, v, bs_v, bs_h, on_vc, on_hc, qp, qpc_cb,
     ehc = torch.arange(1, hc // 8, device=dev) * 8
     if qp_j.dim():
         cbv, crv, cbh, crh = _chroma_qp_edge_maps(qp_j, hc, wc, qpc_cb,
-                                                  qpc_cr, log2_ctu)
+                                                  qpc_cr, log2_ctu, csp)
         chroma_qps = ((cbv, cbh), (crv, crh))
     else:
         chroma_qps = ((qpc_cb, qpc_cb), (qpc_cr, qpc_cr))
