@@ -38,7 +38,13 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    The SEA-pruned search of --me sea (torch ops, not a kernel;
    phase_sea) at the 1080p analysis shape (n = 16, r = 32, k = 64):
    exact against its numpy golden on sampled blocks and against K1
-   when k covers every candidate, timed beside K1's dense search;
+   when k covers every candidate, timed beside K1's dense search.
+   MCSTF's shapes (phase_mcstf_kernels): K1 over every 16x16 block of
+   park's luma cut to 1072x1920 (B = 8040, r = 12, lambda 0) and K2's
+   16x16 gather of the aligned blocks, each exact and timed with its
+   bound, plain and library times; mcstf._align_and_error on the card
+   equal to its CPU run; the ladder's scale_frame 1080p -> 720p and
+   -> 360p on the card equal to the CPU, timed;
 3. main path: a 2-frame (I P) 1920x1080 8-bit
    4:2:0 clip (the `park` generator of tools/make_clips.py) through the
    port's Encoder on the card at the repo defaults (CQP 32, 4 B-frames
@@ -81,7 +87,11 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    Then park with its chroma brought to 4:2:2 or 4:4:4 (park_chroma), 4
    frames each: 4:2:2 at 10 bits under CRF 28 + AQ 2 + cuTree, also
    through the CLI on a C422p10 y4m; 4:4:4 at 8 bits at the repo
-   defaults (a B picture must occur).
+   defaults (a B picture must occur).  Then an ABR ladder through the
+   port's CLI (--abr-ladder, agree_ladder) on the card and on the CPU:
+   a 416x240 master under CRF 28 + AQ 2 + --mcstf writing the cuTree
+   share and a 208x120 slave reading it, 10 frames (MCSTF at display 0
+   and 8); each rung's file must be byte-identical.
    The frame counts keep the script inside its time limit.  Each
    case's card encode runs in one of three card worker processes and
    its CPU encode in one of three one-thread CPU worker processes, six
@@ -89,7 +99,8 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    cases that follow them.  The phase runs in a thread beside phases 7
    and 8a, whose host thread leaves the other cores idle; their
    seconds per picture include its load;
-5. the rate-control path: the same 1080p clip as phase 3, cut to 2
+5. the rate-control path (in the phase worker, below): the same 1080p
+   clip as phase 3, cut to 2
    frames (I P), under CRF 28 with AQ 2 and the cuTree
    lookahead (rc_lookahead at its default); prints, besides what phase
    3 prints, each picture's frame QP and the min/mean/max of the
@@ -97,7 +108,8 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    spans and the launches split into lookahead, cuTree and analysis;
    checks the recon quality, the decode order I0 P1 and that the
    per-CTU QP map varies on at least one picture;
-6. the Main10 delivery path: phase 3's 2 frames (I P) at 10 bits
+6. the Main10 delivery path (in the phase worker): phase 3's 2 frames
+   (I P) at 10 bits
    (park times 4 plus a seeded dither in [-2, 2])
    under CRF 28 + AQ 2 + cuTree, a
    1000 kbit / 1000 kb/s VBV at 25 fps, HRD and HDR10 signalling
@@ -108,7 +120,7 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    and the peak device memory; fails on a VBV underflow, an AU that
    misses its CPB removal time, a decode order other than I0 P1, or a
    per-CTU QP map that never varies;
-7. the UHD slow path (run beside phase 4, before 5 and 6): 3 frames (I
+7. the UHD slow path (run beside phase 4): 3 frames (I
    P B) of 3840x2160 park as BASELINE config 4, parameters built as the
    CLI builds them (--preset slow --hme --rc-lookahead 40 --crf 24
    --vbv-bufsize 25000 --vbv-maxrate 25000, 60 fps): row-banded
@@ -117,7 +129,7 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    blocks coded as rect PUs and the launches with the HME tier counted;
    fails on a decode order other than I0 P2 B1, a VBV underflow, no
    rect PU on any picture or a recon below 28 dB;
-8. the inter tools at full width (run after phase 7, before 5 and 6),
+8. the inter tools at full width (run after phase 7),
    1920x1080 park: 8a, 3 frames (I P B), `--preset
    veryslow --crf 24` as the CLI builds it (AMP in P and B, rect, star
    r = 32, 4 references, subme 4, 8 B-frames, rc-lookahead 40), with
@@ -128,8 +140,8 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    fails on a decode order other than I0 P2 B1 or a recon below 28 dB;
    8b also fails when the B slice carries no
    explicit weight;
-9. the residual-side options at full width (run after phase
-   8, before 5 and 6): 9b 1080p park, 2 frames (I P), --lossless
+9. the residual-side options at full width (9b in the phase worker,
+   9a after phase 10a): 9b 1080p park, 2 frames (I P), --lossless
    (transquant bypass, no loop filters), with bits per picture; fails
    unless the card's recon equals the source in all three planes.  9a
    1080p park, 3 frames (I P B), --crf 24 --aq-mode 2 --nxn-intra
@@ -140,8 +152,8 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    from the second picture on, without the SPS scaling-list flag, on a
    decode order other than I0 P2 B1 or a recon below 28 dB.  Each prints
    what phase 3 prints;
-10. the 4:2:2 and 4:4:4 paths at full width (run after phase 9b, before
-   9a, 5 and 6), 1080p park with its chroma brought to the format (rows,
+10. the 4:2:2 and 4:4:4 paths at full width (10a after phase 8b, 10b
+   in the phase worker), 1080p park with its chroma brought to the format (rows,
    or rows and columns, repeated plus a seeded sigma = 1 noise), on the
    fixed-grid wavefront: 10a Main 4:2:2 10, 3 frames (I P B), --crf 24
    --aq-mode 2 with cuTree as the CLI builds it for a C422p10 y4m; 10b
@@ -151,19 +163,40 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    kernel's launches by shape (the wrappers' own counts); fails unless
    the SPS carries chroma_format_idc 2 / 3 and the RExt profile (4), on a
    decode order other than I0 P2 B1 / I0 P1, a recon below 28 dB, or
-   when K2 never ran at the format's chroma MC window.
+   when K2 never ran at the format's chroma MC window;
+11. the ABR ladder at full width (started after phase 4, in a card
+   worker process beside phases 8b and 10a and the phase worker): the
+   port's CLI
+   with --abr-ladder on a 3-frame 1080p park y4m, three rungs:
+   1920x1080 --crf 24 --aq-mode 2 --mcstf writing the cuTree share,
+   1280x720 --crf 26 and 640x360 --crf 28 without AQ reading it (each
+   scaled on the card).  Prints per rung its seconds per picture, fps,
+   bits, PSNR-Y and per-CTU QP maps; fails unless each SPS has the
+   rung's size, the slaves ran no cuTree lookahead, the first slave
+   took the master's offsets on every picture and its QPs vary on some
+   picture while the second took none (the reference's one-consumer
+   ring), and K1 and K2 ran at MCSTF's shapes.
 
-Every stream of phases 3-10 is decoded with the port's own decoder in
+After phase 4 two card worker processes start: phase 11's, and the
+phase worker, which runs 9b, 10b, 5 and 6 in turn (their output is
+printed when it ends); this process meanwhile runs 8b, 10a and 9a.
+Each holds one host thread and leaves the card mostly idle, so the
+three overlap on the 8-core host; their seconds per picture include
+the others' load.
+
+Every stream of phases 3-11 is decoded with the port's own decoder in
 two worker processes on the host while the card runs the next phases;
 each picture must equal the card's recon and carry a matching MD5 SEI.
 
-Phases 3 and 5-10 each set the kernel counts to 0 just before their
-encode and read them just after.  Each phase prints its seconds.
+Phases 3 and 5-11 (each in its process) set the kernel counts to 0
+just before their encode and read them just after.  Each
+phase prints its seconds.
 
 Prints SEA's time beside K1's, the kernels' JSON line (launches from
 phase 9a, the residual-side path, and per path; K1's times at the analysis
-shape n = 16, r = 32, every slow-path shape under "shapes"; K2's at size
-23, its two chroma shapes under "shapes"), the card
+shape n = 16, r = 32, every slow-path shape and MCSTF's under "shapes";
+K2's at size 23, its two chroma shapes and MCSTF's under "shapes", each
+with its launches), the card
 line, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is
 then non-zero and no result line is printed.
@@ -778,6 +811,92 @@ def phase_k2_chroma(dev, rng, card: str, res):
                 e["plain_ms"], card, e["library_ms"])
         out.append(e)
     return out
+
+
+# the ladder's rungs below the 1080p master (phase 11)
+LADDER_RUNGS = ((1280, 720), (640, 360))
+
+
+def phase_mcstf_kernels(dev, card: str, clock_hz: float, sw=1920, sh=1080,
+                        rungs=LADDER_RUNGS):
+    """K1 and K2 at MCSTF's shapes, on park frames 1 (source) and 0
+    (neighbour) cut to 1072x1920: K1's search of every 16x16 block at
+    r = 12, lambda 0, zero predictors; K2's 16x16 gather of the aligned
+    reference blocks at K1's MVs (clamped per coordinate).  Each exact
+    against its plain version and timed with its bound, its plain time
+    and, for K2, the library call.  Then mcstf._align_and_error on the
+    card against its CPU run (aligned plane, errors, MVs equal), and the
+    ladder's scale_frame 1080p -> 720p and -> 360p on the card against
+    the CPU (exact), timed.  Returns the two kernels' shape entries and
+    their errors."""
+    from x265_mod_by_patman_tpu_torch.analysis.mcstf import (
+        N, SEARCH, _align_and_error)
+    from x265_mod_by_patman_tpu_torch.ops.cuda.full_search import \
+        full_search
+    from x265_mod_by_patman_tpu_torch.ops.cuda.gather import (
+        window_gather, window_gather_plain)
+    from x265_mod_by_patman_tpu_torch.utils.scaler import (
+        scale_frame, scale_plane_tensor)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    f = park_frames(sw, sh, 2)
+    h, w = sh & ~15, sw & ~15
+    cur = t(f[1][0][:h, :w].astype(np.int32))
+    ref = t(f[0][0][:h, :w].astype(np.int32))
+    nby, nbx = h // N, w // N
+    bys, bxs = np.mgrid[0:nby, 0:nbx]
+    x0 = t((bxs.ravel() * N).astype(np.int32))
+    y0 = t((bys.ravel() * N).astype(np.int32))
+    z = torch.zeros_like(x0)
+    k1_res, k2_res = {"max_abs_err": 0}, {"max_abs_err": 0}
+    args = (ref, cur, x0, y0, z, z, 0, N, SEARCH)
+    k1 = _k1_shape(f"{sw}x{sh} park, MCSTF alignment", args, card, clock_hz,
+                   k1_res)
+    k1.update(bound_by="operations", library_ms=None)
+    mvx, mvy, _ = full_search(*args)
+    ys, xs = (y0 + (mvy >> 2)).contiguous(), (x0 + (mvx >> 2)).contiguous()
+    _check_k2(ref, ys, xs, N, "MCSTF aligned blocks", k2_res)
+    ar = torch.arange(N, device=dev)
+    gy = torch.clip(ys.long()[:, None, None] + ar[None, :, None], 0, h - 1)
+    gx = torch.clip(xs.long()[:, None, None] + ar[None, None, :], 0, w - 1)
+    k2f = lambda: window_gather(ref, ys, xs, N)
+    b = ys.shape[0]
+    k2 = dict(shape=f"{sw}x{sh} park, MCSTF aligned blocks: B={b} size={N} "
+              f"plane={h}x{w}", ms=time_ms(k2f),
+              plain_ms=time_ms(lambda: window_gather_plain(ref, ys, xs, N)),
+              bound_ms=k2_bound_ms(b, N, (h, w)), bound_by="bytes",
+              library_ms=time_ms(lambda: ref[gy, gx]))
+    k2["share"] = k2["bound_ms"] / k2["ms"]
+    _report("K2", k2["shape"], k2["ms"], call_ms(k2f), k2["bound_ms"],
+            k2["plain_ms"], card, k2["library_ms"])
+    # the whole alignment (K1, two K2 gathers, the block errors)
+    got = _align_and_error(cur, ref, nby, nbx)
+    want = _align_and_error(cur.cpu(), ref.cpu(), nby, nbx)
+    for name, g, e in zip(("aligned", "err", "fx", "fy"), got, want):
+        if not torch.equal(g.cpu(), e):
+            raise AssertionError(f"_align_and_error {name}: card and CPU "
+                                 "differ")
+    moved = float((got[2] != 0).float().mean() + (got[3] != 0).float()
+                  .mean()) / 2
+    print(f"MCSTF _align_and_error {sw}x{sh} park frames 0 -> 1 ({nby}x{nbx} "
+          f"blocks): card equals CPU (aligned, err, fx, fy); mean error "
+          f"{float(got[1].mean()):.2f}, blocks moved {moved:.3f}; "
+          f"{call_ms(lambda: _align_and_error(cur, ref, nby, nbx)):.4f} ms "
+          f"per call with its host work ({card})")
+    # the ladder's scaler: two float64 products per plane
+    y_dev = t(f[0][0].astype(np.int32))
+    for wo, ho in rungs:
+        on_card = scale_frame(f[0], wo, ho, 8, dev)
+        on_cpu = scale_frame(f[0], wo, ho, 8, "cpu")
+        if not all(np.array_equal(a, c) for a, c in zip(on_card, on_cpu)):
+            raise AssertionError(f"scale_frame to {wo}x{ho}: card and CPU "
+                                 "differ")
+        dev_ms = call_ms(lambda: scale_plane_tensor(y_dev, wo, ho, 8))
+        frame_ms = call_ms(lambda: scale_frame(f[0], wo, ho, 8, dev),
+                           iters=5, warm=1)
+        print(f"scale_frame {sw}x{sh} -> {wo}x{ho}: card equals CPU; luma "
+              f"plane on the card {dev_ms:.4f} ms, whole frame from and "
+              f"to the host {frame_ms:.4f} ms ({card})")
+    return k1, k2, k1_res["max_abs_err"], k2_res["max_abs_err"]
 
 
 def psnr(a, b, peak: int = 255) -> float:
@@ -1541,7 +1660,7 @@ class _Pic:
 
     def __init__(self, f):
         for k in ("poc", "disp", "slice_type", "qp", "bits", "bitstream",
-                  "md5", "stats", "pipeline_runs"):
+                  "md5", "stats", "pipeline_runs", "qp_map"):
             setattr(self, k, getattr(f, k))
         self.recon = tuple(np.array(p, copy=True).view(np.ndarray)
                            for p in f.recon)
@@ -1725,14 +1844,15 @@ def phase_agree(w=416, h=240) -> float:
 
 
 def agree_all(pools, w: int, h: int):
-    """The same clip on cuda and on cpu must give identical bytes.  Six
+    """The same clip on cuda and on cpu must give identical bytes.  Seven
     groups of cases run at once, each in a thread (within a group the
     cases run in turn): agree_rc (CQP, CRF, ABR), agree_deep,
-    agree_slow, agree_inter_tools, agree_residual and agree_chroma."""
+    agree_slow, agree_inter_tools, agree_residual, agree_chroma and
+    agree_ladder."""
     import concurrent.futures
     checks = []
     groups = (agree_rc, agree_deep, agree_slow, agree_inter_tools,
-              agree_residual, agree_chroma)
+              agree_residual, agree_chroma, agree_ladder)
     try:
         with concurrent.futures.ThreadPoolExecutor(len(groups)) as ex:
             futs = [ex.submit(g, pools, w, h, checks) for g in groups]
@@ -1775,18 +1895,12 @@ def cli_on_card(frames, opts, s_gpu, name: str, bit_depth: int = 8,
     (with `--preset preset` when given) in a subprocess on the card,
     which runs beside the phase's next cases.  Returns the check to call
     later: it waits for the CLI, whose .hevc must equal `s_gpu`."""
-    from x265_mod_by_patman_tpu_torch.io.y4m import VideoInfo, Y4MWriter
-    h, w = frames[0][0].shape
     n = len(frames)
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
     src = os.path.join(build, f"{name}.y4m")
     dst = os.path.join(build, f"{name}_cli.hevc")
-    wr = Y4MWriter(src, VideoInfo(w, h, 25, 1, bit_depth=bit_depth,
-                                  total_frames=n, csp=csp))
-    for f in frames:
-        wr.write(*f)
-    wr.close()
+    write_y4m(src, frames, bit_depth, csp)
     cmd = [sys.executable, "-m", f"{PKG}.cli", "--input", src, "-o", dst,
            "--frames", str(n), "--no-progress"]
     if preset:
@@ -2123,14 +2237,258 @@ def agree_chroma(pools, w: int, h: int, checks):
         raise AssertionError("the 4:4:4 default encode made no B picture")
 
 
+def _ladder_cli(conf: str):
+    """In a worker process: the port's CLI on an --abr-ladder config
+    (cli.main(["--abr-ladder", conf])), with the kernel counts set to 0
+    just before and read just after.  Returns per rung (in the config's
+    order) its size, output file, pictures, sources' luma (the rung's
+    input before any MCSTF), seconds per picture (the card synchronised
+    around each _encode_picture), whether it ran its own cuTree
+    lookahead, wrote or read the share, and which pictures took the
+    master's offsets; and the run's seconds, launches and launches by
+    shape."""
+    from x265_mod_by_patman_tpu_torch import cli
+    from x265_mod_by_patman_tpu_torch.analysis.cutree_share import \
+        CuTreeShareReader
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
+    from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
+    rungs, by_enc, by_reader = [], {}, {}
+    orig = (Encoder.__init__, Encoder.encode_frame, Encoder.flush,
+            Encoder._encode_picture, CuTreeShareReader.get)
+    init, encode_frame, flush, encode_picture, get = orig
+
+    def sync(enc):
+        if enc.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def w_init(self, *a, **k):
+        init(self, *a, **k)
+        r = dict(w=self.p.source_width, h=self.p.source_height,
+                 own_cutree=self._cutree is not None,
+                 writes=self._ctshare_w is not None,
+                 reads=self._ctshare_r is not None, pics=[], srcs=[],
+                 secs=[], offsets=[])
+        rungs.append(r)
+        by_enc[id(self)] = r
+        if self._ctshare_r is not None:
+            by_reader[id(self._ctshare_r)] = r
+
+    def w_encode_frame(self, y, u, v):
+        by_enc[id(self)]["srcs"].append(np.array(y, copy=True))
+        out = encode_frame(self, y, u, v)
+        by_enc[id(self)]["pics"].extend(_Pic(f) for f in out)
+        return out
+
+    def w_flush(self):
+        out = flush(self)
+        by_enc[id(self)]["pics"].extend(_Pic(f) for f in out)
+        return out
+
+    def w_encode_picture(self, *a, **k):
+        sync(self)
+        t0 = time.perf_counter()
+        f = encode_picture(self, *a, **k)
+        sync(self)
+        by_enc[id(self)]["secs"].append(time.perf_counter() - t0)
+        return f
+
+    def w_get(reader, disp, ncy, ncx):
+        off = get(reader, disp, ncy, ncx)
+        by_reader[id(reader)]["offsets"].append((disp, off is not None))
+        return off
+
+    (Encoder.__init__, Encoder.encode_frame, Encoder.flush,
+     Encoder._encode_picture, CuTreeShareReader.get) = (
+        w_init, w_encode_frame, w_flush, w_encode_picture, w_get)
+    try:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["--abr-ladder", conf])
+        total = time.perf_counter() - t0
+        counts, by_shape = kernels.counts(), kernels.counts_by_shape()
+    finally:
+        (Encoder.__init__, Encoder.encode_frame, Encoder.flush,
+         Encoder._encode_picture, CuTreeShareReader.get) = orig
+    if rc != 0:
+        raise AssertionError(f"--abr-ladder {conf}: exit {rc}")
+    return dict(rungs=rungs, total=total, counts=counts, by_shape=by_shape)
+
+
+def ladder_conf(path: str, src: str, rungs, device: str, ring: str,
+                extra: str = "") -> list:
+    """Write an --abr-ladder config: one line per rung (width, height,
+    output, options), rung 0 writing the cuTree share `ring` and the
+    others reading it, all on `device`.  Returns the outputs."""
+    lines, outs = [], []
+    for i, (w, h, out, opts) in enumerate(rungs):
+        side = "write" if i == 0 else "read"
+        lines.append(f"--input {src} -o {out} --input-res {w}x{h} {opts} "
+                     f"--device {device} --no-progress {extra} "
+                     f"cutree-share-{side}={ring}")
+        outs.append(out)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return outs
+
+
+def write_y4m(path: str, frames, bit_depth: int = 8,
+              csp: str = "420") -> None:
+    """`frames` as a 25 fps y4m (chroma format "420", "422" or "444")."""
+    from x265_mod_by_patman_tpu_torch.io.y4m import VideoInfo, Y4MWriter
+    h, w = frames[0][0].shape
+    wr = Y4MWriter(path, VideoInfo(w, h, 25, 1, bit_depth=bit_depth,
+                                   total_frames=len(frames), csp=csp))
+    for f in frames:
+        wr.write(*f)
+    wr.close()
+
+
+# phase 4's ladder: the master's and the slave's size and options
+LADDER_AGREE = (10, ((416, 240, "--crf 28 --aq-mode 2 --mcstf"),
+                     (208, 120, "--crf 28 --aq-mode 0")))
+
+
+def agree_ladder(pools, w: int, h: int, checks):
+    """Phase 4's ABR ladder through the port's CLI (--abr-ladder), on the
+    card and on the CPU in worker processes: park at 416x240, 10 frames
+    (MCSTF at strength 1.5 on display 0 and 0.95 on display 8), the
+    master under CRF 28 + AQ 2 + --mcstf writing the cuTree share, a
+    208x120 slave under CRF 28 reading it.  Each rung's .hevc must be
+    byte-identical between cuda and cpu.  Each side has its own ring;
+    the info SEI, which would print the ring's name, is off."""
+    n, rungs = LADDER_AGREE
+    build = os.path.join(ROOT, "build", "ladder_agree")
+    os.makedirs(build, exist_ok=True)
+    src = os.path.join(build, f"park_{w}x{h}.y4m")
+    write_y4m(src, park_frames(w, h, n))
+    runs = {}
+    for device, pool in (("cpu", pools.cpu), ("cuda", pools.card)):
+        outs = [(rw, rh, os.path.join(build, f"{device}_{rw}x{rh}.hevc"),
+                 opts) for rw, rh, opts in rungs]
+        conf = os.path.join(build, f"{device}.conf")
+        ladder_conf(conf, src, outs, device,
+                    f"x265tpu_smoke_{os.getpid()}_{device}", "--no-info")
+        runs[device] = (pool.submit(_ladder_cli, conf), outs)
+    got = {d: (fut.result(), outs) for d, (fut, outs) in runs.items()}
+    card = got["cuda"][0]
+    for i, (rw, rh, _opts) in enumerate(rungs):
+        a, b = (open(got[d][1][i][2], "rb").read() for d in ("cuda", "cpu"))
+        r = card["rungs"][i]
+        what = f"ladder rung {i} {rw}x{rh} x{n} " + " ".join(
+            f"{f.slice_type}{f.qp}" for f in r["pics"])
+        print(f"agree {what}: cuda {len(a)} B, cpu {len(b)} B (the ladder "
+              f"{card['total']:.2f} s on the card, "
+              f"{got['cpu'][0]['total']:.2f} s on the CPU, in parallel)")
+        if a != b:
+            raise AssertionError(f"cuda and cpu streams differ: {what}")
+        print(f"cuda and cpu streams are byte-identical: {what}")
+        DECODES.submit(what, a, r["pics"])
+    slave = card["rungs"][1]
+    if slave["own_cutree"] or not slave["reads"]:
+        raise AssertionError("the ladder's slave ran its own lookahead")
+
+
+def phase_ladder_start(ex, w=1920, h=1080, rungs=LADDER_RUNGS):
+    """Phase 11: the port's CLI with --abr-ladder on the card, in a card
+    worker process (`ex`), beside the in-process phases.  Park at 1080p,
+    3 frames, as an 8-bit 4:2:0 y4m under build/; three rungs: 1920x1080
+    --crf 24 --aq-mode 2 --mcstf writing the cuTree share, 1280x720
+    --crf 26 and 640x360 --crf 28 without AQ reading it (per-CTU QP
+    variation in them can only come from the master's offsets).
+    Returns the future and the rungs."""
+    build = os.path.join(ROOT, "build", "ladder")
+    os.makedirs(build, exist_ok=True)
+    src = os.path.join(build, f"park_{w}x{h}.y4m")
+    write_y4m(src, park_frames(w, h, 3))
+    rungs = [(w, h, "--crf 24 --aq-mode 2 --mcstf")] + [
+        (rw, rh, f"--crf {c} --aq-mode 0")
+        for (rw, rh), c in zip(rungs, (26, 28))]
+    outs = [(rw, rh, os.path.join(build, f"rung_{rw}x{rh}.hevc"), opts)
+            for rw, rh, opts in rungs]
+    conf = os.path.join(build, "ladder.conf")
+    ladder_conf(conf, src, outs, "cuda", f"x265tpu_smoke_{os.getpid()}")
+    with open(conf) as f:
+        print("phase 11 --abr-ladder config:\n" + f.read().rstrip())
+    return ex.submit(_ladder_cli, conf), outs, (h & ~15, w & ~15)
+
+
+def phase_ladder_finish(fut, outs, mc_hw):
+    """Phase 11's checks once its worker is done: each rung's stream is
+    queued for the host decode (MD5 SEIs, the card's recon), its SPS
+    has the rung's size, the slaves ran no cuTree lookahead, the first
+    slave took the master's offsets on every picture and its per-CTU
+    QPs vary on some picture, the second took none (the reference's
+    one-consumer ring), and K1 and K2 ran at MCSTF's shapes.  Prints each
+    rung's seconds per picture, fps, bits and PSNR-Y.  Returns the
+    launch counts and the launches at MCSTF's shapes."""
+    from x265_mod_by_patman_tpu_torch.analysis.mcstf import N, SEARCH
+    run = fut.result()
+    total = run["total"]
+    for i, (r, (w, h, out, opts)) in enumerate(zip(run["rungs"], outs)):
+        with open(out, "rb") as f:
+            stream = f.read()
+        what = f"phase 11, ladder rung {i} {w}x{h} {opts}"
+        DECODES.submit(what, stream, r["pics"])
+        sps = sps_of(stream)
+        cw = sps.width - 2 * (getattr(sps, "conf_win_left", 0)
+                              + getattr(sps, "conf_win_right", 0))
+        ch = sps.height - 2 * (getattr(sps, "conf_win_top", 0)
+                               + getattr(sps, "conf_win_bottom", 0))
+        if (cw, ch) != (w, h) or (r["w"], r["h"]) != (w, h):
+            raise AssertionError(f"{what}: SPS {cw}x{ch}")
+        q = [psnr(r["srcs"][f.disp], f.recon[0][:h, :w]) for f in r["pics"]]
+        qm = [np.asarray(f.qp_map) for f in r["pics"]]
+        print(f"{what}: decode order " + " ".join(
+            f"{f.slice_type}{f.disp}" for f in r["pics"]) + "; seconds "
+            "per picture " + ", ".join(f"{f.slice_type}{f.disp} {s:.3f}"
+                                       for f, s in zip(r["pics"],
+                                                       r["secs"]))
+            + f"; fps {len(r['pics']) / total:.3f} over the ladder's "
+            f"{total:.2f} s; bits {sum(f.bits for f in r['pics'])} ("
+            + ", ".join(str(f.bits) for f in r["pics"]) + "); PSNR-Y "
+            + ", ".join(f"{x:.2f}" for x in q) + " dB; per-CTU QP "
+            "min/mean/max " + ", ".join(
+                f"{m.min()}/{m.mean():.2f}/{m.max()}" for m in qm)
+            + f"; SPS {cw}x{ch}; own cuTree lookahead {r['own_cutree']}, "
+            f"share writer {r['writes']}, reader {r['reads']}; pictures "
+            f"with the master's offsets {sum(o for _, o in r['offsets'])}"
+            f" of {len(r['offsets'])}")
+        if not all(x > 28.0 for x in q):
+            raise AssertionError(f"{what}: recon PSNR {q}")
+        if i == 0:
+            if not (r["own_cutree"] and r["writes"]):
+                raise AssertionError(f"{what}: the master writes no share")
+            continue
+        if r["own_cutree"] or not r["reads"]:
+            raise AssertionError(f"{what}: the slave ran its own lookahead")
+        # the share's ring has one consumer, as in the reference (ROADMAP
+        # §3): the first slave drains every record, the second gets none
+        if [o for _, o in r["offsets"]] != [i == 1] * len(r["pics"]):
+            raise AssertionError(f"{what}: the master's offsets reached "
+                                 f"{r['offsets']}")
+        if i == 1 and not any(m.min() < m.max() for m in qm):
+            raise AssertionError(f"{what}: the per-CTU QP map never varied")
+    h, w = mc_hw
+    k1 = run["by_shape"]["full_search"].get((N, SEARCH, h, w), 0)
+    k2 = run["by_shape"]["window_gather"].get((N, h, w), 0)
+    print(shapes_line(run["by_shape"]))
+    print(f"phase 11 launches: {run['counts']}; at MCSTF's shapes K1 {k1}, "
+          f"K2 {k2}")
+    if not (k1 and k2):
+        raise AssertionError("K1 / K2 never ran at MCSTF's shapes")
+    for name, c in run["counts"].items():
+        if c <= 0:
+            raise AssertionError(f"{name} never launched on the ladder")
+    return run["counts"], {"full_search": k1, "window_gather": k2}
+
+
 def run_phases(dev, rng, cap: str, clock: float):
-    """Phases 2-10; phases 7, 8, 9b, 10 and 9a run before 5 and 6, so
-    that their pictures decode on the host while the card runs the next
-    ones (phase 10's slow 4:2:2 / 4:4:4 decodes under 9a's I picture).
-    Phase 4 runs in its worker processes, driven from a thread, beside
-    phases 7 and 8a: their encode holds one host thread and the card
-    is idle most of the time, so the two overlap on the 8-core host.
-    Returns the launch counts per path, the kernels' numbers and SEA's."""
+    """Phases 2-11.  Phase 4 runs in its worker processes, driven from a
+    thread, beside phases 7 and 8a: their encode holds one host thread
+    and the card is idle most of the time, so the two overlap on the
+    8-core host.  Then phase 11 and the phase worker (9b, 10b, 5, 6)
+    run so in their own processes beside 8b, 10a and 9a.  Returns the
+    launch counts per path, the kernels' numbers and SEA's."""
     import concurrent.futures
     t0 = time.perf_counter()
     k1, main_shape, shapes = phase_k1_slow(dev, rng, cap, clock)
@@ -2144,6 +2502,12 @@ def run_phases(dev, rng, cap: str, clock: float):
               bound_ms=main_shape["bound_ms"], shape=main_shape["shape"],
               shapes=shapes)
     sea = phase_sea(dev, rng, cap, main_shape["ms"])
+    mc_k1, mc_k2, e1, e2 = phase_mcstf_kernels(dev, cap, clock)
+    fs["shapes"].append(mc_k1)
+    fs["max_abs_err"] = max(fs["max_abs_err"], e1)
+    wg = res["window_gather"]
+    wg["shapes"].append(mc_k2)
+    wg["max_abs_err"] = max(wg["max_abs_err"], e2)
     print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
     counts = {}
     t0 = time.perf_counter()
@@ -2161,30 +2525,122 @@ def run_phases(dev, rng, cap: str, clock: float):
         t_agree = agree.result()
     print(f"phase 4 agreement: {t_agree:.2f} s (beside phases 7 and 8a; "
           f"the three took {time.perf_counter() - t4:.2f} s)")
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    ladder_ex = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=ctx, initializer=_card_worker_init)
+    phase_ex = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=ctx, initializer=_phase_worker_init)
+    try:
+        counts.update(run_beside_ladder(dev, ladder_ex, phase_ex, res))
+    finally:
+        ladder_ex.shutdown(cancel_futures=True)
+        phase_ex.shutdown(cancel_futures=True)
+    return counts, res, sea
+
+
+# the phases that run in a second card worker process beside phases 8b,
+# 10a and 9a (each holds one host thread and leaves the card mostly
+# idle): (key in the kernels line's launches_by_path, function, label)
+WORKER_PHASES = (("lossless", "phase_lossless", "9b lossless path"),
+                 ("chroma444", "phase_chroma444", "10b 4:4:4 path"),
+                 ("crf_aq_cutree", "phase_rc", "5 rate-control path"),
+                 ("main10_vbv_hrd", "phase_main10",
+                  "6 Main10 delivery path"))
+
+
+class _Queued:
+    """In a worker process: the streams a phase queues for the host
+    decode, kept as host data and handed to the main process's
+    Decodes."""
+
+    def __init__(self):
+        self.items = []
+
+    def submit(self, what, stream, frames):
+        self.items.append((what, stream, [_Pic(f) for f in frames]))
+
+
+def _phase_worker_init():
+    """The phase worker: the kernels built in phase 1, one host thread,
+    trace spans recorded (the phases print them) into its own file."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda import build
+    from x265_mod_by_patman_tpu_torch.utils import trace
+    trace._path = os.path.join(ROOT, "build", "smoke_trace_worker.json")
+    torch.set_num_threads(1)
+    build.load_library()
+
+
+def _phases_in_worker(phases):
+    """In the phase worker: run each phase of `phases` (WORKER_PHASES
+    entries) in turn on the card, with its output captured.  Returns per
+    phase (key, launch counts, output, seconds), the streams queued for
+    the host decode and the K2 launches at the chroma MC windows."""
+    import contextlib
+    import io
+    global DECODES
+    DECODES = _Queued()
+    dev = torch.device("cuda", 0)
+    out = []
+    for key, fn, label in phases:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                counts = globals()[fn](dev)
+        except BaseException:
+            sys.stderr.write(buf.getvalue())
+            raise
+        out.append((key, counts, buf.getvalue() + f"phase {label}: "
+                    f"{time.perf_counter() - t0:.2f} s (in the phase "
+                    "worker)\n"))
+    return out, DECODES.items, dict(K2_CHROMA_LAUNCHES)
+
+
+def _decode_worker_streams(fut):
+    """Done-callback of the phase worker: queue its streams for the host
+    decode as soon as it ends (its failure is raised where its result is
+    read)."""
+    if fut.exception() is None:
+        for what, stream, pics in fut.result()[1]:
+            DECODES.submit(what, stream, pics)
+
+
+def run_beside_ladder(dev, ladder_ex, phase_ex, res):
+    """Phase 11 in its card worker process and phases 9b, 10b, 5 and 6 in
+    another (in turn), both beside phases 8b, 10a and 9a in this
+    process; their streams decode on the host as each ends.  Returns the
+    launch counts per path."""
+    counts = {}
+    t11 = time.perf_counter()
+    ladder = phase_ladder_start(ladder_ex)
+    beside = phase_ex.submit(_phases_in_worker, WORKER_PHASES)
+    beside.add_done_callback(_decode_worker_streams)
     t0 = time.perf_counter()
     counts["weightb_sea"] = phase_weightb_sea(dev)
     print(f"phase 8b weightb/SEA path: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    counts["lossless"] = phase_lossless(dev)
-    print(f"phase 9b lossless path: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
     counts["chroma422_10bit"] = phase_chroma422(dev)
     print(f"phase 10a 4:2:2 10-bit path: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    counts["chroma444"] = phase_chroma444(dev)
-    print(f"phase 10b 4:4:4 path: {time.perf_counter() - t0:.2f} s")
-    for e in res["window_gather"]["shapes"]:
-        e["launches"] = K2_CHROMA_LAUNCHES[e["format"]]
+    counts["abr_ladder"], at_mcstf = phase_ladder_finish(*ladder)
+    print(f"phase 11 ABR ladder: {time.perf_counter() - t11:.2f} s with "
+          f"its checks (beside phases 8b and 10a and the phase worker)")
     t0 = time.perf_counter()
     counts["residual"] = phase_residual(dev)
     print(f"phase 9a residual path: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    counts["crf_aq_cutree"] = phase_rc(dev)
-    print(f"phase 5 rate-control path: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    counts["main10_vbv_hrd"] = phase_main10(dev)
-    print(f"phase 6 Main10 delivery path: {time.perf_counter() - t0:.2f} s")
-    return counts, res, sea
+    done, _decodes, k2 = beside.result()
+    print(f"the phase worker's phases (9b, 10b, 5, 6; waited "
+          f"{time.perf_counter() - t0:.2f} s after phase 9a):")
+    for key, c, text in done:
+        print(text, end="")
+        counts[key] = c
+    K2_CHROMA_LAUNCHES.update(k2)
+    for name in ("full_search", "window_gather"):
+        res[name]["shapes"][-1]["launches"] = at_mcstf[name]
+    for e in res["window_gather"]["shapes"][:-1]:
+        e["launches"] = K2_CHROMA_LAUNCHES[e["format"]]
+    return counts
 
 
 def main() -> int:

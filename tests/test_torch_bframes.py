@@ -73,7 +73,8 @@ def _defs(rel):
     ("encoder/top.py", ("_aq_map", "_zone_qp", "_cutree_pop",
                         "write_stats", "_nr_offsets", "_nr_update",
                         "build16", "build_region", "_pad",
-                        "_frame_stats")),
+                        "_frame_stats", "encode_frame",
+                        "_post_filter_frame", "flush")),
     # the host halves of the loop filters, with their 4:2:2 / 4:4:4
     # branches (chroma edge maps, rectangular SAO tiles)
     ("ops/deblock.py", ("intra_bs_maps", "inter_bs_maps",

@@ -12,9 +12,12 @@ CPU:
   Options the port does not take raise NotImplementedError naming them;
   --amp, --weightb, --me sea, --preset veryslow and the residual-side
   options (--nxn-intra, --scaling-list, --nr-*, --lossless, analysis
-  save/load) run through the CLI and decode.
+  save/load), --mcstf, a cuTree share ring and --abr-ladder run through
+  the CLI and decode.
 
 Tolerance: exact (NAL types and bytes, file contents, CSV text)."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -145,15 +148,50 @@ def test_cli_output_equals_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("extra,name", [
-    (["--abr-ladder", "ladder.txt"], "--abr-ladder"),
-    (["--mcstf"], "--mcstf"),
-    (["--cutree-share-write", "ring"], "cuTree share"),
     (["--frame-threads", "2"], "--frame-threads"),
 ])
 def test_cli_rejects_unported_options(tmp_path, extra, name):
     _write_y4m(tmp_path / "in.y4m", 1)
     with pytest.raises(NotImplementedError, match=name):
         tcli.main(_cli_args(tmp_path, "x") + ["--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("option", ["--mcstf", "--cutree-share-write",
+                                    "--abr-ladder"])
+def test_cli_takes_the_ladder_options(tmp_path, option):
+    """The port's CLI takes --mcstf, a cuTree share ring and
+    --abr-ladder (their streams are held to the reference in
+    tests/test_torch_mcstf.py and tests/test_torch_ladder.py): the
+    option reaches the encoder (its info SEI lists it) and the stream
+    decodes with matching MD5 SEIs.  The ladder here is one rung, this
+    file's command line."""
+    from x265_mod_by_patman_tpu_torch.utils.ringmem import RingMem
+    _write_y4m(tmp_path / "in.y4m")
+    ring = f"x265tpu_test_cli_{os.getpid()}"
+    argv = _cli_args(tmp_path, "x") + ["--device", "cpu"]
+    signalled = {"--mcstf": b"mcstf=True",
+                 "--cutree-share-write": f"cutree_share_write={ring}"
+                 .encode(),
+                 "--abr-ladder": b"rc_mode=crf"}[option]
+    if option == "--mcstf":
+        argv.append(option)
+    elif option == "--cutree-share-write":
+        argv += [option, ring]
+    else:
+        conf = tmp_path / "ladder.conf"
+        conf.write_text(" ".join(argv) + "\n")
+        argv = [option, str(conf)]
+    try:
+        assert tcli.main(argv) == 0
+    finally:
+        if option == "--cutree-share-write":
+            RingMem(ring).unlink()
+    stream = (tmp_path / "x.hevc").read_bytes()
+    info = stream[stream.index(b"x265-tpu"):].split(b" ")
+    assert signalled in info, signalled
+    pics = Decoder().decode(stream)
+    assert len(pics) == 6
+    assert all(pc.md5 == pc.sei_md5 for pc in pics)
 
 
 @pytest.mark.parametrize("extra,signalled", [

@@ -3,6 +3,8 @@ byte-identical to the JAX encoder's, and the in-repo decoder must decode
 them to the port's recon with matching MD5 SEI.
 
 Tolerance: exact (bytes and pixels)."""
+import os
+
 import numpy as np
 import pytest
 
@@ -43,19 +45,48 @@ def test_port_stream_equals_jax_and_decodes(case):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(bframes=0, mcstf=True), "--mcstf"),
     (dict(bframes=0, internal_csp=0), "4:0:0"),
     (dict(bframes=0, rc_mode="crf", frame_parallel_window=2),
      "--frame-threads"),
-    (dict(bframes=0, cutree_share_write="ring"), "cuTree share"),
     (dict(bframes=0, mesh_tile_rows=2), "mesh_tile_rows"),
     (dict(bframes=0, internal_csp=3, scaling_list="default"),
      "--scaling-list in 4:4:4"),
-    (dict(bframes=0, cutree_share_read="ring"), "cuTree share"),
 ])
 def test_unported_options_raise(kw, name):
     with pytest.raises(NotImplementedError, match=name):
         ttop.Encoder(default_params(96, 64, **kw), "cpu")
+
+
+@pytest.mark.parametrize("option", ["mcstf", "cutree_share_write",
+                                    "cutree_share_read"])
+def test_mcstf_and_the_cutree_share_are_accepted(option):
+    """--mcstf and both sides of the cuTree share are ported (their
+    streams are held to the reference in tests/test_torch_mcstf.py and
+    tests/test_torch_ladder.py): the encoder opens with them and wires
+    them as the reference does."""
+    from x265_mod_by_patman_tpu_torch.analysis.cutree_share import \
+        CuTreeShareWriter
+    ring = f"x265tpu_test_accept_{os.getpid()}"
+    writer = CuTreeShareWriter(ring, 1, 2) \
+        if option == "cutree_share_read" else None
+    value = True if option == "mcstf" else ring
+    enc = ttop.Encoder(default_params(96, 64, rc_mode="crf",
+                                      **{option: value}), "cpu")
+    try:
+        assert not ttop._unsupported(enc.p)
+        if option == "mcstf":
+            assert enc.p.mcstf and not enc._mc_buf
+        elif option == "cutree_share_write":
+            assert enc._cutree is not None and enc._ctshare_w is not None
+        else:
+            assert enc._cutree is None and enc._ctshare_r is not None
+            assert enc.pps.cu_qp_delta_enabled and enc.rc.cu_tree
+    finally:
+        if enc._ctshare_r is not None:
+            enc._ctshare_r.close()
+        for w in (enc._ctshare_w, writer):
+            if w is not None:
+                w.close()
 
 
 @pytest.mark.parametrize("csp", [2, 3])

@@ -3,7 +3,8 @@
 the CLI's io and metrics modules, bitstream.hdr10plus, the native C
 entropy engine, the host half of analysis.weightp, the validation
 decoder and the numpy goldens it imports, the SEA search's goldens,
-the analysis file's writer and reader) must stay verbatim:
+the analysis file's writer and reader, the cuTree share's shm ring and
+its record format) must stay verbatim:
 each copy's source equals the reference's once the package name is
 substituted, and so must the host blocks copied into encoder/top.py's
 rewritten methods (the Dolby Vision RPU split, the HDR10+ and HRD
@@ -39,7 +40,8 @@ VERBATIM = (
     "utils/trace.py", "native/entropy_kernels.c", "io/__init__.py",
     "io/y4m.py", "io/script_input.py", "io/gop_output.py",
     "io/reconplay.py", "utils/metrics.py", "utils/vmaf.py",
-    "bitstream/hdr10plus.py", "decoder/__init__.py", "decoder/decoder.py")
+    "bitstream/hdr10plus.py", "decoder/__init__.py", "decoder/decoder.py",
+    "utils/ringmem.py", "analysis/cutree_share.py")
 
 # the numpy goldens decoder/decoder.py (and the SEA search's golden)
 # imports from the reference's jax-importing ops modules, with the

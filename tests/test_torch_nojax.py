@@ -75,6 +75,10 @@ def test_port_sources_never_import_jax():
                 scanned.append(os.path.relpath(path, pkg))
     assert os.path.join("ops", "sea.py") in scanned
     assert os.path.join("analysis", "reuse.py") in scanned
+    for rel in (("analysis", "mcstf.py"), ("analysis", "cutree_share.py"),
+                ("utils", "scaler.py"), ("utils", "ringmem.py"),
+                ("parallel", "ladder.py"), ("abrenc.py",)):
+        assert os.path.join(*rel) in scanned, rel
     assert not offenders, offenders
 
 

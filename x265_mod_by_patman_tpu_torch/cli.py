@@ -150,8 +150,9 @@ def main(argv=None) -> int:
     # checkAbrLadder, x265.cpp:93 — the ladder config supersedes the
     # single-encode options on the command line)
     if "--abr-ladder" in argv:
-        raise NotImplementedError(
-            "not ported: --abr-ladder (the ladder app and its scaler)")
+        from .abrenc import run_ladder
+        cfg = argv[argv.index("--abr-ladder") + 1]
+        return run_ladder(cfg)
     ap = build_parser()
     args = ap.parse_intermixed_args(rewrite_argv(ap, argv))
 

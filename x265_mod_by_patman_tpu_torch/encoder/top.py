@@ -122,7 +122,6 @@ def _unsupported(p: EncoderParams) -> List[str]:
     """Options of the reference this port does not take."""
     out = []
     checks = (
-        (p.mcstf, "--mcstf"),
         (p.mesh_tile_rows > 1, "mesh_tile_rows > 1"),
         # the reference's frame-parallel B defers rate-control feedback
         # across the window, which the port's sequential B encode does
@@ -135,8 +134,6 @@ def _unsupported(p: EncoderParams) -> List[str]:
         # chroma tables and fails on the shape mismatch
         (p.internal_csp == 3 and p.scaling_list != "off",
          "--scaling-list in 4:4:4"),
-        (getattr(p, "cutree_share_write", "") or
-         getattr(p, "cutree_share_read", ""), "cuTree share"),
     )
     out.extend(name for cond, name in checks if cond)
     return out
@@ -167,11 +164,12 @@ class Encoder:
         self.pps.entropy_coding_sync = bool(self.p.wpp)
         self.pps.sign_hide = bool(self.p.sign_hide)
         # cuTree runs under CRF/ABR only; AQ and cuTree (or its pass-2
-        # playback) code per-CTU QP deltas
+        # playback, or a ladder master's offsets read from the share)
+        # code per-CTU QP deltas
         self._cutree = None
         self._lowres = None           # lowres store, built on first use
         self._la_buf: deque = deque()
-        self._ctshare_w = None        # the cuTree share is not ported
+        self._ctshare_w = self._ctshare_r = None
         self._ct2pass = None          # pass-2 cuTree offsets playback
         self._ct1_offs = None         # pass-1 offsets to persist
         if (self.p.pass_num == 2 and self.p.cu_tree
@@ -181,6 +179,13 @@ class Encoder:
             # offsets instead of re-running the lookahead
             self._ct2pass = list(np.load(
                 self.p.stats_file + ".cutree")["offs"])
+        if getattr(self.p, "cutree_share_read", ""):
+            # consume the master rung's published offsets instead of
+            # running our own lookahead (ratecontrol.cpp:380 analog)
+            from ..analysis.cutree_share import CuTreeShareReader
+            self._ctshare_r = CuTreeShareReader(self.p.cutree_share_read)
+        elif self._ct2pass is not None:
+            pass                      # playback replaces the lookahead
         elif (self.p.cu_tree and self.p.rc_mode != "cqp"
                 and self.p.keyframe_max > 1 and self.p.rc_lookahead > 0):
             self._cutree = CuTreeLookahead(
@@ -190,10 +195,16 @@ class Encoder:
                 bframes=self.p.bframes if self.p.keyframe_max > 1
                 else 0, hme=self.p.hme,
                 store=self._lowres_store())
+            if getattr(self.p, "cutree_share_write", ""):
+                from ..analysis.cutree_share import CuTreeShareWriter
+                self._ctshare_w = CuTreeShareWriter(
+                    self.p.cutree_share_write,
+                    self.p.pic_height_in_ctus, self.p.pic_width_in_ctus)
         if self.p.pass_num == 1 and self._cutree is not None:
             self._ct1_offs = []
         self.pps.cu_qp_delta_enabled = (self.p.aq_mode > 0
                                         or self._cutree is not None
+                                        or self._ctshare_r is not None
                                         or self._ct2pass is not None)
         self.pps.deblocking_disabled = not self.p.deblock
         self.sps.sao_enabled = bool(self.p.sao)
@@ -260,7 +271,8 @@ class Encoder:
                               self.p.fps_num / max(1, self.p.fps_denom),
                               self.sps.width, self.sps.height,
                               self.p.qp_min, self.p.qp_max,
-                              cu_tree=self._cutree is not None,
+                              cu_tree=self._cutree is not None
+                              or self._ctshare_r is not None,
                               lookahead_units=self._la_rc,
                               bframes=self.bframes)
         if self.p.vbv_bufsize > 0 and self.p.vbv_maxrate > 0:
@@ -296,6 +308,9 @@ class Encoder:
                 elif k == "b":
                     bf = float(vv)
             self._zones.append((s0, e0, qov, bf))
+        self._mc_buf: deque = deque()     # MCSTF source window
+        self._mc_hist: deque = deque(maxlen=2)
+        self._mc_disp = 0
         self._dhdr10 = None
         if self.p.dhdr10_info:
             from ..bitstream.hdr10plus import load_dhdr10_json
@@ -496,11 +511,45 @@ class Encoder:
     def encode_frame(self, y: np.ndarray, u: np.ndarray,
                      v: np.ndarray) -> List[EncodedFrame]:
         """Display-order input; returns decode-order encoded frames.
-        With cuTree active, sources pass an rc_lookahead-deep window
-        first (reference Lookahead thread analog)."""
-        return self._post_filter_frame(y, u, v)
+        With MCSTF on, sources pass a +-2-frame temporal filter window;
+        with cuTree active they then pass a rc_lookahead-deep window
+        (reference Lookahead thread analog)."""
+        if not self.p.mcstf:
+            return self._post_filter_frame(y, u, v)
+        self._mc_buf.append((y, u, v))
+        out: List[EncodedFrame] = []
+        while len(self._mc_buf) > 2:
+            out.extend(self._mcstf_pop())
+        return out
+
+    def _mcstf_pop(self) -> List[EncodedFrame]:
+        from ..analysis.mcstf import filter_strength, mcstf_filter
+        center = self._mc_buf.popleft()
+        future = list(self._mc_buf)[:2]
+        past = list(self._mc_hist)
+        strength = filter_strength(self._mc_disp)
+        self._mc_disp += 1
+        self._mc_hist.append(center)
+        if strength > 0:
+            window = past + [center] + future
+            center = mcstf_filter(window, len(past), strength, self.p.qp,
+                                  self.p.internal_bit_depth, self.device)
+        return self._post_filter_frame(*center)
 
     def _post_filter_frame(self, y, u, v) -> List[EncodedFrame]:
+        if self._ctshare_r is not None:
+            # slave rung: mirror the master's lookahead delay so its
+            # published record for this display index exists by the
+            # time we ingest (the ladder drives rungs master-first)
+            self._la_buf.append((y, u, v))
+            out: List[EncodedFrame] = []
+            while len(self._la_buf) > self.p.rc_lookahead:
+                fy, fu, fv = self._la_buf.popleft()
+                off = self._ctshare_r.get(self.frame_count,
+                                          self.p.pic_height_in_ctus,
+                                          self.p.pic_width_in_ctus)
+                out.extend(self._ingest(fy, fu, fv, off))
+            return out
         if self._ct2pass is not None:
             i = min(self.frame_count, len(self._ct2pass) - 1)
             return self._ingest(y, u, v, self._ct2pass[i])
@@ -692,10 +741,19 @@ class Encoder:
 
     def flush(self) -> List[EncodedFrame]:
         out: List[EncodedFrame] = []
+        while self._mc_buf:
+            out.extend(self._mcstf_pop())
         if self._cutree is not None:
             while self._la_buf:
                 fy, fu, fv = self._la_buf.popleft()
                 out.extend(self._ingest(fy, fu, fv, self._cutree_pop()))
+        elif self._ctshare_r is not None:
+            while self._la_buf:
+                fy, fu, fv = self._la_buf.popleft()
+                off = self._ctshare_r.get(self.frame_count,
+                                          self.p.pic_height_in_ctus,
+                                          self.p.pic_width_in_ctus)
+                out.extend(self._ingest(fy, fu, fv, off))
         while self._queue:
             out.extend(self._emit_minigop(self._next_gop_len()))
         return out
