@@ -44,7 +44,14 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    16x16 gather of the aligned blocks, each exact and timed with its
    bound, plain and library times; mcstf._align_and_error on the card
    equal to its CPU run; the ladder's scale_frame 1080p -> 720p and
-   -> 360p on the card equal to the CPU, timed;
+   -> 360p on the card equal to the CPU, timed.  K3 `ordered_sum`
+   (phase_k3) at the shapes of the sums it orders (the lookahead's
+   32x32 windows of the 544x960 lowres plane and of the 68x120 intra
+   costs, then their window sums; the g = 2 and 4 region groups; the
+   batched intra decision's CTU groups of two 1080p frames) and, for
+   information, the TU16 / TU32 sums that keep fsum: exact against its
+   plain version, with its device time, bound, share, the plain
+   version's, fsum's and torch.sum's times;
 3. main path: a 2-frame (I P) 1920x1080 8-bit
    4:2:0 clip (the `park` generator of tools/make_clips.py) through the
    port's Encoder on the card at the repo defaults (CQP 32, 4 B-frames
@@ -54,7 +61,7 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    prints seconds per I and P picture, the lookahead's trace spans,
    each kernel's launches split into lookahead, cuTree and analysis,
    bits per frame and peak device memory, and whether the lowres
-   intra-cost sums (float32, fixed pairwise order) stayed exact;
+   intra-cost sums (float32, the reference's order) stayed exact;
 4. the 416x240 park clip encoded on "cuda" and on "cpu" must give
    byte-identical streams: CQP as I P P (bframes=0, 3 frames) and at the
    repo defaults (5 frames; a referenced B in every mini-GOP of 3 or
@@ -91,7 +98,16 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    port's CLI (--abr-ladder, agree_ladder) on the card and on the CPU:
    a 416x240 master under CRF 28 + AQ 2 + --mcstf writing the cuTree
    share and a 208x120 slave reading it, 10 frames (MCSTF at display 0
-   and 8); each rung's file must be byte-identical.
+   and 8); each rung's file must be byte-identical.  Then the batched
+   and parallel entry points (agree_batched): bench.py's own point
+   (416x240, QP 32, keyint 1, CTU 32, rd 2, SAO off), 16 frames through
+   encode_intra_batched in batches of 8 (its fps printed for
+   information); MultiStreamIntraEncoder with 4 streams x 2 steps, also
+   equal to the four streams encoded one by one; MultiStreamEncoder
+   with 2 streams of 4 frames at the repo defaults, also equal to the
+   two encoded alone (K1 / K2 launches by shape printed);
+   encode_gop_parallel on 8 frames in chunks of 4, and
+   ElasticGopEncoder with one injected WorkerFailure equal to it.
    The frame counts keep the script inside its time limit.  Each
    case's card encode runs in one of three card worker processes and
    its CPU encode in one of three one-thread CPU worker processes, six
@@ -175,20 +191,31 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    rung's size, the slaves ran no cuTree lookahead, the first slave
    took the master's offsets on every picture and its QPs vary on some
    picture while the second took none (the reference's one-consumer
-   ring), and K1 and K2 ran at MCSTF's shapes.
+   ring), and K1 and K2 ran at MCSTF's shapes;
+12. the batched all-intra path at full width (in the phase worker,
+   after 6): 4 frames of 1080p park at bench.py's operating point (QP
+   32, keyint 1, CTU 32, rd 2, SAO off, deblock on) through
+   encode_intra_batched(batch=2), whose second batch runs on the card
+   while the first one's entropy runs on the host, and through
+   encode_intra_pipelined.  Prints each run's seconds per frame, fps,
+   `wavefront` spans, bits, PSNR-Y and peak memory, and the torch
+   operations the batched wavefront dispatches on two frames against
+   one; fails when the two streams differ, on a recon below 28 dB, when
+   two frames dispatch more than 1.5x one frame's operations, or when K3
+   never ran.
 
 After phase 4 two card worker processes start: phase 11's, and the
-phase worker, which runs 9b, 10b, 5 and 6 in turn (their output is
+phase worker, which runs 9b, 10b, 5, 6 and 12 in turn (their output is
 printed when it ends); this process meanwhile runs 8b, 10a and 9a.
 Each holds one host thread and leaves the card mostly idle, so the
 three overlap on the 8-core host; their seconds per picture include
 the others' load.
 
-Every stream of phases 3-11 is decoded with the port's own decoder in
+Every stream of phases 3-12 is decoded with the port's own decoder in
 two worker processes on the host while the card runs the next phases;
 each picture must equal the card's recon and carry a matching MD5 SEI.
 
-Phases 3 and 5-11 (each in its process) set the kernel counts to 0
+Phases 3 and 5-12 (each in its process) set the kernel counts to 0
 just before their encode and read them just after.  Each
 phase prints its seconds.
 
@@ -196,7 +223,8 @@ Prints SEA's time beside K1's, the kernels' JSON line (launches from
 phase 9a, the residual-side path, and per path; K1's times at the analysis
 shape n = 16, r = 32, every slow-path shape and MCSTF's under "shapes";
 K2's at size 23, its two chroma shapes and MCSTF's under "shapes", each
-with its launches), the card
+with its launches; K3's at the lowres windows, every shape under
+"shapes"), the card
 line, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is
 then non-zero and no result line is printed.
@@ -938,11 +966,80 @@ def check_minigops(enc) -> None:
                                  "referenced B")
 
 
+def k3_bound_ms(k: int, m: int) -> float:
+    """Bytes bound of the ordered sum: each float32 term read once and
+    each row sum written once, at the HBM peak (one add per term is far
+    below the fp32 rate)."""
+    return 1e3 * 4 * (k * m + m) / HBM_BYTES_PER_S
+
+
+# K3's shapes, (K terms a row, M rows): the lookahead's sums of the
+# 544x960 lowres plane (17 x 30 windows of 32 x 32, then the 510 window
+# sums) and of the 68x120 intra costs (3 x 4 windows of the plane padded
+# to 96x128, then 12), _region_uniform's g x g group sums of the 68x120
+# 16x16-block map (g = 2: 34 x 60 groups, g = 4: 17 x 30), and the
+# batched intra decision's 2x2 CTU group sums of phase 12's two-frame
+# 1080p batch at CTU 32 (per mode: 2 x 34 x 60 x 35 rows; of the chosen
+# totals: 2 x 34 x 60).  The 16x16 and 32x32 TU sums at 1080p are timed
+# for information: they keep fsum (their order in the reference is not
+# row-major, ROADMAP §3) and K3 does not run there.
+K3_SHAPES = ((4, 142800, "intra CTU groups per mode, 2 frames", True),
+             (510, 1, "lowres plane window sums", True),
+             (1024, 12, "intra-cost windows", True),
+             (12, 1, "intra-cost window sums", True),
+             (4, 2040, "region groups g=2", True),
+             (16, 510, "region groups g=4", True),
+             (4, 4080, "intra CTU groups of the chosen modes", True),
+             (1024, 510, "lowres plane windows (int64 sums now)", False),
+             (256, 8160, "TU16 sums (fsum stays)", False),
+             (1024, 2040, "TU32 sums (fsum stays)", False))
+
+
+def phase_k3(dev, rng, card: str):
+    """K3 against its plain version at the sites' shapes, exact; its
+    device time (CUDA-graph replays), bound and share, the plain
+    version's, fsum's (the pairwise order the sites had) and one
+    torch.sum's (the library call) at the same shape."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import \
+        ordered_sum
+    from x265_mod_by_patman_tpu_torch.ops.numeric import fsum, osum_plain
+    res = {"max_abs_err": 0.0, "shapes": []}
+    for k, m, what, on_path in K3_SHAPES:
+        xt = torch.from_numpy((rng.random((k, m)) * rng.choice(
+            [1.0, 1e3, 4e4], (k, m))).astype(np.float32)).to(dev)
+        got, ref = ordered_sum(xt), osum_plain(xt)
+        err = float((got.double() - ref.double()).abs().max())
+        print(f"K3 ordered_sum {what} K={k} M={m}: max_abs_err={err}")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"ordered_sum differs: {what}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        k3 = lambda: ordered_sum(xt)
+        ms = time_ms(k3)
+        plain = time_ms(lambda: osum_plain(xt), per_graph=2 if k > 64
+                        else 10)
+        pairwise = time_ms(lambda: fsum(xt, 0))
+        lib = time_ms(lambda: xt.sum(0))
+        bound = k3_bound_ms(k, m)
+        _report("K3", f"{what} K={k} M={m}", ms, call_ms(k3), bound, plain,
+                card, lib)
+        print(f"K3 beside fsum at {what} K={k} M={m}: fsum {pairwise:.4f} "
+              f"ms, K3 {ms:.4f} ms")
+        entry = dict(shape=f"{what} K={k} M={m}", ms=ms, plain_ms=plain,
+                     bound_ms=bound, bound_by="bytes", library_ms=lib,
+                     fsum_ms=pairwise, on_path=on_path)
+        if not res["shapes"]:
+            res.update(ms=ms, plain_ms=plain, bound_ms=bound,
+                       bound_by="bytes", library_ms=lib,
+                       shape=entry["shape"])
+        res["shapes"].append(entry)
+    return res
+
+
 def lowres_sums_exact(frames, dev, hw=FRAME_HW) -> None:
     """The lookahead sums each frame's lowres intra costs (8160 at 1080p,
-    32640 at 2160p) in float32 (fixed pairwise order); below 2**24 that
-    sum is exact in any order, so the card, the CPU and the reference
-    agree.  Prints each frame's sum against the exact integer sum
+    32640 at 2160p) in float32 (the reference's order, through K3);
+    below 2**24 that sum is exact in any order, so the card, the CPU
+    and the reference agree.  Prints each frame's sum against the exact integer sum
     (informational: at 10 bits or 2160p the sums may pass 2**24, where
     only the order fixes the rounding).  hw: the CTU-padded luma size."""
     from x265_mod_by_patman_tpu_torch.analysis.lookahead import LowresStore
@@ -1576,6 +1673,125 @@ def phase_chroma444(dev):
                         "4:4:4 8-bit path 1920x1080, CQP defaults")
 
 
+class _OpCount:
+    """Counts the torch operations dispatched inside a `with` block (each
+    a device launch, views aside): the wavefront's launch count without
+    a profiler over its hundreds of thousands of kernels."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        counter = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+# phase 12: bench.py's all-intra operating point (QP 32, keyint 1, CTU
+# 32, rd 2, SAO off; deblock on), scaled from its 416x240 to 1080p
+BENCH_KW = dict(qp=32, keyframe_max=1, ctu_size=32, rd_level=2, sao=False,
+                deblock=True)
+
+
+def phase_intra_batched(dev, w=1920, h=1080, n=4):
+    """Phase 12: the batched all-intra path at full width.  The same n
+    park frames through encode_intra_batched(batch=2) (two batches: the
+    first batch's entropy runs while the second is on the card) and
+    through encode_intra_pipelined (frame by frame); the two streams must
+    be byte-identical.  Prints each run's seconds per frame, fps,
+    `wavefront` spans and peak memory, and the torch operations the
+    batched wavefront dispatches on two frames against one; fails on a
+    byte difference, a recon below 28 dB, or two frames that dispatch
+    more than 1.5x one frame's operations (the frames would be
+    looping)."""
+    from x265_mod_by_patman_tpu_torch.analysis.intra_mode import \
+        decide_modes_rd_multi
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
+    from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    from x265_mod_by_patman_tpu_torch.utils import trace
+    frames = park_frames(w, h, n)
+    runs = {}
+    for name, call in (
+            ("batched", lambda e: e.encode_intra_batched(frames, batch=2)),
+            ("pipelined", lambda e: e.encode_intra_pipelined(frames))):
+        enc = Encoder(default_params(w, h, **BENCH_KW), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        ev0 = len(trace._events)
+        t0 = time.perf_counter()
+        out = call(enc)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        wf = [e["dur"] / 1e6 for e in trace._events[ev0:]
+              if e.get("ph") == "X" and e["name"] == "wavefront"]
+        runs[name] = dict(out=out, total=total, wf=wf,
+                          counts=kernels.counts(),
+                          by_shape=kernels.counts_by_shape(),
+                          peak=torch.cuda.max_memory_allocated())
+        q = [psnr(frames[i][0], f.recon[0][:h, :w]) for i, f in
+             enumerate(out)]
+        print(f"phase 12 {name}: {n} frames in {total:.3f} s, "
+              f"{total / n:.3f} s per frame, fps {n / total:.3f}; "
+              f"wavefront spans " + ", ".join(f"{d:.3f}" for d in wf)
+              + f" s; bits " + ", ".join(str(f.bits) for f in out)
+              + "; PSNR-Y " + ", ".join(f"{x:.2f}" for x in q)
+              + f" dB; max_memory_allocated {runs[name]['peak'] / 2**20:.0f}"
+              f" MiB; kernel launches {runs[name]['counts']}")
+        if not all(x > 28.0 for x in q):
+            raise AssertionError(f"phase 12 {name}: recon PSNR {q}")
+    sb = b"".join(f.bitstream for f in runs["batched"]["out"])
+    sp = b"".join(f.bitstream for f in runs["pipelined"]["out"])
+    if sb != sp:
+        raise AssertionError("phase 12: batched and pipelined streams "
+                             "differ")
+    print(f"phase 12: batched and pipelined streams are byte-identical "
+          f"({len(sb)} B; the host decode of the batched one covers both)")
+    decode_later("phase 12 1080p all-intra batched", runs["batched"]["out"])
+    b, p_ = runs["batched"], runs["pipelined"]
+    print(f"phase 12 wavefront span per batch of 2 (mean) "
+          f"{statistics.mean(b['wf']):.3f} s against per frame (mean) "
+          f"{statistics.mean(p_['wf']):.3f} s; fps batched "
+          f"{n / b['total']:.3f}, pipelined {n / p_['total']:.3f}")
+    # the batched wavefront on one frame against it on two, the torch
+    # operations each dispatches counted (one path: run() also builds
+    # the zero MC planes and runs the skip test that run_batch leaves out)
+    enc = Encoder(default_params(w, h, **BENCH_KW), dev)
+    pad = enc._pad_yuv(frames[:2])
+    ys, us, vs = (np.stack([f[c] for f in pad]) for c in range(3))
+    modes = decide_modes_rd_multi(ys, enc.sps, 32, dev)
+    with _OpCount() as frame:
+        enc.recon.run(ys[0], us[0], vs[0], modes[0].cpu().numpy(), qp=32,
+                      materialize=False)
+    torch.cuda.synchronize()
+    with _OpCount() as one:
+        enc.recon.run_batch(ys[:1], us[:1], vs[:1], modes[:1], qp=32,
+                            materialize=False)
+    torch.cuda.synchronize()
+    with _OpCount() as two:
+        enc.recon.run_batch(ys, us, vs, modes, qp=32, materialize=False)
+    torch.cuda.synchronize()
+    print(f"phase 12 wavefront torch operations: run_batch on one frame "
+          f"{one.n}, on two frames {two.n} ({two.n / one.n:.3f}x); run() "
+          f"on one frame {frame.n}")
+    if two.n > 1.5 * one.n:
+        raise AssertionError("phase 12: the batched wavefront dispatches "
+                             f"{two.n / one.n:.2f}x one frame's operations")
+    if b["counts"]["ordered_sum"] <= 0:
+        raise AssertionError("K3 never launched on the batched path")
+    return b["counts"]
+
+
 def cli_params(w: int, h: int, n: int, opts, bit_depth: int = 8,
                preset=None, fps: int = 25, csp: int = 1):
     """Parameters built as the CLI builds them for an n-frame y4m at
@@ -1734,8 +1950,11 @@ def _decode_check(what, stream, expected):
         raise AssertionError(f"{what}: decoded {len(pics)} pictures of "
                              f"{len(expected)}")
     by_poc = {e[0]: e for e in expected}
-    for pic in pics:
-        _poc, md5, *planes = by_poc[pic.poc]
+    # an all-intra stream of IDRs numbers every picture POC 0: take those
+    # in decode order
+    in_order = len(by_poc) < len(expected)
+    for i, pic in enumerate(pics):
+        _poc, md5, *planes = expected[i] if in_order else by_poc[pic.poc]
         if not pic.sei_md5 == pic.md5 == md5:
             raise AssertionError(f"{what}: picture {pic.poc} MD5 mismatch")
         for a, b in zip((pic.y, pic.u, pic.v), planes):
@@ -1852,7 +2071,7 @@ def agree_all(pools, w: int, h: int):
     import concurrent.futures
     checks = []
     groups = (agree_rc, agree_deep, agree_slow, agree_inter_tools,
-              agree_residual, agree_chroma, agree_ladder)
+              agree_residual, agree_chroma, agree_ladder, agree_batched)
     try:
         with concurrent.futures.ThreadPoolExecutor(len(groups)) as ex:
             futs = [ex.submit(g, pools, w, h, checks) for g in groups]
@@ -1861,6 +2080,138 @@ def agree_all(pools, w: int, h: int):
     finally:
         for check in checks:
             check()
+
+
+def _entry_encode(kind, params, frames, device):
+    """One of phase 4's batched and parallel entry points on `device` (in
+    a worker process): the streams it gives (one per stream), the
+    pictures of each (card side only), its seconds and the kernels'
+    launches by shape.  kinds: "intra_batched" (batches of 8),
+    "multistream_intra" (frames: per step one frame per stream),
+    "multistream" (frames: per stream its frames), "single" (frames: per
+    stream its frames, each encoded alone), "gop" (chunks of 4) and
+    "elastic" (chunks of 4, two workers, the first dispatch of a later
+    chunk preempted)."""
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
+    from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
+    from x265_mod_by_patman_tpu_torch.parallel import elastic, gop, streams
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    if kind == "intra_batched":
+        outs = [Encoder(params, device).encode_intra_batched(frames,
+                                                             batch=8)]
+    elif kind == "multistream_intra":
+        ms = streams.MultiStreamIntraEncoder(params, len(frames[0]),
+                                             device=device)
+        steps = [ms.encode_step(fr) for fr in frames]
+        outs = [[st[i] for st in steps] for i in range(len(frames[0]))]
+    elif kind == "multistream":
+        ms = streams.MultiStreamEncoder(params, len(frames), device=device)
+        outs = [[] for _ in frames]
+        for t in range(len(frames[0])):
+            for i, o in enumerate(ms.encode_step([f[t] for f in frames])):
+                outs[i].extend(o)
+        for i, o in enumerate(ms.flush()):
+            outs[i].extend(o)
+    elif kind == "single":
+        outs = [encode_closed(params, f, device)[1] for f in frames]
+    elif kind == "gop":
+        outs = [gop.encode_gop_parallel(params, frames, 4, device)[1]]
+    else:
+        failed = []
+
+        def preempted(p, chunk, first):
+            if not first and not failed:
+                failed.append(1)
+                raise elastic.WorkerFailure("worker preempted (injected)")
+            return elastic.default_worker(p, chunk, first, device)
+
+        data, report = elastic.ElasticGopEncoder(
+            params, chunk_len=4, workers=2, max_retries=2,
+            worker_fn=preempted).encode(frames)
+        if sum(report["retries"].values()) != 1:
+            raise AssertionError(f"elastic: retries {report['retries']}")
+        return [data], None, time.perf_counter() - t0, \
+            kernels.counts_by_shape()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pics = [[_Pic(f) for f in o] for o in outs] if device != "cpu" else None
+    return ([b"".join(f.bitstream for f in o) for o in outs], pics, secs,
+            kernels.counts_by_shape())
+
+
+def _agree_entry(pools, kind, params, frames, what):
+    """Card against CPU for one entry point: byte-identical streams.
+    Returns the card's streams, pictures and launches by shape."""
+    pending = pools.cpu.submit(_entry_encode, kind, params, frames, "cpu")
+    s_gpu, pics, t_gpu, by_shape = pools.card.submit(
+        _entry_encode, kind, params, frames, "cuda").result()
+    s_cpu, _p, t_cpu, _b = pending.result()
+    print(f"agree {what}: cuda {sum(map(len, s_gpu))} B in {t_gpu:.2f} s, "
+          f"cpu {sum(map(len, s_cpu))} B in {t_cpu:.2f} s")
+    if s_gpu != s_cpu:
+        raise AssertionError(f"cuda and cpu streams differ: {what}")
+    print(f"cuda and cpu streams are byte-identical: {what}")
+    return s_gpu, pics, by_shape, t_gpu
+
+
+def agree_batched(pools, w: int, h: int, checks):
+    """The batched all-intra path and the stream- and GOP-level entry
+    points, card against CPU: bench.py's own point (416x240, QP 32,
+    keyint 1, CTU 32, rd 2, SAO off) over 16 frames in batches of 8;
+    MultiStreamIntraEncoder with 4 streams x 2 steps, equal to the four
+    streams encoded one by one; MultiStreamEncoder with 2 streams of 4
+    frames at the repo defaults, equal to the two encoded alone;
+    encode_gop_parallel on 8 frames in chunks of 4, and
+    ElasticGopEncoder with one injected WorkerFailure equal to it."""
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    bench = default_params(w, h, **BENCH_KW)
+    frames = park_frames(w, h, 16)
+    s, pics, _b, t = _agree_entry(pools, "intra_batched", bench, frames,
+                                  f"{w}x{h} x16 encode_intra_batched(8)")
+    print(f"bench.py's point on the card (information): {16 / t:.2f} fps "
+          f"over the 16 frames, the first batch's warm-up included")
+    DECODES.submit("bench point, encode_intra_batched", s[0], pics[0])
+    per_stream = [park_frames(w, h, 2 + i)[i:] for i in range(4)]
+    steps = [[ps[t] for ps in per_stream] for t in range(2)]
+    s_ms, pics, _b, _t = _agree_entry(pools, "multistream_intra", bench,
+                                      steps, f"{w}x{h} 4 streams x 2 "
+                                      "MultiStreamIntraEncoder")
+    single = pools.card.submit(_entry_encode, "single", bench, per_stream,
+                               "cuda").result()[0]
+    if s_ms != single:
+        raise AssertionError("MultiStreamIntraEncoder differs from the "
+                             "streams encoded one by one")
+    print("MultiStreamIntraEncoder equals the 4 streams encoded one by one")
+    for i in range(4):
+        DECODES.submit(f"multistream intra stream {i}", s_ms[i], pics[i])
+    dflt = default_params(w, h)
+    two = [park_frames(w, h, 4 + 2 * i)[2 * i:] for i in range(2)]
+    s_m, pics, by_shape, _t = _agree_entry(pools, "multistream", dflt, two,
+                                           f"{w}x{h} 2 streams x 4 "
+                                           "MultiStreamEncoder")
+    print("MultiStreamEncoder " + shapes_line(by_shape))
+    alone = pools.card.submit(_entry_encode, "single", dflt, two,
+                              "cuda").result()[0]
+    if s_m != alone:
+        raise AssertionError("MultiStreamEncoder differs from the streams "
+                             "encoded alone")
+    print("MultiStreamEncoder equals the 2 streams encoded alone")
+    for i in range(2):
+        DECODES.submit(f"multistream stream {i}", s_m[i], pics[i])
+    gop_p = default_params(w, h, bframes=2)
+    frames = park_frames(w, h, 8)
+    s_g, pics, _b, _t = _agree_entry(pools, "gop", gop_p, frames,
+                                     f"{w}x{h} x8 encode_gop_parallel(4)")
+    DECODES.submit("encode_gop_parallel", s_g[0], pics[0])
+    s_e = pools.card.submit(_entry_encode, "elastic", gop_p, frames,
+                            "cuda").result()[0]
+    if s_e != s_g:
+        raise AssertionError("ElasticGopEncoder differs from the chunked "
+                             "stream")
+    print("ElasticGopEncoder (one preempted dispatch, retried) equals the "
+          "chunked stream")
 
 
 def agree_rc(pools, w: int, h: int, checks):
@@ -2483,11 +2834,11 @@ def phase_ladder_finish(fut, outs, mc_hw):
 
 
 def run_phases(dev, rng, cap: str, clock: float):
-    """Phases 2-11.  Phase 4 runs in its worker processes, driven from a
+    """Phases 2-12.  Phase 4 runs in its worker processes, driven from a
     thread, beside phases 7 and 8a: their encode holds one host thread
     and the card is idle most of the time, so the two overlap on the
-    8-core host.  Then phase 11 and the phase worker (9b, 10b, 5, 6)
-    run so in their own processes beside 8b, 10a and 9a.  Returns the
+    8-core host.  Then phase 11 and the phase worker (9b, 10b, 5, 6,
+    12) run so in their own processes beside 8b, 10a and 9a.  Returns the
     launch counts per path, the kernels' numbers and SEA's."""
     import concurrent.futures
     t0 = time.perf_counter()
@@ -2508,6 +2859,7 @@ def run_phases(dev, rng, cap: str, clock: float):
     wg = res["window_gather"]
     wg["shapes"].append(mc_k2)
     wg["max_abs_err"] = max(wg["max_abs_err"], e2)
+    res["ordered_sum"] = phase_k3(dev, rng, cap)
     print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
     counts = {}
     t0 = time.perf_counter()
@@ -2546,7 +2898,9 @@ WORKER_PHASES = (("lossless", "phase_lossless", "9b lossless path"),
                  ("chroma444", "phase_chroma444", "10b 4:4:4 path"),
                  ("crf_aq_cutree", "phase_rc", "5 rate-control path"),
                  ("main10_vbv_hrd", "phase_main10",
-                  "6 Main10 delivery path"))
+                  "6 Main10 delivery path"),
+                 ("intra_batched", "phase_intra_batched",
+                  "12 1080p all-intra batched path"))
 
 
 class _Queued:
@@ -2607,8 +2961,8 @@ def _decode_worker_streams(fut):
 
 
 def run_beside_ladder(dev, ladder_ex, phase_ex, res):
-    """Phase 11 in its card worker process and phases 9b, 10b, 5 and 6 in
-    another (in turn), both beside phases 8b, 10a and 9a in this
+    """Phase 11 in its card worker process and phases 9b, 10b, 5, 6 and 12
+    in another (in turn), both beside phases 8b, 10a and 9a in this
     process; their streams decode on the host as each ends.  Returns the
     launch counts per path."""
     counts = {}
@@ -2630,7 +2984,7 @@ def run_beside_ladder(dev, ladder_ex, phase_ex, res):
     print(f"phase 9a residual path: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     done, _decodes, k2 = beside.result()
-    print(f"the phase worker's phases (9b, 10b, 5, 6; waited "
+    print(f"the phase worker's phases (9b, 10b, 5, 6, 12; waited "
           f"{time.perf_counter() - t0:.2f} s after phase 9a):")
     for key, c, text in done:
         print(text, end="")
@@ -2680,7 +3034,14 @@ def main() -> int:
     src = {"full_search": ("full_search.cu", "x265_mod_by_patman_tpu/ops/"
                            "pallas/sad.py:67"),
            "window_gather": ("window_gather.cu", "x265_mod_by_patman_tpu/"
-                             "ops/pallas/gather.py:82")}
+                             "ops/pallas/gather.py:82"),
+           # K3 ports no TPU kernel: it keeps the order of the reference's
+           # float32 sums (its lookahead scalars, the region group sums,
+           # the batched intra decision's CTU group sums)
+           "ordered_sum": ("ordered_sum.cu", "none (no TPU kernel): the "
+                           "order of x265_mod_by_patman_tpu/analysis/"
+                           "lookahead.py:64-65, analysis/inter_mode.py:890, "
+                           "analysis/intra_mode.py:284")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{cu}",
          "replaces": rep, "launches": counts["residual"][name],

@@ -19,6 +19,7 @@ from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
 from x265_mod_by_patman_tpu_torch.ops import me as tme
 from x265_mod_by_patman_tpu_torch.ops.cuda.gather import (
     window_gather, window_gather_plain)
+from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import ordered_sum
 from x265_mod_by_patman_tpu_torch.ops.cuda.full_search import (
     full_search, sad_grid_plain)
 from x265_mod_by_patman_tpu_torch.ops.interp import _gather_windows
@@ -106,9 +107,12 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     ys = to_torch(np.array([0, 5], np.int32), CPU)
     full_search(plane, plane, ys, ys, ys, ys, 100, 8, 4)
     window_gather(plane, ys, ys, 9)
-    assert kernels.counts() == {"full_search": 0, "window_gather": 0}
+    ordered_sum(torch.ones((4, 3)))
+    assert kernels.counts() == {"full_search": 0, "window_gather": 0,
+                                "ordered_sum": 0}
     assert kernels.counts_by_shape() == {"full_search": {},
-                                         "window_gather": {}}
+                                         "window_gather": {},
+                                         "ordered_sum": {}}
 
 
 def test_wrappers_reject_bad_inputs():

@@ -30,7 +30,7 @@ from ..ops.interp import (bi_combine, mc_batch, mc_batch_14, wp_apply_batch,
                           wp_bi_combine)
 from ..ops.me import (_org_blocks, full_search_batch, half_res,
                       hme_upsample, mv_bits, subpel_refine_batch)
-from ..ops.numeric import fsum
+from ..ops.numeric import osum
 from ..ops.sea import sea_search_batch
 from ..ops.transform import dct_batch, dequant_dyn, idct_batch, quant_dyn
 from .intra_mode import _mode_costs
@@ -38,6 +38,15 @@ from .weightp import weighted_plane
 
 I32 = torch.int32
 F32 = torch.float32
+
+
+
+def _group_sum(a, gh: int, g: int, gw: int):
+    """(gh, gw) float32 sums of the g x g groups of a (gh*g, gw*g) map,
+    each group's terms added in row-major order, as the reference's
+    CPU backend adds a.reshape(gh, g, gw, g).sum((1, 3)) (osum: K3 on
+    the card)."""
+    return osum(a.reshape(gh, g, gw, g), (1, 3))
 
 
 def lambda_qp(qp: int) -> Tuple[float, float]:
@@ -735,7 +744,7 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
         f2 = lambda a: a.reshape(nby, nbx)
         crop = lambda a: f2(a)[:gh * g, :gw * g]
         rep2 = lambda a: a.repeat_interleave(g, 0).repeat_interleave(g, 1)
-        gsum_f = lambda a: fsum(a.reshape(gh, g, gw, g), (1, 3))
+        gsum_f = lambda a: _group_sum(a, gh, g, gw)
         ok = (crop(part) == 0).reshape(gh, g, gw, g).all(3).all(1)
         indiv_rd = gsum_f(crop(cost_rd))
         s = g // 2
@@ -1700,7 +1709,7 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
         f2 = lambda a: a.reshape(nby, nbx)
         crop = lambda a: f2(a)[:gh * g, :gw * g]
         rep2 = lambda a: a.repeat_interleave(g, 0).repeat_interleave(g, 1)
-        gsum_f = lambda a: fsum(a.reshape(gh, g, gw, g), (1, 3))
+        gsum_f = lambda a: _group_sum(a, gh, g, gw)
         ok = (crop(part) == 0).reshape(gh, g, gw, g).all(3).all(1)
         indiv_rd = gsum_f(crop(cost_rd))
         s = g // 2

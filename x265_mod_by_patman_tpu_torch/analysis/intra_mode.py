@@ -3,7 +3,9 @@ x265_mod_by_patman_tpu/analysis/intra_mode.py): every block of the frame
 evaluates all 35 modes from original-pixel neighbours; the variable
 CU-tree decision then compares 16- and 32-level transform RD, and the
 NxN candidate (four 8x8 PUs, optionally split into 4x4 DST TUs) is
-proposed by SATD and confirmed by transform RD.
+proposed by SATD and confirmed by transform RD.  The batched all-intra
+path decides F frames at once (decide_modes_batch; decide_modes_rd_multi
+wholly on the device, in float32 as the reference's one program).
 
 Device work (the 35-mode SATD sweeps, the TU RD estimates) runs in
 torch on the plane's device; the small host DP stays numpy, as in the
@@ -17,6 +19,7 @@ import torch
 from ..frame.planes import dev_i32
 from ..frame.zscan import frame_avail_masks
 from ..ops.cost import satd_batch
+from ..ops.numeric import osum
 from ..ops.intra import (block_index, gather_ref_samples,
                          intra_pred_all_batch, intra_pred_select_batch,
                          substitute_filter_batch)
@@ -318,3 +321,152 @@ def decide_modes_split(y, sps, qp: int, device, block: int = 16,
     out = modes.copy()
     out[split] = modes8[split][:, 0]
     return out, split, modes8
+
+
+# -- batched all-intra mode decision (frames along a leading axis) ---------
+
+def _mode_costs_multi(origs, avail, bx, by, log2n: int, bit_depth: int = 8):
+    """_mode_costs over a leading frame axis of origs (F, h, w): the
+    frames are stacked along the rows and each frame's blocks offset by
+    its row band, so one pass covers all F frames (the shared avail
+    masks keep every reference sample inside its own frame; samples
+    outside it are substituted).  Returns (F, B, 35) int32."""
+    f, h, w = origs.shape
+    n = 1 << log2n
+    off = torch.arange(f, dtype=by.dtype, device=by.device) * (h // n)
+    costs = _mode_costs(origs.reshape(f * h, w), avail.repeat(f, 1),
+                        bx.repeat(f), (by[None, :] + off[:, None]).reshape(-1),
+                        log2n, bit_depth)
+    return costs.reshape(f, -1, 35)
+
+
+def decide_modes_batch(ys, sps, device, block: int = 16,
+                       qp: int = None) -> np.ndarray:
+    """Batched mode decision for (F, h, w) frame stacks -> (F, nby, nbx);
+    with qp given, applies the MPM-aware second pass per frame on the
+    host in float64, as the reference does."""
+    h, w = sps.height, sps.width
+    nbx, nby = w // block, h // block
+    log2n = block.bit_length() - 1
+    avail, bx, by = _grid(w, h, block, sps.log2_ctu_size, device)
+    costs = _mode_costs_multi(dev_i32(np.asarray(ys), device), avail, bx,
+                              by, log2n, sps.bit_depth) \
+        .cpu().numpy().reshape(-1, nby, nbx, 35)
+    pass1 = np.argmin(costs, axis=-1).astype(np.int32)
+    if qp is None:
+        return pass1
+    from .inter_mode import lambda_qp
+    lam = lambda_qp(qp)[0] * (1 << (sps.bit_depth - 8))
+    out = np.empty_like(pass1)
+    for f in range(pass1.shape[0]):
+        mpm = _mpm_grid(pass1[f], sps.log2_ctu_size, block)
+        total = costs[f] + lam * _mpm_bits(mpm, (nby, nbx, 35))
+        out[f] = np.argmin(total, axis=-1)
+        _homogenize_ctus(out[f], total, lam, sps, block)
+    return out
+
+
+def _mpm_grid_t(modes, log2_ctu: int, block: int):
+    """_mpm_grid on the device over (..., nby, nbx) mode grids (spec
+    8.4.2).  Returns (..., nby, nbx, 3)."""
+    nby, nbx = modes.shape[-2:]
+    one = lambda *s: torch.ones(modes.shape[:-2] + s, dtype=modes.dtype,
+                                device=modes.device)
+    left = torch.cat([one(nby, 1), modes[..., :, :-1]], -1)
+    top = torch.cat([one(1, nbx), modes[..., :-1, :]], -2)
+    ctu_top = (torch.arange(nby, device=modes.device) * block) \
+        % (1 << log2_ctu) == 0
+    top = torch.where(ctu_top[:, None], 1, top)
+    a, b = left, top
+    eq = a == b
+    lt2 = a < 2
+    m0 = torch.where(eq & lt2, 0, a)
+    m1 = torch.where(eq & lt2, 1, torch.where(eq, 2 + ((a + 29) % 32), b))
+    c = torch.where((a != 0) & (b != 0), 0,
+                    torch.where((a != 1) & (b != 1), 1, 26))
+    m2 = torch.where(eq & lt2, 26, torch.where(eq, 2 + ((a - 1) % 32), c))
+    return torch.stack([m0, m1, m2], -1).to(modes.dtype)
+
+
+def _fma32(a, b, c):
+    """float32 a * b + c rounded once, as the reference's CPU backend
+    contracts it (float64 holds the product of two float32 exactly)."""
+    return (a.to(torch.float64) * b.to(torch.float64)
+            + c.to(torch.float64)).to(torch.float32)
+
+
+def _modes_rd_multi(origs, avail, bx, by, lam, log2n: int, log2_ctu: int,
+                    bit_depth: int, nby: int, nbx: int, homog: bool):
+    """The reference's decide_modes_rd for F frames on the device, with
+    no host sync: SATD sweep, MPM-bit re-argmin and CTU homogenisation,
+    in float32 as the reference's one program computes them (lam a
+    float32; its products with the bit counts contracted into the adds;
+    the 2x2 group sums in row-major order, osum)."""
+    block = 1 << log2n
+    f = origs.shape[0]
+    costs = _mode_costs_multi(origs, avail, bx, by, log2n, bit_depth) \
+        .reshape(f, nby, nbx, 35).to(torch.float32)
+    pass1 = torch.argmin(costs, -1).to(I32)
+    mpm = _mpm_grid_t(pass1, log2_ctu, block)
+    ma = torch.arange(35, device=origs.device)
+    bits = torch.full((f, nby, nbx, 35), 6.0, dtype=torch.float32,
+                      device=origs.device)
+    bits = torch.where(ma == mpm[..., 2:3], 3.0, bits)
+    bits = torch.where(ma == mpm[..., 1:2], 3.0, bits)
+    bits = torch.where(ma == mpm[..., 0:1], 2.0, bits)
+    total = _fma32(lam, bits, costs)
+    modes = torch.argmin(total, -1).to(I32)
+    if not homog:
+        return modes
+    cy, cx = nby // 2, nbx // 2
+    t = total[:, :cy * 2, :cx * 2].reshape(f, cy, 2, cx, 2, 35)
+    group = osum(t, (2, 4))
+    best_common = group.amin(-1)
+    common = torch.argmin(group, -1).to(I32)
+    chosen = torch.gather(total, -1, modes[..., None].long())[..., 0]
+    indiv = osum(chosen[:, :cy * 2, :cx * 2].reshape(f, cy, 2, cx, 2),
+                 (2, 4))
+    unify = best_common <= _fma32(lam, torch.tensor(20.0, device=lam.device),
+                                  indiv)
+    mm = modes[:, :cy * 2, :cx * 2].reshape(f, cy, 2, cx, 2)
+    mm = torch.where(unify[:, :, None, :, None], common[:, :, None, :, None],
+                     mm).reshape(f, cy * 2, cx * 2)
+    out = modes.clone()
+    out[:, :cy * 2, :cx * 2] = mm
+    return out
+
+
+_GEOM_CACHE: dict = {}
+
+
+def decide_modes_rd_multi(ys, sps, qp, device, block: int = 16):
+    """decide_modes_rd for (F, h, w) stacks, wholly on `device`: returns a
+    device (F, nby, nbx) int32 tensor without waiting on the device."""
+    from .inter_mode import lambda_qp
+    h, w = sps.height, sps.width
+    nbx, nby = w // block, h // block
+    log2n = block.bit_length() - 1
+    dev = torch.device(device)
+    key = (w, h, block, sps.log2_ctu_size, str(dev))
+    if key not in _GEOM_CACHE:
+        _GEOM_CACHE[key] = _grid(w, h, block, sps.log2_ctu_size, dev)
+    avail, bx, by = _GEOM_CACHE[key]
+    lam = lambda_qp(qp)[0] * (1 << (sps.bit_depth - 8))
+    bpc = (1 << sps.log2_ctu_size) // block
+    origs = ys if isinstance(ys, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(ys))
+    return _modes_rd_multi(
+        origs.to(device=dev, dtype=I32), avail, bx, by,
+        torch.tensor(np.float32(lam), device=dev), log2n,
+        sps.log2_ctu_size, sps.bit_depth, nby, nbx,
+        bpc == 2 and nby >= 2 and nbx >= 2)
+
+
+def decide_modes(y, sps, device, block: int = 16) -> np.ndarray:
+    """The SATD-best of 35 modes per block.  Returns (nby, nbx)."""
+    h, w = sps.height, sps.width
+    nbx, nby = w // block, h // block
+    avail, bx, by = _grid(w, h, block, sps.log2_ctu_size, device)
+    costs = _mode_costs(dev_i32(y, device), avail, bx, by,
+                        block.bit_length() - 1, sps.bit_depth)
+    return torch.argmin(costs, 1).to(I32).cpu().numpy().reshape(nby, nbx)

@@ -10,8 +10,9 @@ cuTree (CuTreeLookahead) measures each lowres frame against its anchors
 on the device (_inter_costs: K1 at n = 8, r = 16, then K2 windows of 8
 for the prediction and the source blocks, then SATD), brings the
 (cost, mv) maps to the host in one transfer, and propagates there in
-float64 numpy; the host half is a copy of the reference's.  The
-reference's --hme tier (hme_seeds) is not ported: --hme raises.
+float64 numpy; the host half is a copy of the reference's.  Under
+--hme the lookahead seeds its search from a quarter-resolution tier
+(hme_seeds), as the reference does.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from ..frame.zscan import s_vector_coords
 from ..ops.cost import satd_batch
 from ..ops.cuda.gather import window_gather
 from ..ops.me import _org_blocks, full_search_batch, half_res, hme_upsample
-from ..ops.numeric import fsum
+from ..ops.numeric import osum
 from .intra_mode import _mode_costs
 
 LOG2N = 3                      # 8x8 lowres blocks == 16x16 source pixels
@@ -54,17 +55,51 @@ def _lowres_dev(y: torch.Tensor) -> torch.Tensor:
              + a[1::2, 1::2] + 2) >> 2).contiguous()
 
 
+TREE_WINDOW = 32     # the reference's CPU backend's reduction window
+
+
+def _tree_sum(a: torch.Tensor, term_max=None) -> torch.Tensor:
+    """float32 sum of a 2-D tensor in the order the reference's CPU
+    backend (XLA) compiles jnp.sum: while a side exceeds 32, it sums
+    windows of min(side, 32) per side, padding each side up to a whole
+    number of windows with the padding split over both ends (the low end
+    takes the smaller half); then it sums what is left.  The last level,
+    and a window whose sum may reach 2**24, add their terms in row-major
+    order (osum: K3 on the card).  A window of nonnegative integers no
+    larger than term_max whose sum stays below 2**24 is exact in any
+    order, and is summed in int64."""
+    while max(a.shape) > TREE_WINDOW:
+        h, w = a.shape
+        wh, ww = min(h, TREE_WINDOW), min(w, TREE_WINDOW)
+        ph, pw = (-h) % wh, (-w) % ww
+        a = torch.nn.functional.pad(
+            a, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+        win = a.reshape(a.shape[0] // wh, wh, a.shape[1] // ww, ww)
+        if term_max is not None and term_max * wh * ww < 2 ** 24:
+            a = win.sum((1, 3), dtype=torch.int64)
+            term_max *= wh * ww
+        else:
+            a = osum(win.to(torch.float32), (1, 3))
+            term_max = None
+    return osum(a.to(torch.float32), (0, 1))
+
+
+# the largest lowres sample (12 bits): a 32x32 window of them sums below
+# 2**22, so _tree_sum takes the plane's windows in int64
+LOWRES_MAX = (1 << 12) - 1
+
+
 def _lowres_scalars(low: torch.Tensor, intra: torch.Tensor) -> torch.Tensor:
     """[mean(lowres), sum(intra)] in float32 — the two per-frame scalars
     the host decision logic reads (fade DC walk + whole-frame intra
-    cost).  The sums run in ops.numeric.fsum's fixed pairwise order, so
-    the card and the CPU agree; below 2**24 they are exact in any
-    order.  The mean multiplies by the float32 reciprocal of the pixel
-    count, as XLA compiles the reference's division by a constant."""
+    cost), summed in the reference's order (_tree_sum; the intra costs
+    have no bound below 2**24 per window).  The mean multiplies by the
+    float32 reciprocal of the pixel count, as XLA compiles the
+    reference's division by a constant."""
     recip = torch.tensor(np.float32(1.0) / np.float32(low.numel()),
                          device=low.device)
-    mean = fsum(low.to(torch.float32), (0, 1)) * recip
-    return torch.stack([mean, fsum(intra.to(torch.float32), (0, 1))])
+    return torch.stack([_tree_sum(low, LOWRES_MAX) * recip,
+                        _tree_sum(intra)])
 
 
 def _raster_avail(h: int, w: int) -> np.ndarray:

@@ -773,6 +773,201 @@ class Encoder:
             self._ana_store.close()
             self._ana_store = None
 
+    # -- batched all-intra path (multi-frame throughput) --------------------
+    def _batch_limits(self) -> None:
+        """The multi-frame wavefront's limits (the reference's): those of
+        the reconstructor, and no NR."""
+        if self._nr is not None:
+            raise NotImplementedError("batched all-intra path: "
+                                      "--nr-intra / --nr-inter")
+        self.recon.check_batch()
+
+    def _idr_nal(self, rbsp, md5) -> bytes:
+        """One all-intra AU: the headers before the first, the IDR slices
+        and the MD5 SEI."""
+        nal = b""
+        if not self._headers_sent:
+            nal += self.headers()
+            self._headers_sent = True
+        for rb in (rbsp if isinstance(rbsp, list) else [rbsp]):
+            nal += annexb(NAL_IDR_W_RADL, rb)
+        if self.p.decoded_picture_hash:
+            nal += annexb(NAL_SUFFIX_SEI, write_decoded_picture_hash(md5))
+        return nal
+
+    def _intra_slice(self, modes, r: dict, yuv, qp: int):
+        """SAO and the slice of one all-intra picture of the batched
+        paths: (rbsp, md5)."""
+        inter_mask = np.zeros(modes.shape, bool)
+        mvs = np.zeros(modes.shape + (2,), np.int32)
+        sao_maps = self._sao(r, *yuv, qp) if self.p.sao else None
+        rbsp = self._encode_slice(modes, inter_mask, mvs, None, None, r,
+                                  "I", 0, qp, ((), ()), sao_maps, None, (),
+                                  None, None, None, None, None,
+                                  NAL_IDR_W_RADL)
+        md5 = plane_md5(r["recon_y"], r["recon_u"], r["recon_v"],
+                        bit_depth=self.sps.bit_depth)
+        return rbsp, md5
+
+    def _emit_intra(self, rbsp, md5, r: dict, qp: int,
+                    cplx: float) -> EncodedFrame:
+        nal = self._idr_nal(rbsp, md5)
+        fr = EncodedFrame(0, nal, (r["recon_y"], r["recon_u"], r["recon_v"]),
+                          bits=len(nal) * 8, md5=md5, slice_type="I", qp=qp,
+                          disp=self.frame_count)
+        self.rc.update("I", qp, fr.bits, cplx)
+        self.frame_count += 1
+        return fr
+
+    def _dbl_maps(self):
+        w, h = self.sps.width, self.sps.height
+        bs_v, bs_h = intra_bs_maps(w, h, 16)
+        return (bs_v, bs_h) + tuple(chroma_on_maps(bs_v, bs_h, h // 2,
+                                                   w // 2))
+
+    def _dbl_args(self, qp: int) -> tuple:
+        p = self.p
+        return (qp, chroma_qp(qp, p.cb_qp_offset),
+                chroma_qp(qp, p.cr_qp_offset), p.deblock_beta_offset,
+                p.deblock_tc_offset, self.sps.bit_depth)
+
+    def _pad_yuv(self, frames) -> list:
+        return [(self._pad(y, 0), self._pad(u, self.cshift),
+                 self._pad(v, self.cshift)) for (y, u, v) in frames]
+
+    def encode_batch(self, frames) -> List[EncodedFrame]:
+        """Encode a list of (y, u, v) frames as IDRs through one
+        multi-frame mode decision, wavefront and deblock
+        (keyframe_max must be 1); host entropy runs per frame.  The
+        analysis is the fixed 16-grid (rd 2): at rd >= 3 the streaming
+        encoder's output differs from this path's."""
+        from ..analysis.intra_mode import decide_modes_batch
+        from ..ops.deblock import deblock_frame_multi
+        assert self.p.keyframe_max == 1, "batched path is all-intra"
+        assert self.p.internal_csp == 1, "batched path: 4:2:0 only (v1)"
+        self._batch_limits()
+        p = self.p
+        padded = self._pad_yuv(frames)
+        ys, us, vs = (np.stack([f[c] for f in padded]) for c in range(3))
+        cplx = [frame_complexity(f[0]) for f in padded]
+        qp = self.rc.frame_qp("I", cplx[0])
+        modes = decide_modes_batch(ys, self.sps, self.device, block=16,
+                                   qp=qp)
+        results = self.recon.run_batch(ys, us, vs, modes, qp=qp)
+        if p.deblock:
+            stack = lambda k: torch.from_numpy(np.stack(
+                [r[k] for r in results]).astype(np.int32)).to(self.device)
+            dbl = deblock_frame_multi(
+                stack("recon_y"), stack("recon_u"), stack("recon_v"),
+                *self._dbl_maps(), *self._dbl_args(qp))
+            for key, d in zip(("recon_y", "recon_u", "recon_v"), dbl):
+                d = d.cpu().numpy()
+                for i, r in enumerate(results):
+                    r[key] = d[i].astype(self.pix_dtype)
+        return [self._emit_intra(*self._intra_slice(modes[i], r, (
+            ys[i], us[i], vs[i]), qp), r, qp, cplx[i])
+            for i, r in enumerate(results)]
+
+    def encode_intra_pipelined(self, frames) -> List[EncodedFrame]:
+        """All-intra pipelined encode: the device mode decision,
+        wavefront and deblock of frame k+1 are queued before frame k's
+        results are brought to the host, so the host's entropy overlaps
+        the device's work."""
+        assert self.p.keyframe_max == 1
+        p = self.p
+        qp = self.rc.frame_qp("I", 0.0)
+        padded = self._pad_yuv(frames)
+        maps = self._dbl_maps()
+
+        def dispatch(planes):
+            y, u, v = planes
+            modes = decide_modes_rd(y, self.sps, qp, self.device, block=16)
+            with trace.scope("wavefront", type="I", frames=1):
+                rd = self.recon.run(y, u, v, modes, qp=qp,
+                                    materialize=False)
+            if p.deblock:
+                rd["recon_y"], rd["recon_u"], rd["recon_v"] = \
+                    deblock_frame_batch(rd["recon_y"], rd["recon_u"],
+                                        rd["recon_v"], *maps,
+                                        *self._dbl_args(qp))
+            return modes, rd
+
+        out: List[EncodedFrame] = []
+        prev = None
+        for k in range(len(padded) + 1):
+            cur = dispatch(padded[k]) if k < len(padded) else None
+            if prev is not None:
+                modes, rd = prev
+                r = self.recon.materialize(rd)
+                out.append(self._emit_intra(*self._intra_slice(
+                    modes, r, padded[k - 1], qp), r, qp, 0.0))
+            prev = cur
+        return out
+
+    def encode_intra_batched(self, frames, batch: int = 8,
+                             entropy_workers: int = 1
+                             ) -> List[EncodedFrame]:
+        """All-intra multi-frame pipeline (the throughput path): each
+        batch of F frames runs the batched mode decision, the
+        multi-frame wavefront and the multi-frame deblock on the device
+        with no host sync between them, and while batch k+1 runs there,
+        batch k's entropy runs on the host (on a thread pool when
+        entropy_workers > 1: the native CABAC engine releases the
+        GIL)."""
+        from concurrent.futures import ThreadPoolExecutor
+        from ..analysis.intra_mode import decide_modes_rd_multi
+        from ..entropy.residual import _merge_tables, _native_setup
+        from ..ops.deblock import deblock_frame_multi
+        assert self.p.keyframe_max == 1
+        self._batch_limits()
+        p = self.p
+        qp = self.rc.frame_qp("I", 0.0)
+        h = self.sps.height
+        maps = self._dbl_maps() if p.deblock else None
+        if _native_setup():
+            _merge_tables()      # build the shared tables before threading
+
+        def dispatch(fr_batch):
+            padded = self._pad_yuv(fr_batch)
+            ys, us, vs = (np.stack([f[c] for f in padded]) for c in range(3))
+            modes_dev = decide_modes_rd_multi(ys, self.sps, qp, self.device)
+            with trace.scope("wavefront", type="I", frames=len(padded)):
+                rd = self.recon.run_batch(ys, us, vs, modes_dev, qp=qp,
+                                          materialize=False)
+            if p.deblock:
+                dy, du, dv = deblock_frame_multi(
+                    rd["recon_y"][:, :h], rd["recon_u"][:, :h // 2],
+                    rd["recon_v"][:, :h // 2], *maps, *self._dbl_args(qp))
+                rd = {**rd, "recon_y": dy, "recon_u": du, "recon_v": dv}
+            return (self.recon.copy_to_host({"modes": modes_dev}),
+                    self.recon.pack_batch(rd), padded)
+
+        batches = [frames[i:i + batch] for i in range(0, len(frames), batch)]
+        pool = ThreadPoolExecutor(entropy_workers) \
+            if entropy_workers > 1 else None
+        out: List[EncodedFrame] = []
+        prev = None
+        try:
+            for k in range(len(batches) + 1):
+                cur = dispatch(batches[k]) if k < len(batches) else None
+                if prev is not None:
+                    modes_h, rd, padded = prev
+                    modes_np = self.recon.wait_host(modes_h)["modes"]
+                    rs = self.recon.materialize_batch(rd)
+                    args = [(modes_np[i], rs[i], padded[i], qp)
+                            for i in range(len(rs))]
+                    jobs = [pool.submit(self._intra_slice, *a) if pool
+                            else self._intra_slice(*a) for a in args]
+                    for i, jb in enumerate(jobs):
+                        rbsp, md5 = jb.result() if pool else jb
+                        out.append(self._emit_intra(rbsp, md5, rs[i], qp,
+                                                    0.0))
+                prev = cur
+        finally:
+            if pool:
+                pool.shutdown()
+        return out
+
     def _emit_minigop(self, k: Optional[int] = None) -> List[EncodedFrame]:
         if k is None or k >= len(self._queue):
             frames, self._queue = self._queue, []

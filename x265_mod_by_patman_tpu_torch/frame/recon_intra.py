@@ -9,7 +9,13 @@ planes and level stores in place (each step's reads are copies, so the
 in-place writes keep the reference's step-by-step semantics).
 
 Invalid lanes of a step are redirected into a dump area below the frame
-(as in the reference), so every write is unconditional."""
+(as in the reference), so every write is unconditional.
+
+The batched all-intra path (run_batch) advances F frames in lockstep:
+the frames' planes and level stores are stacked along the rows, each
+with its own dump area, and each step's blocks are repeated once per
+frame with that frame's row offset, so a step launches what one frame's
+step launches, over F times the blocks."""
 from __future__ import annotations
 
 import numpy as np
@@ -986,6 +992,131 @@ class IntraReconstructor:
         if nr_stats is not None:
             out["nr_stats"] = nr_stats
         return self.materialize(out) if materialize else out
+
+    def check_batch(self) -> None:
+        """The reference's limits on the multi-frame wavefront: 4:2:0,
+        8-12 bits, the fixed 16-grid, no NxN, lists or lossless."""
+        bad = [name for cond, name in (
+            (self.csp != 1, "4:2:2 / 4:4:4"),
+            (self.nxn, "--nxn-intra"),
+            (self.lossless, "--lossless"),
+            (self.mats is not None, "--scaling-list"),
+            (not 8 <= self.bd <= 12, "bit depth outside 8-12"))
+            if cond]
+        if bad:
+            raise NotImplementedError("batched all-intra path: "
+                                      + ", ".join(bad))
+
+    def _batch_sched(self, f: int) -> dict:
+        """The 16-grid schedule repeated for F row-stacked frames: frame
+        k's lanes follow frame k - 1's, their block rows offset by
+        k * (nby + 1) (each frame keeps its dump block row)."""
+        off = torch.arange(f, dtype=torch.int32, device=self.device) \
+            * (self.nby + 1)
+        sc = self.sched
+        rep = lambda a: a.repeat(1, f, *([1] * (a.dim() - 2)))
+        by = (sc["by"][:, None, :] + off[None, :, None]).reshape(
+            sc["by"].shape[0], -1)
+        return {"bx": rep(sc["bx"]), "by": by, "avy": rep(sc["avy"]),
+                "avc": rep(sc["avc"])}
+
+    def run_batch(self, ys, us, vs, modes, qp=32, materialize: bool = True):
+        """Intra-reconstruct F frames in one lockstep pass of the 16-grid
+        wavefront (the schedule and QPs shared).  ys/us/vs: (F, h, w)
+        source stacks; modes: (F, nby, nbx) int32 (numpy or a device
+        tensor).  Returns per-frame result dicts (the keys of run()), or
+        with materialize=False the device stacks (F, ...) with their dump
+        rows."""
+        self.check_batch()
+        nl, nc = self.nl, self.nc
+        w, h = self.sps.width, self.sps.height
+        wc, hc = w >> self.cshift, h >> self.cshift
+        dev = self.device
+        src = lambda a: (a if isinstance(a, torch.Tensor) else
+                         torch.from_numpy(np.ascontiguousarray(a))) \
+            .to(device=dev, dtype=I32)
+        oy, ou, ov = src(ys), src(us), src(vs)
+        f = oy.shape[0]
+        pad = lambda a, k: torch.nn.functional.pad(a, (0, 0, 0, k))
+        oy = pad(oy, nl).reshape(-1, w)
+        ou = pad(ou, nc).reshape(-1, wc)
+        ov = pad(ov, nc).reshape(-1, wc)
+        z = lambda *s: torch.zeros(s, dtype=I32, device=dev)
+        yp, up, vp = z(f * (h + nl), w), z(f * (hc + nc), wc), \
+            z(f * (hc + nc), wc)
+        lev_y = z(f * (self.nby + 1), self.nbx, nl, nl)
+        lev_u = z(f * (self.nby + 1), self.nbx, nc, nc)
+        lev_v = z(f * (self.nby + 1), self.nbx, nc, nc)
+        # each frame's modes with its dump block row; _wavefront appends
+        # the last frame's
+        m = pad(src(modes), 1).reshape(-1, self.nbx)[:-1]
+        qmaps = tuple(pad(q, 1).repeat(f, 1) for q in self._qp_maps(qp))
+        _wavefront(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, m,
+                   self._batch_sched(f), None, None, None, None, *qmaps,
+                   self.bd, self.sign_hide, self.rdoq, 2, None,
+                   self.psy_rdoq, 4 - self.cshift, None, None, None)
+        rd = {"recon_y": yp.reshape(f, h + nl, w),
+              "recon_u": up.reshape(f, hc + nc, wc),
+              "recon_v": vp.reshape(f, hc + nc, wc),
+              "lev_y": lev_y.reshape(f, self.nby + 1, self.nbx, nl, nl),
+              "lev_u": lev_u.reshape(f, self.nby + 1, self.nbx, nc, nc),
+              "lev_v": lev_v.reshape(f, self.nby + 1, self.nbx, nc, nc)}
+        if not materialize:
+            return rd
+        return self.materialize_batch(self.pack_batch(rd))
+
+    def copy_to_host(self, tensors: dict) -> dict:
+        """Start copies of device tensors into pinned host buffers on a
+        side stream (the counterpart of the reference's
+        copy_to_host_async), so the transfer overlaps the host's other
+        work; wait_host() finishes them.  CPU tensors are returned as
+        they are."""
+        if self.device.type != "cuda":
+            return dict(tensors)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        host = {}
+        with torch.cuda.stream(side):
+            for k, a in tensors.items():
+                host[k] = torch.empty(a.shape, dtype=a.dtype,
+                                      pin_memory=True)
+                host[k].copy_(a, non_blocking=True)
+                a.record_stream(side)
+            done = torch.cuda.Event()
+            done.record(side)
+        host["_done"] = done
+        return host
+
+    @staticmethod
+    def wait_host(host: dict) -> dict:
+        """numpy arrays of a copy_to_host() result, once its copies end."""
+        if "_done" in host:
+            host["_done"].synchronize()
+        return {k: v.cpu().numpy() for k, v in host.items() if k != "_done"}
+
+    def pack_batch(self, rd) -> dict:
+        """Narrow a batch's recon to the pixel type and its levels to
+        int16 on the device, then start their copies to the host
+        (copy_to_host)."""
+        dt = torch.uint8 if self.bd == 8 else torch.int16
+        return self.copy_to_host({
+            k: rd[k].to(dt if k.startswith("recon") else torch.int16)
+            for k in rd})
+
+    def materialize_batch(self, rd) -> list:
+        """Host per-frame dicts (the keys of run()) of a packed
+        run_batch(materialize=False) result, waiting for its copies."""
+        h, hc, nby = self.sps.height, self.sps.height // 2, self.nby
+        dt = np.uint8 if self.bd == 8 else np.uint16
+        a = self.wait_host(rd)
+        return [{
+            "recon_y": a["recon_y"][i, :h].view(dt),
+            "recon_u": a["recon_u"][i, :hc].view(dt),
+            "recon_v": a["recon_v"][i, :hc].view(dt),
+            "lev_y": a["lev_y"][i, :nby],
+            "lev_u": a["lev_u"][i, :nby],
+            "lev_v": a["lev_v"][i, :nby],
+        } for i in range(a["recon_y"].shape[0])]
 
     def materialize(self, rd: dict) -> dict:
         dt = np.uint8 if self.bd == 8 else np.uint16

@@ -84,6 +84,8 @@ def load_library():
             lib.full_search_launch.restype = i
             lib.window_gather_launch.argtypes = [p, p, p, p, i, i, i, i, p]
             lib.window_gather_launch.restype = i
+            lib.ordered_sum_launch.argtypes = [p, p, i, i, p]
+            lib.ordered_sum_launch.restype = i
             _lib = lib
     return _lib
 

@@ -515,37 +515,56 @@ def deblock_frame_batch(y, u, v, bs_v, bs_h, on_vc, on_hc, qp, qpc_cb,
     or 3 (4:2:0, 4:2:2, 4:4:4) sets the chroma planes' geometry and QpC.
     qp: scalar or per-CTU (nCtuY, nCtuX) map; qpc_cb/qpc_cr are chroma QP
     offsets when qp is a map, absolute chroma QPs when it is a scalar."""
-    dev = y.device
-    h, w = y.shape
+    ys, us, vs = deblock_frame_multi(y[None], u[None], v[None], bs_v, bs_h,
+                                     on_vc, on_hc, qp, qpc_cb, qpc_cr,
+                                     beta_off, tc_off, bit_depth, log2_ctu,
+                                     csp)
+    return ys[0], us[0], vs[0]
+
+
+def deblock_frame_multi(ys, us, vs, bs_v, bs_h, on_vc, on_hc, qp, qpc_cb,
+                        qpc_cr, beta_off: int = 0, tc_off: int = 0,
+                        bit_depth: int = 8, log2_ctu: int = 5,
+                        csp: int = 1):
+    """Deblock F frames (F, h, w) / (F, hc, wc) in one pass, their BS
+    maps and QPs shared (see deblock_frame_batch for the arguments): the
+    frames are stacked along the rows and each edge pass takes every
+    frame's edges at once (a vertical pass the maps repeated per frame,
+    a horizontal pass each frame's edge rows; no edge is taken between
+    two frames)."""
+    f, h, w = ys.shape
+    hc, wc = us.shape[1:]
+    dev = ys.device
     qp_j = torch.as_tensor(np.asarray(qp, np.int32), device=dev)
-    ev = torch.arange(1, w // 8, device=dev) * 8
-    eh = torch.arange(1, h // 8, device=dev) * 8
-    bs_v = torch.as_tensor(np.asarray(bs_v, np.int32), device=dev)
-    bs_h = torch.as_tensor(np.asarray(bs_h, np.int32), device=dev)
-    on_vc = torch.as_tensor(np.asarray(on_vc, bool), device=dev)
-    on_hc = torch.as_tensor(np.asarray(on_hc, bool), device=dev)
+    t = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=dev)
+    bs_v, bs_h = t(bs_v, np.int32), t(bs_h, np.int32)
+    on_vc, on_hc = t(on_vc, bool), t(on_hc, bool)
+    ar = lambda n: torch.arange(1, n // 8, device=dev) * 8
+    rows = lambda n: ar(n) if f == 1 else (ar(n)[None, :] + n * torch.arange(
+        f, device=dev)[:, None]).reshape(-1)
+    tile_v = lambda a: a.repeat(f, 1) if f > 1 and a.dim() else a
+    tile_h = lambda a: (a.T.repeat(1, f) if f > 1 else a.T) if a.dim() \
+        else a
     qp_v, qp_h = _qp_edge_maps(qp_j, h, w, log2_ctu)
-    y = _luma_edges_pass(y, bs_v, ev, qp_v, beta_off, tc_off, bit_depth)
-    y = _luma_edges_pass(y.T, bs_h.T, eh, qp_h.T if qp_j.dim() else qp_h,
+    y = _luma_edges_pass(ys.reshape(f * h, w), tile_v(bs_v), ar(w),
+                         tile_v(qp_v), beta_off, tc_off, bit_depth)
+    y = _luma_edges_pass(y.T, tile_h(bs_h), rows(h), tile_h(qp_h),
                          beta_off, tc_off, bit_depth).T
-    hc, wc = u.shape
-    evc = torch.arange(1, wc // 8, device=dev) * 8
-    ehc = torch.arange(1, hc // 8, device=dev) * 8
     if qp_j.dim():
         cbv, crv, cbh, crh = _chroma_qp_edge_maps(qp_j, hc, wc, qpc_cb,
                                                   qpc_cr, log2_ctu, csp)
-        chroma_qps = ((cbv, cbh), (crv, crh))
+        chroma_qps = ((tile_v(cbv), tile_h(cbh)),
+                      (tile_v(crv), tile_h(crh)))
     else:
         chroma_qps = ((qpc_cb, qpc_cb), (qpc_cr, qpc_cr))
     out = []
-    for pl, (qcv, qch) in zip((u, v), chroma_qps):
-        pl = _chroma_edges_pass(pl, on_vc, evc, qcv, tc_off, bit_depth)
-        qch_t = qch.T if (isinstance(qch, torch.Tensor) and qch.dim()) \
-            else qch
-        pl = _chroma_edges_pass(pl.T, on_hc.T, ehc, qch_t, tc_off,
-                                bit_depth).T
-        out.append(pl.contiguous())
-    return y.contiguous(), out[0], out[1]
+    for pl, (qcv, qch) in zip((us, vs), chroma_qps):
+        pl = _chroma_edges_pass(pl.reshape(f * hc, wc), tile_v(on_vc),
+                                ar(wc), qcv, tc_off, bit_depth)
+        pl = _chroma_edges_pass(pl.T, tile_h(on_hc), rows(hc), qch,
+                                tc_off, bit_depth).T
+        out.append(pl.reshape(f, hc, wc).contiguous())
+    return y.reshape(f, h, w).contiguous(), out[0], out[1]
 
 
 # ---------------------------------------------------------------------------

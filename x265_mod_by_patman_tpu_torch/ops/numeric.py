@@ -6,8 +6,11 @@ backend:
 
 * integer matrix products (CUDA has no int32 GEMM): computed in float64,
   which is exact while every partial sum stays below 2**53;
-* float32 sums: a fixed pairwise order (halving the reduced axis), so the
-  rounding does not depend on the backend's reduction tree;
+* float32 sums: where the reference's CPU backend is known to add the
+  terms left to right in row-major order, that order (osum; on the card
+  the hand kernel K3, ops.cuda.ordered_sum); elsewhere a fixed pairwise
+  order (fsum, halving the reduced axis), so the rounding does not
+  depend on the backend's reduction tree;
 * float32 transcendental functions: evaluated in float64 and rounded
   once to float32;
 * 2**q for the integer exponents of the RDOQ level scale: the value the
@@ -16,17 +19,22 @@ backend:
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
+
+
+_EINSUM_LOCK = threading.Lock()
 
 
 def ieinsum(eq: str, *ops) -> torch.Tensor:
     """Exact int32 einsum (JAX's preferred_element_type=int32).  Any
     contraction order is exact here, so opt_einsum's path search (a
     host cost on every call, larger than the small products it orders)
-    is skipped: the operands contract left to right."""
-    with torch.backends.opt_einsum.flags(enabled=False):
+    is skipped: the operands contract left to right.  The switch is
+    process-wide, so encoders running in threads take it in turn."""
+    with _EINSUM_LOCK, torch.backends.opt_einsum.flags(enabled=False):
         r = torch.einsum(eq, *[o.to(torch.float64) for o in ops])
     return torch.round(r).to(torch.int64).to(torch.int32)
 
@@ -50,6 +58,30 @@ def fsum(x: torch.Tensor, dims) -> torch.Tensor:
         h = x.shape[-1] // 2
         x = x[..., :h] + x[..., h:]
     return x[..., 0]
+
+
+def osum_plain(xt: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: (K, M) float32 terms -> (M,) sums, the terms
+    of each column added in order of k from a float32 zero."""
+    acc = torch.zeros(xt.shape[1:], dtype=torch.float32, device=xt.device)
+    for k in range(xt.shape[0]):
+        acc = acc + xt[k]
+    return acc
+
+
+def osum(x: torch.Tensor, dims) -> torch.Tensor:
+    """float32 sum over `dims`, the terms added one by one in row-major
+    order of the reduced dims (K3 on the card, osum_plain on the CPU)."""
+    from .cuda.ordered_sum import ordered_sum
+    if isinstance(dims, int):
+        dims = (dims,)
+    nd = x.dim()
+    dims = sorted(d % nd for d in dims)
+    keep = [d for d in range(nd) if d not in dims]
+    shape = [x.shape[d] for d in keep]
+    xt = x.to(torch.float32).permute(*dims, *keep).reshape(
+        -1, int(np.prod(shape, dtype=np.int64))).contiguous()
+    return ordered_sum(xt).reshape(shape)
 
 
 def flog2(x: torch.Tensor) -> torch.Tensor:

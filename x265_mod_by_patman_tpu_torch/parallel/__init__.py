@@ -1,2 +1,3 @@
 """Multi-encode drivers of the port (counterpart of the reference's
-parallel/): so far the ABR ladder."""
+parallel/): the ABR ladder, multi-stream encoding on one device, and
+GOP-parallel chunked encoding with its elastic scheduler."""
