@@ -49,9 +49,17 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    32x32 windows of the 544x960 lowres plane and of the 68x120 intra
    costs, then their window sums; the g = 2 and 4 region groups; the
    batched intra decision's CTU groups of two 1080p frames) and, for
-   information, the TU16 / TU32 sums that keep fsum: exact against its
-   plain version, with its device time, bound, share, the plain
-   version's, fsum's and torch.sum's times;
+   information, the TU16 / TU32 terms in row-major order: exact against
+   its plain version, with its device time, bytes bound, share, chain
+   bound (its K dependent adds at an assumed 4 cycles each, on lines of
+   its own, not in the kernels line), the plain version's,
+   fsum's and torch.sum's times; K3's lane mode at the TU costs of
+   tu_rd_levels (n = 32, 16, 8, 4 at 1080p block counts) against
+   lanes_sum_plain, exact and timed the same way.  K1 and K2 at the tile-row
+   path's shapes (phase_k_tiles): one band's 384x1920 slab of 1080p
+   park at mesh_tile_rows 4, the analysis search (n = 16, r = 16) and
+   the rect 8x8 sub-block search on the band's stacked reference, exact
+   and timed, and K2 at sizes 23 and 11 on the slab, exact;
 3. main path: a 2-frame (I P) 1920x1080 8-bit
    4:2:0 clip (the `park` generator of tools/make_clips.py) through the
    port's Encoder on the card at the repo defaults (CQP 32, 4 B-frames
@@ -66,7 +74,8 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    byte-identical streams: CQP as I P P (bframes=0, 3 frames) and at the
    repo defaults (5 frames; a referenced B in every mini-GOP of 3 or
    more B's), CRF 28 with AQ 2 and cuTree (rc_lookahead
-   4, 8 frames, so cuTree pops inside the stream) and ABR 300 kb/s with
+   4, 6 frames, so cuTree pops inside the stream) and
+   ABR 300 kb/s with
    AQ 1 (4 frames); the CPU path is what the test suite holds to the
    JAX reference encoder and the in-repo decoder.  The CRF case is also
    written as y4m under build/ and encoded by the port's CLI
@@ -104,10 +113,15 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    encode_intra_batched in batches of 8 (its fps printed for
    information); MultiStreamIntraEncoder with 4 streams x 2 steps, also
    equal to the four streams encoded one by one; MultiStreamEncoder
-   with 2 streams of 4 frames at the repo defaults, also equal to the
+   with 2 streams of 3 frames at the repo defaults, also equal to the
    two encoded alone (K1 / K2 launches by shape printed);
    encode_gop_parallel on 8 frames in chunks of 4, and
    ElasticGopEncoder with one injected WorkerFailure equal to it.
+   Then frame-parallel B, the tile-row analysis and the mesh layer
+   (agree_parallel): CRF 28 + AQ 2 + cuTree with --bframes 3 (pyramid,
+   b-adapt 0) and --frame-threads 3 over 8 frames; CQP I P P with rect at mesh_tile_rows 4; and
+   parallel/mesh.py's sharded_encode_step on a 4-shard mesh over 4
+   frames (modes, levels and the two totals).
    The frame counts keep the script inside its time limit.  Each
    case's card encode runs in one of three card worker processes and
    its CPU encode in one of three one-thread CPU worker processes, six
@@ -115,7 +129,7 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    cases that follow them.  The phase runs in a thread beside phases 7
    and 8a, whose host thread leaves the other cores idle; their
    seconds per picture include its load;
-5. the rate-control path (in the phase worker, below): the same 1080p
+5. the rate-control path (in the third worker, below): the same 1080p
    clip as phase 3, cut to 2
    frames (I P), under CRF 28 with AQ 2 and the cuTree
    lookahead (rc_lookahead at its default); prints, besides what phase
@@ -124,7 +138,7 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    spans and the launches split into lookahead, cuTree and analysis;
    checks the recon quality, the decode order I0 P1 and that the
    per-CTU QP map varies on at least one picture;
-6. the Main10 delivery path (in the phase worker): phase 3's 2 frames
+6. the Main10 delivery path (last in the phase worker): phase 3's 2 frames
    (I P) at 10 bits
    (park times 4 plus a seeded dither in [-2, 2])
    under CRF 28 + AQ 2 + cuTree, a
@@ -145,19 +159,19 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    blocks coded as rect PUs and the launches with the HME tier counted;
    fails on a decode order other than I0 P2 B1, a VBV underflow, no
    rect PU on any picture or a recon below 28 dB;
-8. the inter tools at full width (run after phase 7),
+8. the inter tools at full width (8a after phase 7, 8b after 10b),
    1920x1080 park: 8a, 3 frames (I P B), `--preset
-   veryslow --crf 24` as the CLI builds it (AMP in P and B, rect, star
-   r = 32, 4 references, subme 4, 8 B-frames, rc-lookahead 40), with
-   each picture's AMP and rect shares; 8b, 3 frames (I P B), park under
+   veryslow --crf 24` as the CLI builds it (AMP, rect, star r = 32, 4
+   references, subme 4, 8 B-frames, rc-lookahead 40), with each
+   picture's AMP and rect shares; 8b, 3 frames (I P B), park under
    a luma fade (x0.82 a frame) with `--weightb --me sea --no-scenecut`
    (weighted P and B, the SEA search), with the slices' explicit
    weights and the analysis span.  Each prints what phase 3 prints and
    fails on a decode order other than I0 P2 B1 or a recon below 28 dB;
    8b also fails when the B slice carries no
    explicit weight;
-9. the residual-side options at full width (9b in the phase worker,
-   9a after phase 10a): 9b 1080p park, 2 frames (I P), --lossless
+9. the residual-side options at full width (9b after 10a, 9a first in
+   the third worker): 9b 1080p park, 2 frames (I P), --lossless
    (transquant bypass, no loop filters), with bits per picture; fails
    unless the card's recon equals the source in all three planes.  9a
    1080p park, 3 frames (I P B), --crf 24 --aq-mode 2 --nxn-intra
@@ -166,10 +180,10 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    and of TU4-split 8x8 TUs and each picture's mean NR offsets; fails
    without an NxN block on the I picture, with all-zero NR offsets
    from the second picture on, without the SPS scaling-list flag, on a
-   decode order other than I0 P2 B1 or a recon below 28 dB.  Each prints
-   what phase 3 prints;
-10. the 4:2:2 and 4:4:4 paths at full width (10a after phase 8b, 10b
-   in the phase worker), 1080p park with its chroma brought to the format (rows,
+   decode order other than I0 P2 B1 or a recon below 28 dB.  Each
+   prints what phase 3 prints;
+10. the 4:2:2 and 4:4:4 paths at full width (10a after phase 4, 10b
+   after 9b), 1080p park with its chroma brought to the format (rows,
    or rows and columns, repeated plus a seeded sigma = 1 noise), on the
    fixed-grid wavefront: 10a Main 4:2:2 10, 3 frames (I P B), --crf 24
    --aq-mode 2 with cuTree as the CLI builds it for a C422p10 y4m; 10b
@@ -181,7 +195,7 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    decode order other than I0 P2 B1 / I0 P1, a recon below 28 dB, or
    when K2 never ran at the format's chroma MC window;
 11. the ABR ladder at full width (started after phase 4, in a card
-   worker process beside phases 8b and 10a and the phase worker): the
+   worker process beside the other workers and this process): the
    port's CLI
    with --abr-ladder on a 3-frame 1080p park y4m, three rungs:
    1920x1080 --crf 24 --aq-mode 2 --mcstf writing the cuTree share,
@@ -192,8 +206,8 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    took the master's offsets on every picture and its QPs vary on some
    picture while the second took none (the reference's one-consumer
    ring), and K1 and K2 ran at MCSTF's shapes;
-12. the batched all-intra path at full width (in the phase worker,
-   after 6): 4 frames of 1080p park at bench.py's operating point (QP
+12. the batched all-intra path at full width (first in the phase
+   worker): 4 frames of 1080p park at bench.py's operating point (QP
    32, keyint 1, CTU 32, rd 2, SAO off, deblock on) through
    encode_intra_batched(batch=2), whose second batch runs on the card
    while the first one's entropy runs on the host, and through
@@ -202,20 +216,33 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    operations the batched wavefront dispatches on two frames against
    one; fails when the two streams differ, on a recon below 28 dB, when
    two frames dispatch more than 1.5x one frame's operations, or when K3
-   never ran.
+   never ran;
+13. frame-parallel B and the tile-row analysis at full width (in the
+   phase worker, after 12): 4 frames (I P b b) of 1080p park
+   under phase 5's CRF 28 + AQ 2 + cuTree with --bframes 2 (no pyramid,
+   b-adapt 0), --frame-threads 3 and mesh_tile_rows 4: the P picture's
+   analysis runs as 4 row bands, the two non-referenced B pictures as
+   one frame-parallel window (in turn, rate control deferred).  Prints what
+   phase 3 prints, the window's wall time beside the sum of its two
+   jobs' _encode_picture times, the tiled P analysis span beside phase
+   5's whole-frame one and beside the same picture analysed as one
+   whole-frame call, and each kernel's launches by shape; fails on a
+   decode order other than I0 P3 B1 B2, a recon below 28 dB, when
+   no window of two jobs ran or the tile-row analysis did not.
 
-After phase 4 two card worker processes start: phase 11's, and the
-phase worker, which runs 9b, 10b, 5, 6 and 12 in turn (their output is
-printed when it ends); this process meanwhile runs 8b, 10a and 9a.
-Each holds one host thread and leaves the card mostly idle, so the
-three overlap on the 8-core host; their seconds per picture include
-the others' load.
+After phase 4 three card worker processes start: phase 11's, the
+phase worker (12, 13 and 6 in turn) and a third (9a, then 5); their
+output is printed when they all end.  This process meanwhile runs 10a,
+9b, 10b and 8b.  Each holds one host thread and leaves the card mostly
+idle, so the four overlap on the 8-core host; their seconds per
+picture include the others' load.
 
-Every stream of phases 3-12 is decoded with the port's own decoder in
-two worker processes on the host while the card runs the next phases;
-each picture must equal the card's recon and carry a matching MD5 SEI.
+Every stream of phases 3-13 is decoded with the port's own decoder in
+three worker processes on the host as each phase ends, while the card
+runs the next phases; each picture must equal the card's recon and
+carry a matching MD5 SEI.
 
-Phases 3 and 5-12 (each in its process) set the kernel counts to 0
+Phases 3 and 5-13 (each in its process) set the kernel counts to 0
 just before their encode and read them just after.  Each
 phase prints its seconds.
 
@@ -661,6 +688,54 @@ def phase_k1_slow(dev, rng, card: str, clock_hz: float):
     return res, main, shapes
 
 
+def phase_k_tiles(dev, rng, card: str, clock_hz: float):
+    """K1 and K2 at the tile-row path's shapes (phase 13: 1080p at
+    mesh_tile_rows 4): one band's slab of park (20 block rows and the
+    2-row halo above and below, 384x1920), the analysis search (n = 16,
+    r = 16) and the rect PUs' 8x8 sub-block search on the band's
+    reference stacked with its pads, each exact and timed; K2 at the MC
+    window sizes 23 and 11 on the slab, exact.  Returns K1's numbers per
+    shape and the largest error of each kernel."""
+    from x265_mod_by_patman_tpu_torch.analysis import inter_mode as im
+    from x265_mod_by_patman_tpu_torch.parallel.tiles import (HALO_BLOCKS,
+                                                             _slab)
+    res = {"max_abs_err": 0}
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    h1, w1 = FRAME_HW
+    per_band = -(-(h1 // 16) // TILE_ROWS)
+    per_band = -(-per_band // 4) * 4
+    rows = TILE_ROWS * per_band * 16
+    f = park_frames(w1, 1080, 2)
+    pad = lambda p: np.pad(p, ((0, rows - p.shape[0]), (0, 0)),
+                           mode="edge").astype(np.int32)
+    halo = HALO_BLOCKS * 16
+    cur, ref = (_slab(t(pad(f[k][0])), 1, per_band * 16, halo)
+                for k in (1, 0))
+    bx, by = im._grid(per_band, w1 // 16, 16, dev)
+    by = by + halo
+    z = torch.zeros_like(bx)
+    lam = int(round(im.lambda_qp(28)[0] * 256))
+    sr = 16
+    shapes = [_k1_shape(f"1080p tile-row band 2 of {TILE_ROWS}, analysis",
+                        (ref, cur, bx, by, z, z, lam, 16, sr), card,
+                        clock_hz, res)]
+    m_pad = sr + 12
+    tall, _strip = im._stack_refs([ref], m_pad)
+    otall = im._stack_refs([cur], m_pad)[0]
+    sx4, sy4 = im._sub4(bx, by)
+    z4 = torch.zeros_like(sx4)
+    shapes.append(_k1_shape(f"1080p tile-row band 2 of {TILE_ROWS}, rect "
+                            "8x8 sub-blocks", (tall, otall, sx4,
+                                               sy4 + m_pad, z4, z4, lam, 8,
+                                               sr), card, clock_hz, res))
+    k2 = {"max_abs_err": 0}
+    mv = lambda: t(rng.integers(-20, 21, bx.shape[0]).astype(np.int32))
+    for size in (23, 11):
+        _check_k2(ref, by - 3 + mv(), bx - 3 + mv(), size,
+                  "tile-row band slab", k2)
+    return shapes, res["max_abs_err"], k2["max_abs_err"]
+
+
 def phase_sea(dev, rng, card: str, k1_ms: float):
     """The SEA-pruned search of --me sea (ops/sea.py, torch ops, no hand
     kernel) at the 1080p analysis shape (n = 16, r = 32, k = 64) on park:
@@ -991,18 +1066,40 @@ K3_SHAPES = ((4, 142800, "intra CTU groups per mode, 2 frames", True),
              (16, 510, "region groups g=4", True),
              (4, 4080, "intra CTU groups of the chosen modes", True),
              (1024, 510, "lowres plane windows (int64 sums now)", False),
-             (256, 8160, "TU16 sums (fsum stays)", False),
-             (1024, 2040, "TU32 sums (fsum stays)", False))
+             (256, 8160, "TU16 terms row-major (lane mode runs there)",
+              False),
+             (1024, 2040, "TU32 terms row-major (lane mode runs there)",
+              False))
+# K3's lane mode at the TU sums of tu_rd_levels (n x n blocks, M of them):
+# the I pictures' CU-tree costs at 1080p (TU32, TU16, TU8 per 8x8 of the
+# NxN candidate) and the TU4 split's DST blocks (9a)
+K3_LANE_SHAPES = ((32, 2040, "TU32 costs"), (16, 8160, "TU16 costs"),
+                  (8, 32640, "TU8 costs"), (4, 130560, "TU4 DST costs"))
+# dependent float32 add latency in cycles: assumed, not measured on the
+# card, so the chain bound built on it is printed on lines of its own and
+# stays out of the kernels line
+FADD_LATENCY_CYCLES = 4
 
 
-def phase_k3(dev, rng, card: str):
+def k3_chain_ms(k: int, clock_hz: float) -> float:
+    """The least time of K dependent float32 adds in one thread: K times
+    the (assumed) add latency at the SM clock (a bound the bytes do not
+    see)."""
+    return 1e3 * k * FADD_LATENCY_CYCLES / clock_hz
+
+
+def phase_k3(dev, rng, card: str, clock_hz: float):
     """K3 against its plain version at the sites' shapes, exact; its
-    device time (CUDA-graph replays), bound and share, the plain
-    version's, fsum's (the pairwise order the sites had) and one
-    torch.sum's (the library call) at the same shape."""
-    from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import \
-        ordered_sum
-    from x265_mod_by_patman_tpu_torch.ops.numeric import fsum, osum_plain
+    device time (CUDA-graph replays), bytes bound and share, its chain
+    bound (K dependent adds), the plain version's, fsum's (the pairwise
+    order the sites had) and one torch.sum's (the library call) at the
+    same shape.  Then K3's lane mode at the TU-cost shapes against
+    lanes_sum_plain, exact, timed the same way."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import (
+        ordered_sum, ordered_sum_lanes)
+    from x265_mod_by_patman_tpu_torch.ops.numeric import (fsum,
+                                                          lanes_sum_plain,
+                                                          osum_plain)
     res = {"max_abs_err": 0.0, "shapes": []}
     for k, m, what, on_path in K3_SHAPES:
         xt = torch.from_numpy((rng.random((k, m)) * rng.choice(
@@ -1024,6 +1121,10 @@ def phase_k3(dev, rng, card: str):
                 card, lib)
         print(f"K3 beside fsum at {what} K={k} M={m}: fsum {pairwise:.4f} "
               f"ms, K3 {ms:.4f} ms")
+        chain = k3_chain_ms(k, clock_hz)
+        print(f"K3 chain bound (assumed {FADD_LATENCY_CYCLES}-cycle add "
+              f"latency, not measured) at {what} K={k}: {chain:.6f} ms ({k}"
+              f" dependent adds; share {chain / ms:.3f})")
         entry = dict(shape=f"{what} K={k} M={m}", ms=ms, plain_ms=plain,
                      bound_ms=bound, bound_by="bytes", library_ms=lib,
                      fsum_ms=pairwise, on_path=on_path)
@@ -1032,6 +1133,32 @@ def phase_k3(dev, rng, card: str):
                        bound_by="bytes", library_ms=lib,
                        shape=entry["shape"])
         res["shapes"].append(entry)
+    for n, m, what in K3_LANE_SHAPES:
+        x = torch.from_numpy((rng.random((m, n, n)) * rng.choice(
+            [1.0, 1e2, 1e5], (m, n, n))).astype(np.float32)).to(dev)
+        xt = x.reshape(m, n * n).T.contiguous()
+        got, ref = ordered_sum_lanes(xt, n), lanes_sum_plain(xt, n)
+        err = float((got.double() - ref.double()).abs().max())
+        print(f"K3 lane mode {what} n={n} M={m}: max_abs_err={err}")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"ordered_sum_lanes differs: {what}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        k3 = lambda: ordered_sum_lanes(xt, n)
+        ms = time_ms(k3)
+        plain = time_ms(lambda: lanes_sum_plain(xt, n), per_graph=2)
+        pairwise = time_ms(lambda: fsum(x, (1, 2)))
+        lib = time_ms(lambda: x.sum((1, 2)))
+        bound = k3_bound_ms(n * n, m)
+        chain = k3_chain_ms(n * n, clock_hz)
+        _report("K3 lane mode", f"{what} n={n} M={m}", ms, call_ms(k3),
+                bound, plain, card, lib)
+        print(f"K3 lane mode chain bound (assumed {FADD_LATENCY_CYCLES}-"
+              f"cycle add latency, not measured) at {what}: {chain:.6f} ms;"
+              f" fsum {pairwise:.4f} ms")
+        res["shapes"].append(dict(
+            shape=f"lane mode {what} n={n} M={m}", ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by="bytes", library_ms=lib,
+            fsum_ms=pairwise, on_path=True))
     return res
 
 
@@ -1237,6 +1364,7 @@ def phase_rc(dev, w=1920, h=1080, n=2):
                  f"rate-control path {w}x{h}, CRF 28, AQ 2, cuTree "
                  f"(rc_lookahead {enc.p.rc_lookahead})")
     decode_later(f"phase 5, {w}x{h} CRF + AQ 2 + cuTree", run["out"])
+    P_ANALYSIS_SPANS["5"] = p_analysis_span(run)
     order = [(f.slice_type, f.disp) for f in run["out"]]
     if order != [("I", 0), ("P", 1)]:
         raise AssertionError(f"decode order {order}, not I0 P1")
@@ -1576,15 +1704,21 @@ def phase_lossless(dev, w=1920, h=1080, n=2):
 
 def shapes_line(by_shape) -> str:
     """Each kernel's launches by shape, from the wrappers' own counts: K1
-    by block size n, range r and plane, K2 by window size and plane."""
+    by block size n, range r and plane, K2 by window size and plane, K3
+    by (K, M) or, in its lane mode, by block size n and block count M."""
     fmt = lambda d, f: ", ".join(f"{f(*k)}: {v}"
                                  for k, v in sorted(d.items()))
+    k3 = lambda k: ("lane mode n=%d M=%d" % k[1:] if k[0] == "lanes"
+                    else "K=%d M=%d" % k)
     return ("K1 launches by shape: " + fmt(
         by_shape["full_search"],
         lambda n, r, h, w: f"n={n} r={r} plane={h}x{w}") +
         "; K2 launches by window: " + fmt(
         by_shape["window_gather"],
-        lambda size, h, w: f"size={size} plane={h}x{w}"))
+        lambda size, h, w: f"size={size} plane={h}x{w}") +
+        "; K3 launches by shape: " + ", ".join(
+            f"{k3(k)}: {v}" for k, v in
+            sorted(by_shape["ordered_sum"].items(), key=str)))
 
 
 # K2's launches at each format's chroma MC window in phase 10 (the
@@ -1792,6 +1926,130 @@ def phase_intra_batched(dev, w=1920, h=1080, n=4):
     return b["counts"]
 
 
+# phase 4's frame-parallel case as the CLI takes it (b-adapt 0: the fixed
+# 3-B pyramid, whose two non-referenced B pictures form the window)
+PARALLEL_AGREE_OPTS = (("crf", "28"), ("aq-mode", "2"), ("bframes", "3"),
+                       ("b-adapt", "0"), ("frame-threads", "3"),
+                       ("rc-lookahead", "4"))
+# phase 13's: I P b b, two B pictures without the pyramid (both in the
+# window); mesh_tile_rows and the pyramid are library parameters
+PARALLEL_OPTS = (("crf", "28"), ("aq-mode", "2"), ("bframes", "2"),
+                 ("b-adapt", "0"), ("frame-threads", "3"))
+TILE_ROWS = 4
+# the P analysis spans of phases 5 and 13 (whole-frame; tiled, beside the
+# same picture as one whole-frame call), which run in different worker
+# processes: each worker hands its entries back and the main process
+# prints them side by side once both have ended
+P_ANALYSIS_SPANS = {}
+
+
+def p_analysis_span(run):
+    """Mean seconds of the `analysis` span of a drive()'s P pictures."""
+    d = [e["dur"] / 1e6 for e in run["spans"] if e.get("ph") == "X"
+         and e["name"] == "analysis" and e["args"].get("type") == "P"]
+    return statistics.mean(d) if d else None
+
+
+def phase_parallel(dev, w=1920, h=1080, n=4):
+    """Frame-parallel B under CRF and the tile-row P analysis at full
+    width: 1080p park, 4 frames (I P b b), phase 5's CRF 28 + AQ 2 +
+    cuTree with --bframes 2 (no pyramid, b-adapt 0) and --frame-threads
+    3, and mesh_tile_rows 4.  Prints what phase 3 prints, the B window's
+    wall time beside the sum of its two jobs' _encode_picture times, the
+    tiled P analysis span beside phase 5's and beside the whole-frame
+    analysis of the same P picture (timed here after the encode), and
+    the launches by shape; fails on a decode order other than I0 P3 B1
+    B2, when no window of two jobs ran or the tile-row analysis did not
+    run."""
+    from x265_mod_by_patman_tpu_torch.analysis.inter_mode import \
+        analyse_p_frame
+    from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
+    from x265_mod_by_patman_tpu_torch.utils import trace
+    if trace._path is None:            # the spans are read below
+        trace._path = os.path.join(ROOT, "build", "smoke_trace_13.json")
+    frames = park_frames(w, h, n)
+    p = cli_params(w, h, n, PARALLEL_OPTS)
+    p.b_pyramid = False
+    p.mesh_tile_rows = TILE_ROWS
+    enc = Encoder(p, dev)
+    windows, tiled = [], []
+    b_jobs, tiled_p = Encoder._encode_b_jobs, Encoder._tiled_p_analysis
+
+    def watched(self, jobs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = b_jobs(self, jobs)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0, [f.poc for f in got]))
+        return got
+
+    def watched_tiles(self, *a):
+        got = tiled_p(self, *a)
+        # the decisions as they left the analysis (the MC planes, 4, are
+        # not compared), copied before the encode goes on with them
+        tiled.append((a, [x.clone() if torch.is_tensor(x) else
+                          np.array(x, copy=True)
+                          for x in got[:4] + got[5:]]))
+        return got
+
+    Encoder._encode_b_jobs, Encoder._tiled_p_analysis = watched, \
+        watched_tiles
+    try:
+        run = drive(enc, frames)
+    finally:
+        Encoder._encode_b_jobs, Encoder._tiled_p_analysis = b_jobs, tiled_p
+    report_drive(run, frames, w, h,
+                 f"frame-parallel and tile-row path {w}x{h}, CRF 28, AQ 2, "
+                 f"cuTree, --bframes 2 --no-b-pyramid --frame-threads 3, "
+                 f"mesh_tile_rows "
+                 f"{TILE_ROWS}")
+    print("frame-parallel and tile-row path " + shapes_line(run["by_shape"]))
+    decode_later(f"phase 13, {w}x{h} frame-parallel B + tile rows",
+                 run["out"])
+    order = [(f.slice_type, f.disp) for f in run["out"]]
+    if order != [("I", 0), ("P", 3), ("B", 1), ("B", 2)]:
+        raise AssertionError(f"decode order {order}, not I0 P3 B1 B2")
+    secs = {f.poc: t for f, (t, _ev) in zip(run["out"], run["pics"])}
+    window = [(wall, pocs) for wall, pocs in windows if len(pocs) == 2]
+    if not window:
+        raise AssertionError(f"no frame-parallel window of two B jobs: "
+                             f"{windows}")
+    for wall, pocs in window:
+        jobs = [secs[q] for q in pocs]
+        print(f"B window (jobs in turn, rate control deferred): wall "
+              f"{wall:.3f} s for its {len(jobs)} jobs, whose "
+              f"_encode_picture times sum to {sum(jobs):.3f} s ("
+              + " + ".join(f"{t:.3f}" for t in jobs)
+              + f"; wall / sum {wall / sum(jobs):.3f})")
+    if len(tiled) != 1 or enc._tiles_mesh.size != TILE_ROWS:
+        raise AssertionError("the tile-row analysis did not run once")
+    # the same P picture's analysis as one whole-frame call (the options
+    # the tiled path takes), on the card, after the encode
+    (y, u, v, refs, qp, wp_l0, rect, col, rp_p, poc), got = tiled[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = analyse_p_frame(y, u, v, refs, enc.sps, qp, dev,
+                            search_range=enc._me_range, weights=wp_l0,
+                            subme=p.subpel_refine, rect=rect, col=col,
+                            ref_pocs=rp_p, cur_poc=poc)
+    torch.cuda.synchronize()
+    t_whole = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(
+        whole[:4] + whole[5:], got))
+    P_ANALYSIS_SPANS["13"] = (p_analysis_span(run), t_whole, same)
+    return run["counts"]
+
+
+def print_p_analysis_spans(spans):
+    """Phase 13's tiled P analysis span beside the same picture as one
+    whole-frame call and beside phase 5's whole-frame P analysis span."""
+    span, t_whole, same = spans["13"]
+    print(f"tiled P analysis span ({TILE_ROWS} bands, phase 13): {span:.3f}"
+          f" s; the same picture as one whole-frame call: {t_whole:.3f} s "
+          f"(decisions {'equal' if same else 'differ'}); phase 5's "
+          f"whole-frame P analysis span: {spans['5']:.3f} s")
+
+
 def cli_params(w: int, h: int, n: int, opts, bit_depth: int = 8,
                preset=None, fps: int = 25, csp: int = 1):
     """Parameters built as the CLI builds them for an n-frame y4m at
@@ -1815,7 +2073,7 @@ def cli_params(w: int, h: int, n: int, opts, bit_depth: int = 8,
 
 # the rate-control agreement cases: (frames, CLI options); the first is
 # also run through the CLI on the card
-RC_AGREE = ((8, (("crf", "28"), ("aq-mode", "2"), ("rc-lookahead", "4"))),
+RC_AGREE = ((6, (("crf", "28"), ("aq-mode", "2"), ("rc-lookahead", "4"))),
             (4, (("bitrate", "300"), ("aq-mode", "1"))))
 # the Main10 delivery case at 416x240: CRF + AQ 2 + cuTree under a VBV cap
 # low enough that the I picture re-encodes, with HRD timing; also run
@@ -1848,7 +2106,7 @@ HDR10PLUS_RECORD = {
 # phase 4's worker processes: the card side of several cases runs at
 # once (each card encode at 416x240 is bound by its one host thread),
 # beside as many one-thread CPU-side encodes; with the main process's
-# encode and the two decode workers they fill the card host's 8 cores
+# encode and the decode workers they fill the card host's 8 cores
 CARD_WORKERS = 3
 CPU_WORKERS = 3
 
@@ -1966,16 +2224,22 @@ def _decode_check(what, stream, expected):
             " s)")
 
 
+# the host decode's worker processes: one stays on phase 7's 2160p stream
+# for minutes while the others keep up with the 1080p phases' streams
+DECODE_WORKERS = 3
+
+
 class Decodes:
-    """Every stream of the run, decoded with the port's decoder in two
-    worker processes on the host while the card runs the next phases (a
-    2160p picture takes over a minute there)."""
+    """Every stream of the run, decoded with the port's decoder in
+    DECODE_WORKERS worker processes on the host while the card runs the
+    next phases (a 2160p picture takes over a minute there)."""
 
     def __init__(self):
         import concurrent.futures
         import multiprocessing
         self.pool = concurrent.futures.ProcessPoolExecutor(
-            max_workers=2, mp_context=multiprocessing.get_context("spawn"),
+            max_workers=DECODE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn"),
             initializer=_decode_worker_init)
         self.pending = []
 
@@ -2063,15 +2327,16 @@ def phase_agree(w=416, h=240) -> float:
 
 
 def agree_all(pools, w: int, h: int):
-    """The same clip on cuda and on cpu must give identical bytes.  Seven
+    """The same clip on cuda and on cpu must give identical bytes.  Nine
     groups of cases run at once, each in a thread (within a group the
     cases run in turn): agree_rc (CQP, CRF, ABR), agree_deep,
-    agree_slow, agree_inter_tools, agree_residual, agree_chroma and
-    agree_ladder."""
+    agree_slow, agree_inter_tools, agree_residual, agree_chroma,
+    agree_ladder, agree_batched and agree_parallel."""
     import concurrent.futures
     checks = []
     groups = (agree_rc, agree_deep, agree_slow, agree_inter_tools,
-              agree_residual, agree_chroma, agree_ladder, agree_batched)
+              agree_residual, agree_chroma, agree_ladder, agree_batched,
+              agree_parallel)
     try:
         with concurrent.futures.ThreadPoolExecutor(len(groups)) as ex:
             futs = [ex.submit(g, pools, w, h, checks) for g in groups]
@@ -2091,12 +2356,22 @@ def _entry_encode(kind, params, frames, device):
     "multistream" (frames: per stream its frames), "single" (frames: per
     stream its frames, each encoded alone), "gop" (chunks of 4) and
     "elastic" (chunks of 4, two workers, the first dispatch of a later
-    chunk preempted)."""
+    chunk preempted); and "sharded_step" (parallel/mesh.py's step on a
+    4-shard mesh: its modes, levels and two totals in place of
+    streams)."""
     from x265_mod_by_patman_tpu_torch.encoder.top import Encoder
     from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
-    from x265_mod_by_patman_tpu_torch.parallel import elastic, gop, streams
+    from x265_mod_by_patman_tpu_torch.parallel import (elastic, gop, mesh,
+                                                       streams)
     kernels.reset_counts()
     t0 = time.perf_counter()
+    if kind == "sharded_step":
+        # params: the QP; frames: (B, H, W) luma on a 4-shard mesh
+        step = mesh.sharded_encode_step(mesh.make_mesh(4, "gop", device),
+                                        params)
+        got = [a.cpu().numpy() for a in step(torch.from_numpy(frames))]
+        return [a.tobytes() for a in got], None, \
+            time.perf_counter() - t0, kernels.counts_by_shape()
     if kind == "intra_batched":
         outs = [Encoder(params, device).encode_intra_batched(frames,
                                                              batch=8)]
@@ -2161,7 +2436,7 @@ def agree_batched(pools, w: int, h: int, checks):
     points, card against CPU: bench.py's own point (416x240, QP 32,
     keyint 1, CTU 32, rd 2, SAO off) over 16 frames in batches of 8;
     MultiStreamIntraEncoder with 4 streams x 2 steps, equal to the four
-    streams encoded one by one; MultiStreamEncoder with 2 streams of 4
+    streams encoded one by one; MultiStreamEncoder with 2 streams of 3
     frames at the repo defaults, equal to the two encoded alone;
     encode_gop_parallel on 8 frames in chunks of 4, and
     ElasticGopEncoder with one injected WorkerFailure equal to it."""
@@ -2187,9 +2462,9 @@ def agree_batched(pools, w: int, h: int, checks):
     for i in range(4):
         DECODES.submit(f"multistream intra stream {i}", s_ms[i], pics[i])
     dflt = default_params(w, h)
-    two = [park_frames(w, h, 4 + 2 * i)[2 * i:] for i in range(2)]
+    two = [park_frames(w, h, 3 + 2 * i)[2 * i:] for i in range(2)]
     s_m, pics, by_shape, _t = _agree_entry(pools, "multistream", dflt, two,
-                                           f"{w}x{h} 2 streams x 4 "
+                                           f"{w}x{h} 2 streams x 3 "
                                            "MultiStreamEncoder")
     print("MultiStreamEncoder " + shapes_line(by_shape))
     alone = pools.card.submit(_entry_encode, "single", dflt, two,
@@ -2212,6 +2487,33 @@ def agree_batched(pools, w: int, h: int, checks):
                              "stream")
     print("ElasticGopEncoder (one preempted dispatch, retried) equals the "
           "chunked stream")
+
+
+def agree_parallel(pools, w: int, h: int, checks):
+    """Frame-parallel B under CRF, the tile-row analysis and the mesh's
+    sharded step, card against CPU: CRF 28 + AQ 2 + cuTree with
+    --bframes 3 (pyramid) and --frame-threads 3 (8 frames); CQP I P P with rect at mesh_tile_rows 4;
+    sharded_encode_step on a 4-shard mesh over 4 frames (modes, levels
+    and totals)."""
+    from x265_mod_by_patman_tpu_torch.params import default_params
+    opts = PARALLEL_AGREE_OPTS
+    frames = park_frames(w, h, 8)
+    _s, e = _agree(pools, frames, f"{w}x{h} x8 " + " ".join(
+        f"--{k} {v}" for k, v in opts), cli_params(w, h, 8, opts),
+        cli_params(w, h, 8, opts))
+    if sum(f.slice_type == "B" for f in e) < 3:
+        raise AssertionError("no frame-parallel window: too few B")
+    tiles = default_params(w, h, bframes=0, rect=True,
+                           mesh_tile_rows=TILE_ROWS)
+    _agree(pools, park_frames(w, h, 3), f"{w}x{h} x3 CQP rect "
+           f"mesh_tile_rows {TILE_ROWS}", tiles, tiles)
+    luma = np.stack([f[0] for f in park_frames(w, h, 4)]).astype(np.int32)
+    got, _p, by_shape, _t = _agree_entry(
+        pools, "sharded_step", 32, luma,
+        f"{w}x{h} x4 sharded_encode_step, 4 shards")
+    print("sharded_encode_step totals: SATD "
+          f"{int(np.frombuffer(got[2], np.int32)[0])}, non-zero levels "
+          f"{int(np.frombuffer(got[3], np.int32)[0])}")
 
 
 def agree_rc(pools, w: int, h: int, checks):
@@ -2834,11 +3136,12 @@ def phase_ladder_finish(fut, outs, mc_hw):
 
 
 def run_phases(dev, rng, cap: str, clock: float):
-    """Phases 2-12.  Phase 4 runs in its worker processes, driven from a
+    """Phases 2-13.  Phase 4 runs in its worker processes, driven from a
     thread, beside phases 7 and 8a: their encode holds one host thread
     and the card is idle most of the time, so the two overlap on the
-    8-core host.  Then phase 11 and the phase worker (9b, 10b, 5, 6,
-    12) run so in their own processes beside 8b, 10a and 9a.  Returns the
+    8-core host.  Then phase 11, the phase worker (12, 13, 6) and a
+    third worker (9a, 5) run so in their own processes beside 10a, 9b,
+    10b and 8b.  Returns the
     launch counts per path, the kernels' numbers and SEA's."""
     import concurrent.futures
     t0 = time.perf_counter()
@@ -2853,13 +3156,18 @@ def run_phases(dev, rng, cap: str, clock: float):
               bound_ms=main_shape["bound_ms"], shape=main_shape["shape"],
               shapes=shapes)
     sea = phase_sea(dev, rng, cap, main_shape["ms"])
+    tile_shapes, e1, e2 = phase_k_tiles(dev, rng, cap, clock)
+    fs["shapes"].extend(tile_shapes)
+    fs["max_abs_err"] = max(fs["max_abs_err"], e1)
+    res["window_gather"]["max_abs_err"] = max(
+        res["window_gather"]["max_abs_err"], e2)
     mc_k1, mc_k2, e1, e2 = phase_mcstf_kernels(dev, cap, clock)
     fs["shapes"].append(mc_k1)
     fs["max_abs_err"] = max(fs["max_abs_err"], e1)
     wg = res["window_gather"]
     wg["shapes"].append(mc_k2)
     wg["max_abs_err"] = max(wg["max_abs_err"], e2)
-    res["ordered_sum"] = phase_k3(dev, rng, cap)
+    res["ordered_sum"] = phase_k3(dev, rng, cap, clock)
     print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
     counts = {}
     t0 = time.perf_counter()
@@ -2883,24 +3191,38 @@ def run_phases(dev, rng, cap: str, clock: float):
         max_workers=1, mp_context=ctx, initializer=_card_worker_init)
     phase_ex = concurrent.futures.ProcessPoolExecutor(
         max_workers=1, mp_context=ctx, initializer=_phase_worker_init)
+    third_ex = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=ctx, initializer=_phase_worker_init,
+        initargs=("third",))
     try:
-        counts.update(run_beside_ladder(dev, ladder_ex, phase_ex, res))
+        counts.update(run_beside_ladder(dev, ladder_ex, phase_ex, third_ex,
+                                        res))
     finally:
-        ladder_ex.shutdown(cancel_futures=True)
-        phase_ex.shutdown(cancel_futures=True)
+        for ex in (ladder_ex, phase_ex, third_ex):
+            ex.shutdown(cancel_futures=True)
     return counts, res, sea
 
 
-# the phases that run in a second card worker process beside phases 8b,
-# 10a and 9a (each holds one host thread and leaves the card mostly
-# idle): (key in the kernels line's launches_by_path, function, label)
-WORKER_PHASES = (("lossless", "phase_lossless", "9b lossless path"),
-                 ("chroma444", "phase_chroma444", "10b 4:4:4 path"),
-                 ("crf_aq_cutree", "phase_rc", "5 rate-control path"),
+# the phases after phase 4, in four processes that each hold one host
+# thread and leave the card mostly idle: phase 11 in its own card worker,
+# these two lists in two phase workers (each in turn) and MAIN_PHASES in
+# this process, in about equal seconds.  Each phase hands its streams to
+# the host decode as it ends, and the phase that ends each list is one
+# whose decode is short.  (key in the kernels line's launches_by_path,
+# function, label)
+WORKER_PHASES = (("intra_batched", "phase_intra_batched",
+                  "12 1080p all-intra batched path"),
+                 ("frame_parallel_tiles", "phase_parallel",
+                  "13 frame-parallel B and tile-row path"),
                  ("main10_vbv_hrd", "phase_main10",
-                  "6 Main10 delivery path"),
-                 ("intra_batched", "phase_intra_batched",
-                  "12 1080p all-intra batched path"))
+                  "6 Main10 delivery path"))
+THIRD_WORKER_PHASES = (("residual", "phase_residual", "9a residual path"),
+                       ("crf_aq_cutree", "phase_rc",
+                        "5 rate-control path"))
+MAIN_PHASES = (("chroma422_10bit", "phase_chroma422", "10a 4:2:2 10-bit"),
+               ("lossless", "phase_lossless", "9b lossless"),
+               ("chroma444", "phase_chroma444", "10b 4:4:4"),
+               ("weightb_sea", "phase_weightb_sea", "8b weightb/SEA"))
 
 
 class _Queued:
@@ -2915,12 +3237,12 @@ class _Queued:
         self.items.append((what, stream, [_Pic(f) for f in frames]))
 
 
-def _phase_worker_init():
-    """The phase worker: the kernels built in phase 1, one host thread,
+def _phase_worker_init(name="worker"):
+    """A phase worker: the kernels built in phase 1, one host thread,
     trace spans recorded (the phases print them) into its own file."""
     from x265_mod_by_patman_tpu_torch.ops.cuda import build
     from x265_mod_by_patman_tpu_torch.utils import trace
-    trace._path = os.path.join(ROOT, "build", "smoke_trace_worker.json")
+    trace._path = os.path.join(ROOT, "build", f"smoke_trace_{name}.json")
     torch.set_num_threads(1)
     build.load_library()
 
@@ -2948,7 +3270,8 @@ def _phases_in_worker(phases):
         out.append((key, counts, buf.getvalue() + f"phase {label}: "
                     f"{time.perf_counter() - t0:.2f} s (in the phase "
                     "worker)\n"))
-    return out, DECODES.items, dict(K2_CHROMA_LAUNCHES)
+    return (out, DECODES.items, dict(K2_CHROMA_LAUNCHES),
+            dict(P_ANALYSIS_SPANS))
 
 
 def _decode_worker_streams(fut):
@@ -2960,38 +3283,51 @@ def _decode_worker_streams(fut):
             DECODES.submit(what, stream, pics)
 
 
-def run_beside_ladder(dev, ladder_ex, phase_ex, res):
-    """Phase 11 in its card worker process and phases 9b, 10b, 5, 6 and 12
-    in another (in turn), both beside phases 8b, 10a and 9a in this
-    process; their streams decode on the host as each ends.  Returns the
-    launch counts per path."""
+def run_beside_ladder(dev, ladder_ex, phase_ex, third_ex, res):
+    """Phase 11 in one card worker process, WORKER_PHASES in a second and
+    THIRD_WORKER_PHASES in a third (each in turn, one future per phase so
+    that its streams go to the host decode as it ends), beside
+    MAIN_PHASES in this process.  Returns the launch counts per path."""
     counts = {}
     t11 = time.perf_counter()
     ladder = phase_ladder_start(ladder_ex)
-    beside = phase_ex.submit(_phases_in_worker, WORKER_PHASES)
-    beside.add_done_callback(_decode_worker_streams)
-    t0 = time.perf_counter()
-    counts["weightb_sea"] = phase_weightb_sea(dev)
-    print(f"phase 8b weightb/SEA path: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    counts["chroma422_10bit"] = phase_chroma422(dev)
-    print(f"phase 10a 4:2:2 10-bit path: {time.perf_counter() - t0:.2f} s")
-    counts["abr_ladder"], at_mcstf = phase_ladder_finish(*ladder)
-    print(f"phase 11 ABR ladder: {time.perf_counter() - t11:.2f} s with "
-          f"its checks (beside phases 8b and 10a and the phase worker)")
-    t0 = time.perf_counter()
-    counts["residual"] = phase_residual(dev)
-    print(f"phase 9a residual path: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    done, _decodes, k2 = beside.result()
-    print(f"the phase worker's phases (9b, 10b, 5, 6, 12; waited "
-          f"{time.perf_counter() - t0:.2f} s after phase 9a):")
-    for key, c, text in done:
-        print(text, end="")
-        counts[key] = c
-    K2_CHROMA_LAUNCHES.update(k2)
-    for name in ("full_search", "window_gather"):
-        res[name]["shapes"][-1]["launches"] = at_mcstf[name]
+    workers = []
+    for what, ex, phases in (("the phase worker", phase_ex, WORKER_PHASES),
+                             ("the third worker", third_ex,
+                              THIRD_WORKER_PHASES)):
+        futs = [ex.submit(_phases_in_worker, (ph,)) for ph in phases]
+        for fut in futs:
+            fut.add_done_callback(_decode_worker_streams)
+        workers.append((what, futs))
+
+    def ladder_done():
+        counts["abr_ladder"], at_mcstf = phase_ladder_finish(*ladder)
+        print(f"phase 11 ABR ladder: {time.perf_counter() - t11:.2f} s "
+              "with its checks (beside the phase workers and this "
+              "process's phases)")
+        for name in ("full_search", "window_gather"):
+            res[name]["shapes"][-1]["launches"] = at_mcstf[name]
+
+    for key, fn, label in MAIN_PHASES:
+        t0 = time.perf_counter()
+        counts[key] = globals()[fn](dev)
+        print(f"phase {label} path: {time.perf_counter() - t0:.2f} s")
+        if "abr_ladder" not in counts and ladder[0].done():
+            ladder_done()       # its streams go to the host decode now
+    if "abr_ladder" not in counts:
+        ladder_done()
+    spans = {}
+    for what, futs in workers:
+        t0 = time.perf_counter()
+        done = [fut.result() for fut in futs]
+        print(f"{what}'s phases; waited {time.perf_counter() - t0:.2f} s:")
+        for out, _decodes, k2, sp in done:
+            for key, c, text in out:
+                print(text, end="")
+                counts[key] = c
+            K2_CHROMA_LAUNCHES.update(k2)
+            spans.update(sp)
+    print_p_analysis_spans(spans)
     for e in res["window_gather"]["shapes"][:-1]:
         e["launches"] = K2_CHROMA_LAUNCHES[e["format"]]
     return counts
@@ -3041,7 +3377,8 @@ def main() -> int:
            "ordered_sum": ("ordered_sum.cu", "none (no TPU kernel): the "
                            "order of x265_mod_by_patman_tpu/analysis/"
                            "lookahead.py:64-65, analysis/inter_mode.py:890, "
-                           "analysis/intra_mode.py:284")}
+                           "analysis/intra_mode.py:284; lane mode: "
+                           "ops/rdoq.py:428")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{cu}",
          "replaces": rep, "launches": counts["residual"][name],

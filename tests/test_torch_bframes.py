@@ -15,8 +15,11 @@ reference compiles its B analysis and lookahead programs once:
 Tolerance: exact throughout (integers, the float32-rounded frame costs,
 the float32 scalars, bytes, pixels)."""
 import ast
+import ctypes
+import gc
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -46,11 +49,29 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _one_torch_thread():
     """The port's CPU ops here are on tiny tensors: one intra-op thread
     is faster than many, and keeps this file from starving the other
-    test workers.  Integer results do not depend on the thread count."""
+    test workers.  Integer results do not depend on the thread count.
+    The worker's memory is released before and after the module."""
+    _release_memory()
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+    _release_memory()
+
+
+def _release_memory():
+    """Drop the compiled JAX programs the worker holds and hand the freed
+    heap back to the system (glibc keeps it otherwise).  A test worker
+    otherwise keeps every program and the high-water mark of every module
+    it ran, and six of them outgrow the host's memory late in a parallel
+    run.  A program dropped here is compiled again when next called, from
+    the persistent compilation cache; no result depends on it."""
+    jax.clear_caches()
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass                # not glibc: nothing to trim
 
 
 def _defs(rel):

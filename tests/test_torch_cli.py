@@ -8,8 +8,8 @@ CPU:
   MD5 SEI;
 * the CLI (cli.py): the same 96x64 y4m through the port's main() and
   the reference's, under CRF with AQ 2 and cuTree, with a CSV log and
-  PSNR; the .hevc files are byte-identical and the CSV rows equal.
-  Options the port does not take raise NotImplementedError naming them;
+  PSNR; the .hevc files are byte-identical and the CSV rows equal, also
+  under --frame-threads 2;
   --amp, --weightb, --me sea, --preset veryslow and the residual-side
   options (--nxn-intra, --scaling-list, --nr-*, --lossless, analysis
   save/load), --mcstf, a cuTree share ring and --abr-ladder run through
@@ -151,9 +151,16 @@ def test_cli_output_equals_jax_cli(tmp_path):
     (["--frame-threads", "2"], "--frame-threads"),
 ])
 def test_cli_rejects_unported_options(tmp_path, extra, name):
-    _write_y4m(tmp_path / "in.y4m", 1)
-    with pytest.raises(NotImplementedError, match=name):
-        tcli.main(_cli_args(tmp_path, "x") + ["--device", "cpu"] + extra)
+    """--frame-threads under CRF is ported: the CLI's stream equals the
+    JAX CLI's under the same options and decodes."""
+    _write_y4m(tmp_path / "in.y4m")
+    assert jcli.main(_cli_args(tmp_path, "jax") + extra) == 0
+    assert tcli.main(_cli_args(tmp_path, "port") + ["--device", "cpu"]
+                     + extra) == 0
+    port = (tmp_path / "port.hevc").read_bytes()
+    assert port == (tmp_path / "jax.hevc").read_bytes()
+    pics = Decoder().decode(port)
+    assert len(pics) == 6 and all(p.md5 == p.sei_md5 for p in pics)
 
 
 @pytest.mark.parametrize("option", ["--mcstf", "--cutree-share-write",

@@ -430,6 +430,23 @@ def test_ordered_sum_kernel_equals_plain(dev, k, m):
     assert torch.equal(got, osum_plain(xt))
 
 
+@pytest.mark.parametrize("n,m", [(4, 130560), (8, 32640), (16, 8160),
+                                 (32, 2040), (16, 1)])
+def test_ordered_sum_lanes_equals_plain(dev, n, m):
+    """K3's lane mode against lanes_sum_plain on the card: the same
+    float32 bits, one launch counted under ordered_sum."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import \
+        ordered_sum_lanes
+    from x265_mod_by_patman_tpu_torch.ops.numeric import lanes_sum_plain
+    rng = np.random.default_rng(n * 5 + m)
+    xt = torch.from_numpy((rng.random((n * n, m)) * rng.choice(
+        [1.0, 1e2, 1e5], (n * n, m))).astype(np.float32)).to(dev)
+    kernels.reset_counts()
+    got = ordered_sum_lanes(xt, n)
+    assert kernels.counts()["ordered_sum"] == 1
+    assert torch.equal(got, lanes_sum_plain(xt, n))
+
+
 def test_card_intra_batched_equals_cpu(dev):
     """encode_intra_batched on the card (K3 in its CTU group sums) gives
     the CPU's bytes."""

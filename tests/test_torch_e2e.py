@@ -53,8 +53,22 @@ def test_port_stream_equals_jax_and_decodes(case):
      "--scaling-list in 4:4:4"),
 ])
 def test_unported_options_raise(kw, name):
-    with pytest.raises(NotImplementedError, match=name):
-        ttop.Encoder(default_params(96, 64, **kw), "cpu")
+    """The port refuses what the reference fails on (4:0:0, lists in
+    4:4:4).  --frame-threads under CRF and mesh_tile_rows are ported:
+    those cases encode three frames and decode (their streams are held
+    to the reference in tests/test_torch_frame_parallel.py and
+    tests/test_torch_tiles.py)."""
+    p = default_params(96, 64, **kw)
+    if name not in ("--frame-threads", "mesh_tile_rows"):
+        with pytest.raises(NotImplementedError, match=name):
+            ttop.Encoder(p, "cpu")
+        return
+    stream, frames = ttop.encode_sequence(p, moving_scene(96, 64, 3), "cpu")
+    pics = Decoder().decode(stream)
+    assert len(pics) == 3
+    for f, pic in zip(frames, pics):
+        assert np.array_equal(pic.y, f.recon[0])
+        assert pic.md5 == f.md5 == pic.sei_md5
 
 
 @pytest.mark.parametrize("option", ["mcstf", "cutree_share_write",

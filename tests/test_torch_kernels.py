@@ -19,7 +19,9 @@ from x265_mod_by_patman_tpu_torch.ops import cuda as kernels
 from x265_mod_by_patman_tpu_torch.ops import me as tme
 from x265_mod_by_patman_tpu_torch.ops.cuda.gather import (
     window_gather, window_gather_plain)
-from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import ordered_sum
+from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import (
+    ordered_sum, ordered_sum_lanes)
+from x265_mod_by_patman_tpu_torch.ops.numeric import lanes_sum_plain, lsum
 from x265_mod_by_patman_tpu_torch.ops.cuda.full_search import (
     full_search, sad_grid_plain)
 from x265_mod_by_patman_tpu_torch.ops.interp import _gather_windows
@@ -108,6 +110,7 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     full_search(plane, plane, ys, ys, ys, ys, 100, 8, 4)
     window_gather(plane, ys, ys, 9)
     ordered_sum(torch.ones((4, 3)))
+    ordered_sum_lanes(torch.ones((16, 3)), 4)
     assert kernels.counts() == {"full_search": 0, "window_gather": 0,
                                 "ordered_sum": 0}
     assert kernels.counts_by_shape() == {"full_search": {},
@@ -134,6 +137,60 @@ def test_wrappers_reject_bad_inputs():
         window_gather(plane.t(), ys, ys, 4)
     with pytest.raises(ValueError):
         window_gather(plane, torch.zeros(6, dtype=torch.int32)[::2], ys, 4)
+    with pytest.raises(ValueError):
+        ordered_sum_lanes(torch.zeros((15, 3)), 4)      # not 4 x 4 terms
+    with pytest.raises(ValueError):
+        ordered_sum_lanes(torch.zeros((144, 3)), 12)    # no lane layout
+    with pytest.raises(TypeError):
+        ordered_sum_lanes(torch.zeros((16, 3), dtype=torch.float64), 4)
+
+
+def _lane_model(block):
+    """K3's lane order in numpy, one n x n float32 block at a time: rows
+    as lanes and a halving tree for n <= 8; per row 8 lanes over the
+    columns j mod 8 with the running sum added to lane 0's first term,
+    then a tree, for n >= 16."""
+    f = np.float32
+    n = block.shape[0]
+    if n <= 8:
+        lanes = []
+        for r in range(n):
+            acc = f(0)
+            for x in block[r]:
+                acc = f(acc + x)
+            lanes.append(acc)
+        while len(lanes) > 1:
+            h = len(lanes) // 2
+            lanes = [f(lanes[j] + lanes[j + h]) for j in range(h)]
+        return lanes[0]
+    acc = f(0)
+    for r in range(n):
+        lanes = list(block[r, :8])
+        lanes[0] = f(acc + lanes[0])
+        for c in range(8, n, 8):
+            lanes = [f(block[r, c + j] + lanes[j]) for j in range(8)]
+        while len(lanes) > 1:
+            h = len(lanes) // 2
+            lanes = [f(lanes[j] + lanes[j + h]) for j in range(h)]
+        acc = lanes[0]
+    return acc
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_lane_mode_twin_is_the_lane_order(n):
+    """K3's lane mode (ordered_sum_lanes, which takes its plain version
+    on the CPU) and lsum against the numpy model of the order; the
+    row-major order gives other bits on these terms."""
+    rng = np.random.default_rng(n)
+    x = (rng.random((40, n, n)) * rng.choice([1.0, 1e2, 1e5], (40, n, n))) \
+        .astype(np.float32)
+    want = np.array([_lane_model(b) for b in x], np.float32)
+    xt = torch.from_numpy(x.reshape(40, -1).T.copy())
+    np.testing.assert_array_equal(lanes_sum_plain(xt, n).numpy(), want)
+    np.testing.assert_array_equal(ordered_sum_lanes(xt, n).numpy(), want)
+    np.testing.assert_array_equal(lsum(torch.from_numpy(x)).numpy(), want)
+    rowmajor = ordered_sum(xt).numpy()
+    assert (rowmajor != want).any()
 
 
 def test_mv_bits_matches_reference_over_range():

@@ -86,6 +86,32 @@ def test_lowres_scalars_equal_reference_at_1080p():
     assert old_bad > 0          # the pairwise order fails these inputs
 
 
+def test_lowres_mean_equals_reference_at_2160p():
+    """Fault 1's repair: 20 frames of 2160p lowres (1088x1920 plane at 8
+    and 12 bits, 136x240 intra costs): both scalars bit-identical to the
+    reference's.  The mean's last level is a 2x2 reduce that the
+    reference's backend adds as (a00 + a01) + (a10 + a11) (its compiled
+    code); the row-major order the port had there fails some frames."""
+    rng = np.random.default_rng(7)
+    ref_fn = jax.jit(jla._lowres_scalars)
+    rowmajor_bad = 0
+    for i in range(20):
+        low = rng.integers(0, 4096 if i % 2 else 256,
+                           (1088, 1920)).astype(np.int32)
+        intra = rng.integers(800, 4200, (136, 240)).astype(np.int32)
+        ref = np.asarray(ref_fn(jnp.asarray(low), jnp.asarray(intra)))
+        lt = torch.from_numpy(low)
+        got = tla._lowres_scalars(lt, torch.from_numpy(intra)).numpy()
+        np.testing.assert_array_equal(got, ref)
+        # the row-major last level, as before the repair
+        win = lt.reshape(34, 32, 60, 32).sum((1, 3), dtype=torch.int64)
+        a = torch.nn.functional.pad(win.to(torch.float32), (2, 2, 15, 15))
+        a = osum(a.reshape(2, 32, 2, 32), (1, 3))
+        old = osum(a, (0, 1)) * torch.tensor(F32(1.0) / F32(lt.numel()))
+        rowmajor_bad += int(old.item() != ref[0])
+    assert rowmajor_bad > 0
+
+
 @pytest.mark.parametrize("shape,win", [
     ((544, 960), (17, 30)), ((68, 120), (3, 4)), ((20, 100), (1, 4)),
     ((17, 30), None)])
@@ -127,3 +153,261 @@ def test_group_sums_equal_reference(g):
         old_bad += int((fsum(t.reshape(gh, g, gw, g), (1, 3)).numpy()
                         != ref).sum())
     assert old_bad > 0
+
+
+# -- the multiply-adds of the RD costs and the TU sums ----------------------
+#
+# The reference's CPU backend contracts a float32 multiply into the add
+# that consumes it (one rounding) and sums each n x n transform block of
+# a fused element-wise term 8 lanes wide.  The sums are read out of the
+# reference's own jitted functions: _p_core / _b_core are traced again
+# with their module's jnp, jax.vmap and _rd_resid_cost wrapped so that
+# the values they produce become extra outputs of the same program.
+
+def _capturing(core, static, rec):
+    """A jitted call of `core`'s function that also returns what the
+    wrappers recorded while it was traced (rec: (tag, arrays...))."""
+    import functools
+    from jax._src.interpreters.batching import BatchTracer
+    from x265_mod_by_patman_tpu.analysis import inter_mode as jim
+    inner = core.__wrapped__
+    tags = []
+    orig_rd = jim._rd_resid_cost
+
+    class Jnp:
+        def __getattr__(self, k):
+            return getattr(jnp, k)
+
+        def minimum(self, a, b):
+            if getattr(a, "dtype", None) == np.float32 and \
+                    getattr(b, "shape", None) == a.shape and \
+                    not isinstance(a, BatchTracer):
+                rec.append(("min", a, b))
+            return jnp.minimum(a, b)
+
+        def where(self, c, x, y=None):
+            if getattr(x, "ndim", 0) == 2 and hasattr(y, "shape") \
+                    and not isinstance(x, BatchTracer):
+                rec.append(("w2" if y.shape != () else "masked", x))
+            return jnp.where(c, x, y)
+
+    class Jax:
+        def __getattr__(self, k):
+            return getattr(jax, k)
+
+        def vmap(self, fn):
+            def run(*args):
+                out = jax.vmap(fn)(*args)
+                rec.append(("vmap",) + tuple(out))
+                return out
+            return run
+
+    def rd(org, pred, qp_b, log2n, bd, lam2):
+        cc, sz = orig_rd(org, pred, qp_b, log2n, bd, lam2)
+        if not isinstance(cc, BatchTracer):
+            rec.append(("rd", org, pred, qp_b, lam2, cc, sz))
+        return cc, sz
+
+    @functools.wraps(inner)
+    def f(*a, **k):
+        rec.clear()
+        saved = jim.jnp, jim.jax, jim._rd_resid_cost
+        jim.jnp, jim.jax, jim._rd_resid_cost = Jnp(), Jax(), rd
+        try:
+            out = inner(*a, **k)
+        finally:
+            jim.jnp, jim.jax, jim._rd_resid_cost = saved
+        tags[:] = [(e[0], len(e) - 1) for e in rec]
+        return out, [x for e in rec for x in e[1:]]
+
+    jf = jax.jit(f, static_argnames=static)
+    calls = []
+
+    @functools.wraps(core)
+    def call(*a, **k):
+        out, flat = jf(*a, **k)
+        evs, i = [], 0
+        for tag, m in tags:
+            evs.append((tag,) + tuple(np.asarray(v) for v in flat[i:i + m]))
+            i += m
+        calls.append(evs)
+        return out
+    return call, calls
+
+
+def _fma(a, b, c):
+    return (np.float64(a) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(F32)
+
+
+def _plain(a, b, c):
+    return (np.asarray(c, F32) + (F32(a) * np.asarray(b, F32))).astype(F32)
+
+
+def _count_sites(calls, w, h, merge_len, gbits_at):
+    """Per site, (sums, equal with one rounding, equal with two): the
+    residual cost sse + lam2 * bits (_rd_resid_cost), the region totals
+    gsum + lam2 * gbits, and both sides of the minima cc + lam2 * s /
+    sz + lam2 * s' (the ME winner's, best_rd; the merge candidates',
+    rdk_all), s recovered from the sz side."""
+    from x265_mod_by_patman_tpu_torch.analysis import inter_mode as tim
+    from x265_mod_by_patman_tpu_torch.analysis.inter_mode import (
+        _group_sum, _rd_resid_cost)
+    from x265_mod_by_patman_tpu_torch.ops import numeric
+    nby, nbx = h // 16, w // 16
+    sites = {k: [0, 0, 0] for k in ("rd", "region", "best_rd", "rdk_all")}
+    t = lambda a: torch.from_numpy(np.array(a))
+    for evs in calls:
+        last_rd = last_vmap = None
+        w2 = []
+        for e in evs:
+            if e[0] == "rd":
+                _, org, pred, qp_b, lam2, cc, sz = e
+                last_rd, w2 = e, []
+                # the port's cost, with one rounding and with two
+                s = sites["rd"]
+                s[0] += cc.size
+                for i, fma in ((1, tim.fma32),
+                               (2, lambda a, b, c: c + a * b)):
+                    tim.fma32 = fma
+                    try:
+                        got, _ = _rd_resid_cost(t(org), t(pred), t(qp_b),
+                                                4, 8, t(lam2))
+                    finally:
+                        tim.fma32 = numeric.fma32
+                    s[i] += int((got.numpy() == cc).sum())
+            elif e[0] == "vmap":
+                last_vmap = e
+            elif e[0] == "min" and last_rd is not None:
+                _, a, b = e
+                lam2 = F32(last_rd[4])
+                if a.ndim == 1 and a.shape == last_rd[5].shape:
+                    cc, sz, key, step = last_rd[5], last_rd[6], "best_rd", -1
+                    if np.array_equal(a, cc):
+                        continue             # min(cc, sz): no product
+                elif a.ndim == 2 and last_vmap is not None \
+                        and a.shape == last_vmap[2].shape:
+                    cc, sz, key, step = last_vmap[2], last_vmap[3], \
+                        "rdk_all", 4
+                else:
+                    continue
+                sb = np.rint((b.astype(np.float64) - sz) / lam2)
+                sa = sb + step
+                ok = (a < 1e38) & (b < 1e38)
+                s = sites[key]
+                s[0] += int(ok.sum())
+                s[1] += int((ok & (_fma(lam2, sa, cc) == a)
+                             & (_fma(lam2, sb, sz) == b)).sum())
+                s[2] += int((ok & (_plain(lam2, sa, cc) == a)
+                             & (_plain(lam2, sb, sz) == b)).sum())
+            elif e[0] == "w2":
+                w2.append(e)
+                if len(w2) == merge_len:
+                    tot, gb = w2[0][1], w2[gbits_at][1]
+                    assert tot.dtype == F32 and gb.dtype == np.int32
+                    _, _o, _p, _q, lam2, cc, sz = last_rd
+                    gh, gw = tot.shape
+                    g = 2 if (gh, gw) == (nby // 2, nbx // 2) else 4
+                    blk = np.minimum(cc, sz).reshape(nby, nbx)[
+                        :gh * g, :gw * g]
+                    gs = _group_sum(torch.from_numpy(blk.copy()), gh, g,
+                                    gw).numpy()
+                    m = tot < F32(1e38)
+                    s = sites["region"]
+                    s[0] += int(m.sum())
+                    s[1] += int((_fma(lam2, gb, gs) == tot)[m].sum())
+                    s[2] += int((_plain(lam2, gb, gs) == tot)[m].sum())
+                    w2 = []
+    return sites
+
+
+def test_rd_cost_products_round_once_as_the_reference():
+    """The FMA repair: every x + lam2 * y site of the P and B analysis
+    against the reference's own _p_core / _b_core, on 416x240 scenes at
+    QP 22-40.  With one rounding (ops.numeric.fma32) all of at least
+    2,000 sums of each site equal the reference's; with two the
+    residual costs (and the B picture's best_rd) differ on some."""
+    from x265_mod_by_patman_tpu.analysis import inter_mode as jim
+    from x265_mod_by_patman_tpu.encoder.top import Encoder as JEncoder
+    from x265_mod_by_patman_tpu.params import default_params
+    from tests.test_e2e_inter import moving_scene
+    w, h = 416, 240
+    static_p = ("wpat", "search_range", "block", "bd", "log2_ctu",
+                "use_pallas", "subme", "rect", "amp", "band", "cpat",
+                "cshift", "is422", "me_sea", "hme", "rounds")
+    static_b = ("search_range", "block", "bd", "use_pallas", "subme", "wb",
+                "cshift", "is422", "rect", "log2_ctu", "me_sea", "amp",
+                "hme", "rounds")
+    rec = []
+    p_core, p_calls = _capturing(jim._p_core, static_p, rec)
+    b_core, b_calls = _capturing(jim._b_core, static_b, rec)
+    saved = jim._p_core, jim._b_core
+    jim._p_core, jim._b_core = p_core, b_core
+    try:
+        enc = JEncoder(default_params(w, h).validate())
+        pad = lambda f: tuple(enc._pad(a, s) for a, s in zip(f, (0, 1, 1)))
+        for k in range(4):
+            fr = [pad(f) for f in moving_scene(w, h, 3, seed=k)]
+            qp = 22 + (k * 5) % 19
+            jim.analyse_p_frame(*fr[1], [fr[0]], enc.sps, qp)
+            jim.analyse_b_frame(*fr[1], [fr[0]], [fr[2]], enc.sps, qp)
+    finally:
+        jim._p_core, jim._b_core = saved
+    two_roundings_differ = False
+    for name, calls, merge_len, gbits_at in (("P", p_calls, 7, 5),
+                                             ("B", b_calls, 11, 9)):
+        sites = _count_sites(calls, w, h, merge_len, gbits_at)
+        print(name, sites)
+        for key, (n, one, two) in sites.items():
+            assert n >= (400 if key == "best_rd" else 2000), (name, sites)
+            assert one == n, (name, key, sites)
+            two_roundings_differ |= two < n
+    assert two_roundings_differ
+
+
+@pytest.mark.parametrize("log2n", [2, 3, 4, 5])
+def test_tu_rd_sums_follow_the_reference_lane_order(log2n):
+    """Fault 3's repair at tu_rd_levels: the level-units TU costs of the
+    reference's own jitted _tu_rd_for_modes (n = 8, 16, 32) and
+    _tu4_costs (TU8 and the four TU4 DSTs, n = 4) on random planes and
+    modes, QP 12-44: the port's element d * d + K * bits rounded once
+    and summed in K3's lane order equals all of at least 400 sums; the
+    pairwise order (fsum) it replaced does not."""
+    from x265_mod_by_patman_tpu.analysis import intra_mode as jim
+    from x265_mod_by_patman_tpu.frame.zscan import frame_avail_masks
+    from x265_mod_by_patman_tpu_torch.analysis import intra_mode as tim
+    from x265_mod_by_patman_tpu_torch.ops import rdoq
+    n = 8 if log2n == 2 else 1 << log2n
+    w, h = (256, 128) if n < 16 else (512, 256)
+    rng = np.random.default_rng(log2n)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    total = equal = pairwise = 0
+    for trial in range(4 if n == 32 else 2):
+        orig = rng.integers(0, 256, (h, w)).astype(np.int32)
+        orig = (orig + np.roll(orig, 1, 1)) // 2
+        nby, nbx = h // n, w // n
+        avail = frame_avail_masks(w, h, n, 6, 0).reshape(nby * nbx, -1)
+        bys, bxs = np.mgrid[0:nby, 0:nbx]
+        bx = bxs.ravel().astype(np.int32)
+        by = bys.ravel().astype(np.int32)
+        modes = rng.integers(0, 35, bx.shape[0]).astype(np.int32)
+        qp = int(rng.integers(12, 45))
+        args = (orig, avail, bx, by, modes)
+        if log2n == 2:
+            ref = np.asarray(jim._tu4_costs(*map(jnp.asarray, args), qp)[1])
+            got = lambda: tim._tu4_costs(*map(t, args), qp)[1].numpy()
+        else:
+            ref = np.asarray(jim._tu_rd_for_modes(*map(jnp.asarray, args),
+                                                  qp, log2n))
+            got = lambda: tim._tu_rd_for_modes(*map(t, args), qp,
+                                               log2n).numpy()
+        total += ref.size
+        equal += int((got() == ref).sum())
+        lanes = rdoq.lsum
+        rdoq.lsum = lambda x: fsum(x, (-2, -1))
+        try:
+            pairwise += int((got() == ref).sum())
+        finally:
+            rdoq.lsum = lanes
+    assert total >= 400 and equal == total, (equal, total)
+    assert pairwise < total

@@ -3,7 +3,8 @@ JAX package: MultiStreamIntraEncoder (the streams batched through the
 multi-frame wavefront), MultiStreamEncoder (independent I/P/B streams),
 encode_gop_parallel and ElasticGopEncoder (retry and spool resume) give
 the reference's bytes, and their streams decode in the port's decoder
-with the MD5 SEI matching.  The copied host logic of parallel/gop.py and
+with the MD5 SEI matching; the stream encoders take a port mesh of one
+logical shard per stream.  The copied host logic of parallel/gop.py and
 parallel/elastic.py is held to the reference's source.
 
 Tolerance: exact (bytes)."""
@@ -11,6 +12,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from x265_mod_by_patman_tpu.encoder.top import Encoder as JEncoder
 from x265_mod_by_patman_tpu.params import default_params
@@ -20,6 +22,7 @@ from x265_mod_by_patman_tpu_torch.decoder.decoder import Decoder
 from x265_mod_by_patman_tpu_torch.encoder.top import Encoder as TEncoder
 from x265_mod_by_patman_tpu_torch.parallel import elastic as tel
 from x265_mod_by_patman_tpu_torch.parallel import gop as tgop
+from x265_mod_by_patman_tpu_torch.parallel.mesh import make_mesh
 from x265_mod_by_patman_tpu_torch.parallel.streams import (
     MultiStreamEncoder, MultiStreamIntraEncoder)
 from tests.test_e2e_inter import moving_scene
@@ -84,9 +87,26 @@ def test_multistream_equals_reference_per_stream():
 @pytest.mark.parametrize("cls", [MultiStreamEncoder,
                                  MultiStreamIntraEncoder])
 def test_multistream_refuses_a_mesh(cls):
+    """A port mesh of one logical shard per stream is taken: the streams
+    run on its device, encode and decode.  Any other object, or a mesh
+    of another size, is refused."""
     p = default_params(W, H, qp=32, keyframe_max=1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cls(p, 2, mesh=object(), device="cpu")
+    for bad in (object(), make_mesh(3, "stream", "cpu")):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            cls(p, 2, mesh=bad, device="cpu")
+    ms = cls(p, 2, mesh=make_mesh(2, "stream", "cpu"))
+    assert ms.device == torch.device("cpu")
+    streams = [moving_scene(W, H, 2, seed=20 + s) for s in range(2)]
+    got = [[], []]
+    for k in range(2):
+        out = ms.encode_step([streams[0][k], streams[1][k]])
+        for s in range(2):
+            got[s].extend(out[s] if isinstance(out[s], list) else [out[s]])
+    if cls is MultiStreamEncoder:
+        for s, out in enumerate(ms.flush()):
+            got[s].extend(out)
+    for s in range(2):
+        _decodes(b"".join(f.bitstream for f in got[s]), 2)
 
 
 def test_gop_parallel_equals_reference():

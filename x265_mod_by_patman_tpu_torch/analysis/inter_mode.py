@@ -10,9 +10,10 @@ blocks (4K) are analysed in row bands on sliced sub-planes
 rect PUs (2NxN / Nx2N) are searched on 8x8 sub-blocks, AMP PUs (2NxnU,
 2NxnD, nLx2N, nRx2N) pick each strip's MV from 4x4-tile SATD maps,
 `--me sea` runs the SEA-pruned integer search (ops/sea.py) and weighted
-B (`--weightb`) searches pre-weighted planes, as in the reference.  Its
-mesh-sharded (shard_map slab) branch is not ported; the TPU-only _chain
-scheduling barriers and lane chunking have no counterpart.
+B (`--weightb`) searches pre-weighted planes, as in the reference.
+_p_core also takes one band of a tile-row sharded analysis (Band;
+parallel/tiles.py).  The TPU-only _chain scheduling barriers and lane
+chunking have no counterpart.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from ..ops.interp import (bi_combine, mc_batch, mc_batch_14, wp_apply_batch,
                           wp_bi_combine)
 from ..ops.me import (_org_blocks, full_search_batch, half_res,
                       hme_upsample, mv_bits, subpel_refine_batch)
-from ..ops.numeric import osum
+from ..ops.numeric import fma32, osum
 from ..ops.sea import sea_search_batch
 from ..ops.transform import dct_batch, dequant_dyn, idct_batch, quant_dyn
 from .intra_mode import _mode_costs
@@ -260,7 +261,7 @@ def _rd_resid_cost(org, pred, qp_b, log2n: int, bd: int, lam2):
             + 6.0 * torch.clip(nz - 4.0, 0.0, 12.0)
             + 4.5 * torch.clamp(nz - 16.0, min=0.0))
     bits = torch.where(nz > 0, bits, 0.0)
-    return sse_c + lam2 * bits, sse_z
+    return fma32(lam2, bits, sse_c), sse_z
 
 
 def _hme_center_fullres(ry, oy, nby: int, nbx: int, lam256: int,
@@ -473,25 +474,51 @@ def analyse_p_frame(y, u, v, refs, sps, qp: int, device,
             h(mvs_b))
 
 
+@dataclasses.dataclass(frozen=True)
+class Band:
+    """One band of a tile-row sharded P analysis (parallel/tiles.py).
+    The planes given to _p_core are then the band's slab: its block rows
+    with `halo` block rows of real neighbour pixels above and below.
+    `index` is the band's place, `nby_total` the block rows of all bands
+    together, and `exchange(fields)` the in-process counterpart of the
+    reference's ppermute: for each (nby, nbx) field it returns the band
+    above's last row and the band below's first row, zeros at the
+    frame's edges (every band calls it at the same points)."""
+    index: int
+    nby_total: int
+    halo: int
+    exchange: object
+
+
 def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
             qp: int, search_range: int, n: int, bd: int, log2_ctu: int,
             subme: int, tmvp, n_real: int, rounds, rect: bool = False,
             hme: bool = False, amp: bool = False, me_sea: bool = False,
-            csp: int = 1):
+            csp: int = 1, band: Band = None):
     """P analysis of one frame or row band on one device (the
-    reference's _p_core for a call outside shard_map); csp: the chroma
-    format of rus / rvs (1, 2 or 3)."""
+    reference's _p_core); csp: the chroma format of rus / rvs (1, 2 or
+    3).  band: None for a whole-frame call, else the Band whose slab the
+    planes hold (HME is off in a band, and AMP is not taken)."""
     dev = oy.device
     h, w = oy.shape
     nbx = w // n
-    nby = h // n
+    if band is None:
+        hb, nby, gby0 = 0, h // n, 0
+        nby_total = nby
+    else:
+        if amp:
+            raise NotImplementedError("AMP in a tile-row band")
+        hb = band.halo
+        nby = h // n - 2 * hb                 # the band's own block rows
+        nby_total = band.nby_total
+        gby0 = band.index * nby
     nb = nbx * nby
     nref = len(rys)
     log2n = n.bit_length() - 1
     bys_np, bxs_np = np.mgrid[0:nby, 0:nbx]
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     bx = t((bxs_np.ravel() * n).astype(np.int32))
-    by = t((bys_np.ravel() * n).astype(np.int32))
+    by = t(((bys_np.ravel() + hb) * n).astype(np.int32))
     ry_all = []
     for i in range(nref):
         ry = rys[i]
@@ -506,7 +533,7 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
     org = _org_blocks(oy, bx, by, n)
     for ry in ry_all:
         ctr = None
-        if hme and not me_sea:
+        if hme and not me_sea and band is None:
             ctr = _hme_center_fullres(ry, oy, nby, nbx, lam256,
                                       search_range)
         mvx, mvy, cost, _ = _me_one_ref(oy, ry, bx, by, n, lam256,
@@ -532,11 +559,23 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
     me_mvx, me_mvy, me_ref = mvx, mvy, ref_sel
     AV_A1, AV_A0, AV_B2, AV_B1, AV_B0 = n, n - 1, 2 * n, 3 * n, 3 * n + 1
     icosts = _mode_costs(oy, avail, t(bxs_np.ravel().astype(np.int32)),
-                         t(bys_np.ravel().astype(np.int32)), log2n, bd)
+                         t((bys_np.ravel() + hb).astype(np.int32)), log2n,
+                         bd)
     intra_best = icosts.amin(1)
     intra_modes = torch.argmin(icosts, dim=1).to(I32)
     inter_est = (satd_me + ((lam256 * 4) >> 8)) <= \
         (intra_best + ((lam256 * 5) >> 8))
+
+    def neigh(f2d, sy: int, sx: int, ext=None):
+        """Coding-order neighbour values out[y, x] = f2d[y - sy, x - sx]
+        (sy in -1..1).  A band reads the row past its edge from ext =
+        (the row above, the row below); validity comes from the global
+        availability masks."""
+        if band is None or sy == 0:
+            return _neigh_field(f2d, sy, sx)[0]
+        if sy > 0:
+            return torch.roll(torch.cat([ext[0], f2d], 0), sx, 1)[:nby]
+        return torch.roll(torch.cat([f2d, ext[1]], 0), sx, 1)[1:nby + 1]
     lam_f = torch.tensor(float(lam256), dtype=F32, device=dev) / 256.0
     lam2 = lam_f * lam_f
     qp_b = torch.full((nb,), qp, dtype=I32, device=dev)
@@ -555,15 +594,17 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
         f2y = mvy.reshape(nby, nbx)
         f2r = rsel.reshape(nby, nbx)
         f2i = inter_est.reshape(nby, nbx)
+        ext = [None] * 4 if band is None else \
+            band.exchange([f2x, f2y, f2r, f2i])
 
         def gat(sy, sx):
-            return (_neigh_field(f2x, sy, sx)[0].reshape(-1),
-                    _neigh_field(f2y, sy, sx)[0].reshape(-1),
-                    torch.clip(_neigh_field(f2r, sy, sx)[0].reshape(-1), 0,
+            return (neigh(f2x, sy, sx, ext[0]).reshape(-1),
+                    neigh(f2y, sy, sx, ext[1]).reshape(-1),
+                    torch.clip(neigh(f2r, sy, sx, ext[2]).reshape(-1), 0,
                                nref - 1))
 
         def gat_ie(sy, sx):
-            return _neigh_field(f2i, sy, sx)[0].reshape(-1)
+            return neigh(f2i, sy, sx, ext[3]).reshape(-1)
 
         a1, b1, b0 = gat(0, 1), gat(1, 0), gat(1, -1)
         a0, b2 = gat(-1, 1), gat(1, 1)
@@ -612,8 +653,8 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
                              me_mvx, me_mvy, n, 0, bd)
             cc, sz = _rd_resid_cost(org, pr_me, qp_b, log2n, bd, lam2)
             syn_me = (mvd_bits_best + 3 + me_ref).to(F32)
-            best_rd = torch.minimum(cc + lam2 * syn_me,
-                                    sz + lam2 * (syn_me + 1.0))
+            best_rd = torch.minimum(fma32(lam2, syn_me, cc),
+                                    fma32(lam2, syn_me + 1.0, sz))
         k_c = len(mcands)
         cmx_s = torch.stack([c[0][0] for c in mcands])
         cmy_s = torch.stack([c[0][1] for c in mcands])
@@ -635,8 +676,8 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
             cc_r = cc_r.reshape(k_c, nb)
             sz_r = sz_r.reshape(k_c, nb)
             mb = (2 + idxb_s).to(F32)
-            rdk_all = torch.minimum(cc_r + lam2 * (mb + 4.0),
-                                    sz_r + lam2 * mb)
+            rdk_all = torch.minimum(fma32(lam2, mb + 4.0, cc_r),
+                                    fma32(lam2, mb, sz_r))
             rdk_all = torch.where(ok_s, rdk_all,
                                   torch.tensor(3e38, dtype=F32, device=dev))
         for k in range(k_c):
@@ -746,6 +787,10 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
         rep2 = lambda a: a.repeat_interleave(g, 0).repeat_interleave(g, 1)
         gsum_f = lambda a: _group_sum(a, gh, g, gw)
         ok = (crop(part) == 0).reshape(gh, g, gw, g).all(3).all(1)
+        if band is not None:
+            # a band's group must lie inside the bands' rows
+            gy = torch.arange(gh, device=dev)[:, None]
+            ok = ok & ((gby0 + (gy + 1) * g) <= nby_total)
         indiv_rd = gsum_f(crop(cost_rd))
         s = g // 2
 
@@ -763,7 +808,7 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
             sbc = crop(satd_batch(org, pr))
             cc, sz = _rd_resid_cost(org, pr, qp_b, log2n, bd, lam2)
             blk_rd = crop(torch.minimum(cc, sz))
-            tot = gsum_f(blk_rd) + lam2 * gbits.to(F32)
+            tot = fma32(lam2, gbits.to(F32), gsum_f(blk_rd))
             if valid is not None:
                 tot = torch.where(valid, tot,
                                   torch.tensor(3e38, dtype=F32, device=dev))
@@ -803,8 +848,16 @@ def _p_core(oy, rys, rus, rvs, weights, chroma_weights, avail, lam256: int,
             fr2[a1_r[:, None], ac[None, :]], mb3, va1))
         b1_r = ry_i - 1
         b1_c = rx_i + (g - 1)
-        vb1 = (b1_r >= 0)[:, None].expand(gh, gw)
-        br = torch.clip(b1_r, 0, nby - 1)
+        if band is None:
+            vb1 = (b1_r >= 0)[:, None].expand(gh, gw)
+            br = torch.clip(b1_r, 0, nby - 1)
+        else:
+            # the first group row's B1 lies on the band above's last row
+            ups = band.exchange([fx2, fy2, fr2])
+            fx2, fy2, fr2 = (torch.cat([e[0], f], 0)
+                             for e, f in zip(ups, (fx2, fy2, fr2)))
+            vb1 = ((gby0 + b1_r) >= 0)[:, None].expand(gh, gw)
+            br = b1_r + 1
         best = merge_best(best, eval_cand(
             fx2[br[:, None], b1_c[None, :]],
             fy2[br[:, None], b1_c[None, :]],
@@ -1482,8 +1535,8 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
             for p, s in zip((uni_of(p0_14, 0), uni_of(p1_14, 1),
                              bi_of(p0_14, p1_14)), syn_me):
                 cc, sz = _rd_resid_cost(org, p, qp_b, log2n, bd, lam2)
-                rds.append(torch.minimum(cc + lam2 * s,
-                                         sz + lam2 * (s + 1.0)))
+                rds.append(torch.minimum(fma32(lam2, s, cc),
+                                         fma32(lam2, s + 1.0, sz)))
             rd_stack = torch.stack(rds, 0)
             mi = torch.argmin(rd_stack, 0)
             best_rd = rd_stack.amin(0)
@@ -1521,8 +1574,9 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
             cc_r, sz_r = _rd_resid_cost(org_k, pred, qp_b.repeat(k_c),
                                         log2n, bd, lam2)
             mb = (2 + idxb_s).to(F32)
-            rdk_all = torch.minimum(cc_r.reshape(k_c, nb) + lam2 * (mb + 4.0),
-                                    sz_r.reshape(k_c, nb) + lam2 * mb)
+            rdk_all = torch.minimum(
+                fma32(lam2, mb + 4.0, cc_r.reshape(k_c, nb)),
+                fma32(lam2, mb, sz_r.reshape(k_c, nb)))
             rdk_all = torch.where(ok_s, rdk_all, big_f)
         for k in range(k_c):
             if rd:
@@ -1732,7 +1786,7 @@ def _b_core(oy, r0ys, ru0s, rv0s, r1ys, ru1s, rv1s, avail, lam256: int,
             sbc = crop(satd_batch(org, pred))
             cc, sz = _rd_resid_cost(org, pred, qp_b, log2n, bd, lam2)
             blk_rd = crop(torch.minimum(cc, sz))
-            tot = gsum_f(blk_rd) + lam2 * gbits.to(F32)
+            tot = fma32(lam2, gbits.to(F32), gsum_f(blk_rd))
             if valid is not None:
                 tot = torch.where(valid, tot, big_f)
             return [tot, rdd, rm0x, rm0y, rm1x, rm1y, rr0, rr1, sbc,

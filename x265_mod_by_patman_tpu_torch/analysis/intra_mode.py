@@ -19,7 +19,7 @@ import torch
 from ..frame.planes import dev_i32
 from ..frame.zscan import frame_avail_masks
 from ..ops.cost import satd_batch
-from ..ops.numeric import osum
+from ..ops.numeric import fma32, osum
 from ..ops.intra import (block_index, gather_ref_samples,
                          intra_pred_all_batch, intra_pred_select_batch,
                          substitute_filter_batch)
@@ -388,13 +388,6 @@ def _mpm_grid_t(modes, log2_ctu: int, block: int):
     return torch.stack([m0, m1, m2], -1).to(modes.dtype)
 
 
-def _fma32(a, b, c):
-    """float32 a * b + c rounded once, as the reference's CPU backend
-    contracts it (float64 holds the product of two float32 exactly)."""
-    return (a.to(torch.float64) * b.to(torch.float64)
-            + c.to(torch.float64)).to(torch.float32)
-
-
 def _modes_rd_multi(origs, avail, bx, by, lam, log2n: int, log2_ctu: int,
                     bit_depth: int, nby: int, nbx: int, homog: bool):
     """The reference's decide_modes_rd for F frames on the device, with
@@ -414,7 +407,7 @@ def _modes_rd_multi(origs, avail, bx, by, lam, log2n: int, log2_ctu: int,
     bits = torch.where(ma == mpm[..., 2:3], 3.0, bits)
     bits = torch.where(ma == mpm[..., 1:2], 3.0, bits)
     bits = torch.where(ma == mpm[..., 0:1], 2.0, bits)
-    total = _fma32(lam, bits, costs)
+    total = fma32(lam, bits, costs)
     modes = torch.argmin(total, -1).to(I32)
     if not homog:
         return modes
@@ -426,7 +419,7 @@ def _modes_rd_multi(origs, avail, bx, by, lam, log2n: int, log2_ctu: int,
     chosen = torch.gather(total, -1, modes[..., None].long())[..., 0]
     indiv = osum(chosen[:, :cy * 2, :cx * 2].reshape(f, cy, 2, cx, 2),
                  (2, 4))
-    unify = best_common <= _fma32(lam, torch.tensor(20.0, device=lam.device),
+    unify = best_common <= fma32(lam, torch.tensor(20.0, device=lam.device),
                                   indiv)
     mm = modes[:, :cy * 2, :cx * 2].reshape(f, cy, 2, cx, 2)
     mm = torch.where(unify[:, :, None, :, None], common[:, :, None, :, None],

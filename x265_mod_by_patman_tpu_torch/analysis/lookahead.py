@@ -65,7 +65,8 @@ def _tree_sum(a: torch.Tensor, term_max=None) -> torch.Tensor:
     number of windows with the padding split over both ends (the low end
     takes the smaller half); then it sums what is left.  The last level,
     and a window whose sum may reach 2**24, add their terms in row-major
-    order (osum: K3 on the card).  A window of nonnegative integers no
+    order (osum: K3 on the card), except a last level of 2x2, which the
+    backend adds as two row pairs.  A window of nonnegative integers no
     larger than term_max whose sum stays below 2**24 is exact in any
     order, and is summed in int64."""
     while max(a.shape) > TREE_WINDOW:
@@ -81,7 +82,12 @@ def _tree_sum(a: torch.Tensor, term_max=None) -> torch.Tensor:
         else:
             a = osum(win.to(torch.float32), (1, 3))
             term_max = None
-    return osum(a.to(torch.float32), (0, 1))
+    a = a.to(torch.float32)
+    if a.shape == (2, 2):
+        # the backend vectorises a 2x2 reduce: the two rows' pair sums,
+        # then their sum (the compiled code of the 2160p lowres mean)
+        return (a[0, 0] + a[0, 1]) + (a[1, 0] + a[1, 1])
+    return osum(a, (0, 1))
 
 
 # the largest lowres sample (12 bits): a 32x32 window of them sums below

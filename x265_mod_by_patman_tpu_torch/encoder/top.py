@@ -62,13 +62,15 @@ from ..analysis.intra_mode import (decide_modes_rd, decide_modes_split,
                                    decide_modes_tree, decide_tu4_split)
 from ..analysis.reuse import mc_for_b, mc_for_p
 from ..analysis.lookahead import CuTreeLookahead
-from ..analysis.inter_mode import (analyse_b_frame, analyse_p_frame,
-                                   lambda_qp)
+from ..analysis.inter_mode import (_whole_frame_mc, analyse_b_frame,
+                                   analyse_p_frame, lambda_qp)
 from ..frame.planes import (as_devplane, attach_dev, dev_i32, pack_levels,
                             pack_recon)
 from ..frame.recon_intra import IntraReconstructor, chroma_qp
 from ..ops.deblock import (chroma_on_maps, deblock_frame_batch,
                            inter_bs_maps, intra_bs_maps)
+from ..parallel.mesh import make_mesh
+from ..parallel.tiles import analyse_p_frame_tiles
 from ..utils.device import resolve
 
 MAX_MERGE = 3
@@ -122,12 +124,9 @@ def _unsupported(p: EncoderParams) -> List[str]:
     """Options of the reference this port does not take."""
     out = []
     checks = (
-        (p.mesh_tile_rows > 1, "mesh_tile_rows > 1"),
-        # the reference's frame-parallel B defers rate-control feedback
-        # across the window, which the port's sequential B encode does
-        # not reproduce (same bytes under CQP only)
-        (p.frame_parallel_window > 1 and p.rc_mode != "cqp",
-         "--frame-threads > 1 with CRF/ABR"),
+        # the reference's tile-row analysis reads 4:2:0 chroma planes
+        (p.mesh_tile_rows > 1 and p.internal_csp != 1,
+         "tile-row analysis (mesh_tile_rows) in 4:2:2 / 4:4:4"),
         # 4:0:0 is not encoded by the reference either (it asserts)
         (p.internal_csp not in (1, 2, 3), "4:0:0 chroma"),
         # the reference quantizes 4:4:4's 16x16 chroma TBs with its 8x8
@@ -286,6 +285,7 @@ class Encoder:
         self._idr_base = 0
         self._slicetype = None            # lazy (needs padded geometry)
         self._enc_order = 0               # decode-order AU counter (HRD)
+        self._tiles_mesh = None           # tile-row mesh, made on first use
         self._last_bp_order = 0           # last buffering-period AU
         self._last_row_bits = None        # WPP substream bits (row VBV)
         self._last_anchor_disp = -1
@@ -1045,23 +1045,67 @@ class Encoder:
         return out
 
     def _encode_b_jobs(self, jobs) -> List[EncodedFrame]:
-        """Encode a mini-GOP's mutually independent B pictures, one after
-        another.  The reference's frame-parallel mode (--frame-threads >
-        1) gives byte-identical output under CQP, so it has no separate
-        path here (the encoder rejects it under CRF/ABR)."""
-        return [self._encode_picture(pl, pc, "B", cx, b_refs=br,
-                                     qp_off=qo)
-                for (pl, pc, cx, qo, br) in jobs]
+        """Encode a set of mutually independent B pictures (their anchors
+        are all in hand).  Under --frame-threads > 1 they form the
+        reference's frame-parallel window: each picture skips its
+        rate-control update and decode-order step (defer_rc), which are
+        replayed in decode order once the window is done, so every
+        picture of the window takes its QP from the state before it.
+        Not with HRD, VBV, NR or an analysis store, as in the
+        reference.  The bytes come from the deferral alone: the jobs run
+        in turn on the encoder's stream (on one card, threads made each
+        job's host-bound launches slower than the two in turn; PERF.md),
+        and their CABAC-state publishes land in decode order as they
+        would after the reference's join."""
+        par_ok = (self.p.frame_parallel_window > 1 and len(jobs) > 1
+                  and not self.sps.hrd
+                  and self.rc.vbv_buffer <= 0
+                  and self._nr is None
+                  and self._ana_store is None)
+        out = [self._encode_picture(pl, pc, "B", cx, b_refs=br, qp_off=qo,
+                                    defer_rc=par_ok)
+               for (pl, pc, cx, qo, br) in jobs]
+        if par_ok:
+            for f, (_pl, _pc, cx, _qo, br) in zip(out, jobs):
+                self.rc.update("B" if br[3] else "b", f.qp, f.bits, cx)
+                self._enc_order += 1
+        return out
+
+    def _tiled_p_analysis(self, y, u, v, refs, qp: int, wp_l0, rect: bool,
+                          col, rp_p, poc: int):
+        """Tile-row sharded P analysis over the encoder's mesh of
+        mesh_tile_rows shards (the reference's option set: luma-only
+        weights, no AMP / SEA / HME, rounds (2, 1)).  The predictions
+        are then read again from the whole-frame planes: a band's own
+        MC clamps at its slab, which differs from the decoder's once a
+        motion vector reaches past the 32-pixel halo (`--me star`); the
+        reference keeps the band's, so its stream can fail to decode
+        there, and only there does the port's differ from it."""
+        if self._tiles_mesh is None:
+            self._tiles_mesh = make_mesh(self.p.mesh_tile_rows, "rows",
+                                         self.device)
+        o = analyse_p_frame_tiles(
+            y, u, v, refs, self.sps, qp, search_range=self._me_range,
+            weights=wp_l0, subme=self.p.subpel_refine, rect=rect,
+            mesh=self._tiles_mesh, col=col, ref_pocs=rp_p, cur_poc=poc)
+        flat = list(o[:4]) + list(o[4]) + list(o[5:])
+        mc = _whole_frame_mc(flat, refs, wp_l0, None, rect, False, False,
+                             self._me_range, 16, self.sps.bit_depth,
+                             self.device)
+        return o[:4] + (mc,) + o[5:]
 
     # -- one picture ---------------------------------------------------------
     def _encode_picture(self, planes, poc: int, ftype: str,
                         complexity: float = 0.0, b_refs=None,
-                        qp_off=None, nal_class=None) -> EncodedFrame:
+                        qp_off=None, nal_class=None,
+                        defer_rc: bool = False) -> EncodedFrame:
         """b_refs: for B pictures, (L0 [(planes, poc)..], L1 [(planes,
         poc)..], extra POCs to retain in the RPS, is_referenced).
         qp_off: per-CTU cuTree QP offsets (<= 0) or None.
         nal_class: None (default typing), "cra" (open-GOP keyframe) or
-        "rasl" (leading pictures of a CRA)."""
+        "rasl" (leading pictures of a CRA).
+        defer_rc: leave the rate-control update and the decode-order
+        step to the caller (a frame-parallel B window)."""
         p = self.p
         y, u, v = planes
         rc_type = ftype
@@ -1158,9 +1202,11 @@ class Encoder:
                     cand = [analyse_weightp(y, rf[0]) for rf in refs]
                     wp_l0 = cand if any(c is not None for c in cand) \
                         else None
-                    # analysis-reuse runs and the 4:2:2 / 4:4:4 formats
-                    # stay luma-only, as in the reference
+                    # analysis-reuse runs, tile-row analysis and the
+                    # 4:2:2 / 4:4:4 formats stay luma-only, as in the
+                    # reference
                     if wp_l0 is not None and rec_a is None \
+                            and p.mesh_tile_rows <= 1 \
                             and p.internal_csp == 1:
                         wp_chroma = [
                             analyse_weightp_chroma(u, rf[1], v, rf[2])
@@ -1182,8 +1228,12 @@ class Encoder:
                 col_a = self._col_store.get(rp_p[0][0]) \
                     if self.sps.temporal_mvp else None
                 with trace.scope("analysis", type="P"):
-                    modes, inter_mask, mvs, ref_sel, mc, part_map, \
-                        mvs_b = analyse_p_frame(
+                    if p.mesh_tile_rows > 1:
+                        got = self._tiled_p_analysis(
+                            y, u, v, refs, qp, wp_l0, use_rect, col_a,
+                            rp_p, poc)
+                    else:
+                        got = analyse_p_frame(
                             y, u, v, refs, self.sps, qp, dev,
                             search_range=self._me_range, weights=wp_l0,
                             subme=p.subpel_refine, rect=use_rect,
@@ -1192,6 +1242,7 @@ class Encoder:
                             ref_pocs=rp_p, cur_poc=poc,
                             pad_refs=self.max_refs, hme=p.hme,
                             rounds=self._rounds_p)
+                modes, inter_mask, mvs, ref_sel, mc, part_map, mvs_b = got
                 if np.any(part_map):
                     rect_info = (part_map, mvs_b)
             recon_fn = self._inter_recon_fn(
@@ -1394,7 +1445,8 @@ class Encoder:
             from ..bitstream.nal import NAL_PREFIX_SEI
             out += annexb(NAL_PREFIX_SEI,
                           write_pic_timing(pic_struct=pic_struct))
-        self._enc_order += 1
+        if not defer_rc:
+            self._enc_order += 1
         if isinstance(slice_rbsp, list):
             for rb in slice_rbsp:
                 out += annexb(nal_unit, rb, temporal_id=temporal_id)
@@ -1413,7 +1465,8 @@ class Encoder:
                              stats=self._frame_stats(r, inter_mask, mvs,
                                                      rect_info),
                              pipeline_runs=runs, qp_map=qp_map)
-        self.rc.update(rc_type, qp, frame.bits, complexity)
+        if not defer_rc:
+            self.rc.update(rc_type, qp, frame.bits, complexity)
         if self.sps.temporal_mvp and (ftype in ("I", "P") or b_is_ref):
             self._col_store[poc] = self._build_col_motion(
                 poc, inter_mask, dirs, mvs, mvs1, ref_sel, ref_pocs,

@@ -86,8 +86,21 @@ def load_library():
             lib.window_gather_launch.restype = i
             lib.ordered_sum_launch.argtypes = [p, p, i, i, p]
             lib.ordered_sum_launch.restype = i
+            lib.ordered_sum_lanes_launch.argtypes = [p, p, i, i, p]
+            lib.ordered_sum_lanes_launch.restype = i
             _lib = lib
     return _lib
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(fn, key) -> None:
+    """Add one launch at shape `key` to kernel wrapper `fn`'s counts
+    (encoders may launch from several threads)."""
+    with _count_lock:
+        fn.launches += 1
+        fn.launches_by_shape[key] = fn.launches_by_shape.get(key, 0) + 1
 
 
 def check(rc: int, name: str) -> None:

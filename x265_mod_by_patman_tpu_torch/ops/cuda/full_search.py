@@ -15,7 +15,7 @@ import functools
 
 import torch
 
-from .build import check, load_library
+from .build import check, count_launch, load_library
 from .gather import window_gather_plain
 
 I32 = torch.int32
@@ -136,10 +136,7 @@ def full_search(ref, orig, x0, y0, pred_mv_x, pred_mv_y, lambda_x256: int,
         int(lambda_x256),
         mx.data_ptr(), my.data_ptr(), cost.data_ptr(), b, n, r, stream),
         "full_search")
-    full_search.launches += 1
-    key = (n, r, h, w)
-    full_search.launches_by_shape[key] = \
-        full_search.launches_by_shape.get(key, 0) + 1
+    count_launch(full_search, (n, r, h, w))
     return mx, my, cost
 
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import check, load_library
+from .build import check, count_launch, load_library
 
 
 def window_gather_plain(plane: torch.Tensor, ys: torch.Tensor,
@@ -56,10 +56,7 @@ def window_gather(plane: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     check(lib.window_gather_launch(plane.data_ptr(), ys.data_ptr(),
                                    xs.data_ptr(), out.data_ptr(), b, h, w,
                                    size, stream), "window_gather")
-    window_gather.launches += 1
-    key = (size, h, w)
-    window_gather.launches_by_shape[key] = \
-        window_gather.launches_by_shape.get(key, 0) + 1
+    count_launch(window_gather, (size, h, w))
     return out
 
 

@@ -69,6 +69,46 @@ def osum_plain(xt: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def lanes_sum_plain(xt: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of K3's lane mode: (n*n, M) float32 terms, each
+    column an n x n block in row-major order -> (M,) sums in the order
+    the reference's CPU backend gives a fused TU sum (8-lane vectors):
+    for n <= 8 each row summed left to right, then the n row sums as a
+    tree (j + n/2 into j, halving); for n >= 16 row by row, lane j
+    summing the row's terms j, j + 8, ... after the running sum is
+    added into lane 0's first term, the 8 lanes as a tree (j + 4, + 2,
+    + 1) giving the new running sum."""
+    x = xt.reshape(n, n, -1)
+    if n <= 8:
+        lanes = [osum_plain(x[r]) for r in range(n)]
+        w = n // 2
+        while w >= 1:
+            lanes = [lanes[j] + lanes[j + w] for j in range(w)]
+            w //= 2
+        return lanes[0]
+    acc = torch.zeros(x.shape[2:], dtype=torch.float32, device=xt.device)
+    for r in range(n):
+        lane = x[r, :8].clone()
+        lane[0] = acc + lane[0]
+        for c in range(8, n, 8):
+            lane = x[r, c:c + 8] + lane
+        lane = lane[:4] + lane[4:]
+        lane = lane[:2] + lane[2:]
+        acc = lane[0] + lane[1]
+    return acc
+
+
+def lsum(x: torch.Tensor) -> torch.Tensor:
+    """(..., n, n) float32 -> (...) sums of each n x n block in the
+    reference's fused TU-sum order (lanes_sum_plain; K3's lane mode on
+    the card)."""
+    from .cuda.ordered_sum import ordered_sum_lanes
+    n = x.shape[-1]
+    lead = x.shape[:-2]
+    xt = x.to(torch.float32).reshape(-1, n * n).T.contiguous()
+    return ordered_sum_lanes(xt, n).reshape(lead)
+
+
 def osum(x: torch.Tensor, dims) -> torch.Tensor:
     """float32 sum over `dims`, the terms added one by one in row-major
     order of the reduced dims (K3 on the card, osum_plain on the CPU)."""
@@ -82,6 +122,14 @@ def osum(x: torch.Tensor, dims) -> torch.Tensor:
     xt = x.to(torch.float32).permute(*dims, *keep).reshape(
         -1, int(np.prod(shape, dtype=np.int64))).contiguous()
     return ordered_sum(xt).reshape(shape)
+
+
+def fma32(a, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once, as the reference's CPU backend
+    contracts a multiply into the add that consumes it (float64 holds
+    the product of two float32 exactly).  b may be a Python number."""
+    f = lambda x: x.to(torch.float64) if isinstance(x, torch.Tensor) else x
+    return (f(a) * f(b) + f(c)).to(torch.float32)
 
 
 def flog2(x: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,7 @@ import torch
 from ..constants.hevc_tables import scan_order
 from ..entropy.est_bits import (
     BITS_TABLE, residual_ctx_scalars, sig_ctx_map)
-from .numeric import exp2_ref, fsqrt, fsum
+from .numeric import exp2_ref, fma32, fsqrt, fsum, lsum
 from .transform import (MAX_TR_DYNAMIC_RANGE, QUANT_SHIFT, _mat_sel, _qp_vec,
                         const)
 
@@ -320,5 +320,7 @@ def tu_rd_levels(coef, qp, log2_size: int, bit_depth: int = 8,
     scale = const("qs", None, dev)[rem6.long()][:, None, None]
     cs = torch.abs(coef).to(F32) * scale.to(F32) / exp2_ref(qbits)
     lv = torch.round(cs)
-    rd = (cs - lv) ** 2 + k * _level_bits(lv)
-    return fsum(rd, (-2, -1))
+    d = cs - lv
+    # the reference's fused loop contracts d * d into the add and sums
+    # each block in its 8-lane order (K3's lane mode)
+    return lsum(fma32(d, d, k * _level_bits(lv)))

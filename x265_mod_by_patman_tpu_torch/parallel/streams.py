@@ -6,8 +6,9 @@ heavy per-frame device work (the batched mode decision and the
 multi-frame recon wavefront) runs once over the S streams' current
 frames, the stream axis being the batch axis; host entropy then runs per
 stream, as the reference keeps CABAC per stream.  The reference shards
-that axis over a device mesh; the port runs on one card, so a `mesh` is
-refused (NotImplementedError).
+that axis over a device mesh; the port runs on one card, where a `mesh`
+(parallel.mesh.make_mesh, one shard per stream) is a set of logical
+shards of that card, and the streams run on its device.
 """
 from __future__ import annotations
 
@@ -20,14 +21,21 @@ import numpy as np
 from ..analysis.intra_mode import decide_modes_batch
 from ..encoder.top import EncodedFrame, Encoder
 from ..params import EncoderParams, default_params
+from .mesh import Mesh
 from ..utils.device import resolve
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
+def _mesh_device(mesh, n_streams: int, device):
+    """The device the streams run on: `device`, or a mesh's (a port Mesh
+    of one shard per stream, which on one card is a set of logical
+    shards of that device)."""
+    if mesh is None:
+        return resolve(device)
+    if not isinstance(mesh, Mesh) or mesh.size != n_streams:
         raise NotImplementedError(
-            "not ported: a device mesh (parallel/mesh.py); the port's "
-            "streams share one device")
+            "not ported: a mesh other than parallel.mesh.make_mesh's with "
+            f"one shard per stream ({n_streams})")
+    return mesh.device
 
 
 class MultiStreamEncoder:
@@ -40,9 +48,8 @@ class MultiStreamEncoder:
 
     def __init__(self, params: EncoderParams, n_streams: int,
                  mesh=None, device="cuda") -> None:
-        _no_mesh(mesh)
         self.n = n_streams
-        self.device = resolve(device)
+        self.device = _mesh_device(mesh, n_streams, device)
         self.encoders = [Encoder(copy.deepcopy(params), self.device)
                          for _ in range(n_streams)]
 
@@ -74,9 +81,8 @@ class MultiStreamIntraEncoder:
     def __init__(self, params: EncoderParams, n_streams: int,
                  mesh=None, device="cuda") -> None:
         assert params.keyframe_max == 1, "multi-stream v1 is all-intra"
-        _no_mesh(mesh)
         self.n = n_streams
-        self.device = resolve(device)
+        self.device = _mesh_device(mesh, n_streams, device)
         self.encoders = [Encoder(default_params(
             params.source_width, params.source_height, qp=params.qp,
             keyframe_max=1, sao=params.sao, deblock=params.deblock,
