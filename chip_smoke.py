@@ -44,18 +44,30 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    16x16 gather of the aligned blocks, each exact and timed with its
    bound, plain and library times; mcstf._align_and_error on the card
    equal to its CPU run; the ladder's scale_frame 1080p -> 720p and
-   -> 360p on the card equal to the CPU, timed.  K3 `ordered_sum`
-   (phase_k3) at the shapes of the sums it orders (the lookahead's
-   32x32 windows of the 544x960 lowres plane and of the 68x120 intra
-   costs, then their window sums; the g = 2 and 4 region groups; the
-   batched intra decision's CTU groups of two 1080p frames) and, for
-   information, the TU16 / TU32 terms in row-major order: exact against
-   its plain version, with its device time, bytes bound, share, chain
-   bound (its K dependent adds at an assumed 4 cycles each, on lines of
-   its own, not in the kernels line), the plain version's,
-   fsum's and torch.sum's times; K3's lane mode at the TU costs of
-   tu_rd_levels (n = 32, 16, 8, 4 at 1080p block counts) against
-   lanes_sum_plain, exact and timed the same way.  K1 and K2 at the tile-row
+   -> 360p on the card equal to the CPU, timed.  The latency of one
+   dependent float32 add (csrc/bench/fadd_chain.cu, built beside the
+   kernels in phase 1: one thread's __fadd_rn chain between clock64()
+   reads), printed on a line of its own.  K3 `ordered_sum` (phase_k3)
+   at its call sites in the layouts their callers hand it, read in
+   place (the lookahead's 32x32 windows of the 544x960 lowres plane and
+   of the 68x120 intra costs, then their window sums; the g = 2 and 4
+   region groups, and 2160p's g = 2 crop, a slice; the batched intra
+   decision's CTU groups of two 1080p frames), on compact (K, M) terms
+   (the TU16 / TU32 terms in row-major order, for information, and
+   ragged sizes: K = 0, K = 1, M not a multiple of 32, K across
+   staging chunks): exact against its plain version, with its device time, one
+   whole osum call with its wrapper, its bound (the larger of the bytes
+   and the chain of dependent adds at the measured latency; "chain" in
+   the kernels line where that is larger), the plain version's,
+   fsum's and torch.sum's times; then, exact and untimed, every sum
+   the lookahead's _lowres_scalars hands K3 and the analysis' g x g
+   group sums at each frame size the smoke codes (1080p, 2160p with its
+   row bands, the ladder's 720p and 360p rungs; K3_FRAMES), the card's
+   two lookahead scalars equal to the CPU's; K3's lane mode at the TU
+   costs of tu_rd_levels (n = 32, 16, 8, 4 at 1080p block counts) in
+   lsum's (M, n, n) layout, on every other block, on transposed blocks
+   and at ragged M, against lanes_sum_plain, exact, and timed the same
+   way at the path's shapes.  K1 and K2 at the tile-row
    path's shapes (phase_k_tiles): one band's 384x1920 slab of 1080p
    park at mesh_tile_rows 4, the analysis search (n = 16, r = 16) and
    the rect 8x8 sub-block search on the band's stacked reference, exact
@@ -1048,117 +1060,304 @@ def k3_bound_ms(k: int, m: int) -> float:
     return 1e3 * 4 * (k * m + m) / HBM_BYTES_PER_S
 
 
-# K3's shapes, (K terms a row, M rows): the lookahead's sums of the
+# K3 at the call sites, each in the layout its caller hands osum (the
+# terms read where they lie, no copy): (what, shape made, (slice, view)
+# or None, reduced dims, on the main path).  The lookahead's sums of the
 # 544x960 lowres plane (17 x 30 windows of 32 x 32, then the 510 window
 # sums) and of the 68x120 intra costs (3 x 4 windows of the plane padded
 # to 96x128, then 12), _region_uniform's g x g group sums of the 68x120
 # 16x16-block map (g = 2: 34 x 60 groups, g = 4: 17 x 30), and the
 # batched intra decision's 2x2 CTU group sums of phase 12's two-frame
-# 1080p batch at CTU 32 (per mode: 2 x 34 x 60 x 35 rows; of the chosen
-# totals: 2 x 34 x 60).  The 16x16 and 32x32 TU sums at 1080p are timed
-# for information: they keep fsum (their order in the reference is not
-# row-major, ROADMAP §3) and K3 does not run there.
-K3_SHAPES = ((4, 142800, "intra CTU groups per mode, 2 frames", True),
-             (510, 1, "lowres plane window sums", True),
-             (1024, 12, "intra-cost windows", True),
-             (12, 1, "intra-cost window sums", True),
-             (4, 2040, "region groups g=2", True),
-             (16, 510, "region groups g=4", True),
-             (4, 4080, "intra CTU groups of the chosen modes", True),
-             (1024, 510, "lowres plane windows (int64 sums now)", False),
-             (256, 8160, "TU16 terms row-major (lane mode runs there)",
-              False),
-             (1024, 2040, "TU32 terms row-major (lane mode runs there)",
-              False))
-# K3's lane mode at the TU sums of tu_rd_levels (n x n blocks, M of them):
-# the I pictures' CU-tree costs at 1080p (TU32, TU16, TU8 per 8x8 of the
-# NxN candidate) and the TU4 split's DST blocks (9a)
+# 1080p batch at CTU 32 (per mode: 2 x 34 x 60 x 35 sums, views of the
+# (2, 68, 120, 35) totals; of the chosen totals: 2 x 34 x 60), and the
+# g = 2 groups of 2160p's 135x240 map, whose crop to 134 rows is a
+# slice.  The first entry's numbers go into the kernels line.
+_CTU = (slice(None), slice(0, 68), slice(0, 120))
+K3_SITES = (
+    ("intra CTU groups per mode, 2 frames", (2, 68, 120, 35),
+     (_CTU, (2, 34, 2, 60, 2, 35)), (2, 4), True),
+    ("lowres plane window sums", (17, 30), None, (0, 1), True),
+    ("intra-cost windows", (96, 128), (None, (3, 32, 4, 32)), (1, 3), True),
+    ("intra-cost window sums", (3, 4), None, (0, 1), True),
+    ("region groups g=2", (68, 120), (None, (34, 2, 60, 2)), (1, 3), True),
+    ("region groups g=4", (68, 120), (None, (17, 4, 30, 4)), (1, 3), True),
+    ("intra CTU groups of the chosen modes", (2, 68, 120),
+     (_CTU, (2, 34, 2, 60, 2)), (2, 4), True),
+    ("region groups g=2 at 2160p, a slice", (135, 240),
+     ((slice(0, 134), slice(None)), (67, 2, 120, 2)), (1, 3), True),
+    ("lowres plane windows (int64 sums now)", (544, 960),
+     (None, (17, 32, 30, 32)), (1, 3), False))
+# K3 on compact (K, M) terms, reduced axis first: the TU16 / TU32 terms
+# in row-major order (the lane mode runs there), ragged sizes (M not a
+# multiple of 32, K = 1; K past one staging chunk of 2048 terms: 10000 at
+# M = 1 is four chunks and one of 1808 terms, 2100 at M = 12 one chunk
+# and one of 52)
+K3_SHAPES = ((256, 8160, "TU16 terms row-major (lane mode runs there)"),
+             (1024, 2040, "TU32 terms row-major (lane mode runs there)"),
+             (1, 1001, "ragged: K = 1, M = 1001"),
+             (7, 100003, "ragged: K = 7, M = 100003"),
+             (10000, 1, "ragged: five staging chunks, M = 1"),
+             (2100, 12, "ragged: two staging chunks, M = 12"),
+             (0, 7, "no terms: K = 0"))
+# K3's lane mode at the TU sums of tu_rd_levels (n x n blocks, M of them,
+# as lsum hands them: (M, n, n)): the I pictures' CU-tree costs at 1080p
+# (TU32, TU16, TU8 per 8x8 of the NxN candidate) and the TU4 split's DST
+# blocks (9a); then ragged M
 K3_LANE_SHAPES = ((32, 2040, "TU32 costs"), (16, 8160, "TU16 costs"),
                   (8, 32640, "TU8 costs"), (4, 130560, "TU4 DST costs"))
-# dependent float32 add latency in cycles: assumed, not measured on the
-# card, so the chain bound built on it is printed on lines of its own and
-# stays out of the kernels line
-FADD_LATENCY_CYCLES = 4
+K3_LANE_RAGGED = ((32, 37, "ragged M"), (16, 1, "one block"),
+                  (8, 1001, "ragged M"), (4, 999, "ragged M"))
+# The frames whose sums K3 takes in the smoke's phases, at the size the
+# encoder codes them (padded to 16): 1080p (phases 3-6, 8-10, 12, 13 and
+# the ladder's first rung), 2160p (phase 7, whose analysis runs in row
+# bands: its star search's r = 32), the ladder's 720p and 360p rungs
+# (phase 11).  (what, width, height, search range of the bands)
+K3_FRAMES = (("1080p", 1920, 1088, 16), ("2160p", 3840, 2160, 32),
+             ("720p rung", 1280, 720, 16), ("360p rung", 640, 368, 16))
+FADD_LATENCY = {}       # "cycles": the measured dependent-add latency
+FADD_BUILD = None       # set by main(): (nvcc process, library path)
 
 
-def k3_chain_ms(k: int, clock_hz: float) -> float:
-    """The least time of K dependent float32 adds in one thread: K times
-    the (assumed) add latency at the SM clock (a bound the bytes do not
-    see)."""
-    return 1e3 * k * FADD_LATENCY_CYCLES / clock_hz
+def fadd_build_start():
+    """Start nvcc on the add-latency microbenchmark (csrc/bench/
+    fadd_chain.cu, not part of the kernel library) beside the library's
+    own build; returns (process, library path)."""
+    so = os.path.join(ROOT, "build", "fadd_chain.so")
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    from x265_mod_by_patman_tpu_torch.ops.cuda import build
+    src = os.path.join(ROOT, PKG, "csrc", "bench", "fadd_chain.cu")
+    proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", so,
+                             src], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, so
+
+
+def fadd_latency_cycles(built) -> float:
+    """One thread's chain of dependent __fadd_rn between two clock64()
+    reads, at 2,048 and 16,384 adds (the least of 5 runs each): the
+    extra cycles over the extra adds, so the clock reads and the loop
+    cancel out."""
+    import ctypes
+    proc, so = built
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed on fadd_chain.cu:\n" + log)
+    lib = ctypes.CDLL(so)
+    p = ctypes.c_void_p
+    lib.fadd_chain_launch.argtypes = [p, ctypes.c_int, p, p, p]
+    lib.fadd_chain_launch.restype = ctypes.c_int
+    dev = torch.device("cuda", 0)
+    step = torch.tensor([1.0, 0.5], device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, device=dev)
+    best = {}
+    for n in (2048, 16384) * 5:
+        rc = lib.fadd_chain_launch(step.data_ptr(), n, cycles.data_ptr(),
+                                   sink.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fadd_chain launch failed: {rc}")
+        torch.cuda.synchronize()
+        best[n] = min(best.get(n, 1 << 62), int(cycles.item()))
+    lat = (best[16384] - best[2048]) / (16384 - 2048)
+    print(f"fadd latency: {lat:.3f} cycles a dependent __fadd_rn (one "
+          f"thread, clock64; {best[2048]} cycles for 2048 adds, "
+          f"{best[16384]} for 16384)")
+    if not 1.0 <= lat <= 64.0:
+        raise AssertionError(f"implausible add latency {lat}")
+    FADD_LATENCY["cycles"] = lat
+    return lat
+
+
+def k3_chain_ms(adds: int, clock_hz: float) -> float:
+    """The least time of `adds` dependent float32 adds in one thread: the
+    count times the measured add latency at the SM clock (a bound the
+    bytes do not see)."""
+    return 1e3 * adds * FADD_LATENCY["cycles"] / clock_hz
+
+
+def lane_chain_adds(n: int) -> int:
+    """The dependent adds of one lane-mode block: at n <= 8 a row of n
+    adds then the log2(n) tree; at n >= 16 only lane 0 waits on the
+    running sum, n / 8 + 3 adds a row."""
+    if n <= 8:
+        return n + n.bit_length() - 1
+    return n * (n // 8 + 3)
+
+
+def _k3_bound(bytes_ms: float, chain_ms: float):
+    return (chain_ms, "chain") if chain_ms > bytes_ms else (bytes_ms,
+                                                           "bytes")
+
+
+def _k3_terms(rng, shape, dev, scale=(1.0, 1e3, 4e4)):
+    return torch.from_numpy((rng.random(shape) * rng.choice(
+        scale, shape)).astype(np.float32)).to(dev)
+
+
+def _k3_permuted(x, dims):
+    """The (K, M) terms of a sum of x over dims, reduced dims first: what
+    osum_plain takes (a copy where x's layout needs one)."""
+    keep = [d for d in range(x.dim()) if d not in dims]
+    return x.permute(*dims, *keep).reshape(
+        int(np.prod([x.shape[d] for d in dims])), -1)
+
+
+def k3_frame_sums(w: int, h: int, search_range: int, dev, rng):
+    """(what, terms, dims) of every sum K3 takes for a w x h coded frame:
+    those the lookahead's _lowres_scalars hands osum (recorded as its
+    _tree_sum hands them, on random lowres samples and intra costs of
+    the frame's sizes), and the analysis' g x g group sums (g = 2, 4)
+    of the 16x16 block map cropped to whole groups, as _region_uniform
+    takes them, for the whole frame and for each row band with its halo
+    rows (_analysis_bands).  Checks that the card's two lookahead
+    scalars equal the CPU's."""
+    from types import SimpleNamespace
+    from x265_mod_by_patman_tpu_torch.analysis import lookahead
+    from x265_mod_by_patman_tpu_torch.analysis.inter_mode import \
+        _analysis_bands
+    from x265_mod_by_patman_tpu_torch.ops.numeric import osum
+    sums = []
+
+    def recorded(x, dims):
+        sums.append((f"lookahead {tuple(x.shape)}", x, tuple(dims)))
+        return osum(x, dims)
+
+    low = rng.integers(0, 4096, (h // 2, w // 2)).astype(np.int32)
+    intra = rng.integers(800, 4200, (h // 16, w // 16)).astype(np.int32)
+    lookahead.osum = recorded
+    try:
+        card = lookahead._lowres_scalars(torch.from_numpy(low).to(dev),
+                                         torch.from_numpy(intra).to(dev))
+    finally:
+        lookahead.osum = osum
+    cpu = lookahead._lowres_scalars(torch.from_numpy(low),
+                                    torch.from_numpy(intra))
+    if not torch.equal(card.cpu(), cpu):
+        raise AssertionError(f"lookahead scalars at {w}x{h}: card "
+                             f"{card.tolist()} != CPU {cpu.tolist()}")
+    nby, nbx = h // 16, w // 16
+    bands = _analysis_bands(SimpleNamespace(width=w, height=h), 16,
+                            search_range) or []
+    heights = sorted({nby} | {r1 - r0 + ht + hb
+                              for r0, r1, ht, hb in bands})
+    for rows in heights:
+        for g in (2, 4):
+            gh, gw = rows // g, nbx // g
+            a = torch.from_numpy(rng.random((rows, nbx)).astype(
+                np.float32) * 1e4).to(dev)
+            sums.append((f"group sums g={g} of a {rows}x{nbx} map",
+                         a[:gh * g, :gw * g].reshape(gh, g, gw, g), (1, 3)))
+    return sums
 
 
 def phase_k3(dev, rng, card: str, clock_hz: float):
-    """K3 against its plain version at the sites' shapes, exact; its
-    device time (CUDA-graph replays), bytes bound and share, its chain
-    bound (K dependent adds), the plain version's, fsum's (the pairwise
-    order the sites had) and one torch.sum's (the library call) at the
-    same shape.  Then K3's lane mode at the TU-cost shapes against
-    lanes_sum_plain, exact, timed the same way."""
+    """K3 against its plain version, exact (torch.equal), at the call
+    sites in the layouts their callers hand osum (strided views, read in
+    place), on compact (K, M) terms (ragged sizes among them), at every
+    sum of the lookahead and the analysis' group sums at each frame size
+    of K3_FRAMES (exact only), and in the lane mode at the TU-cost shapes
+    in lsum's (M, n, n) layout (also block-strided, transposed and at
+    ragged M).  For each timed shape: the kernel's device time
+    (CUDA-graph replays) and one whole call with its wrapper, the bytes
+    bound and the chain bound (the dependent adds at the measured add
+    latency), the plain version's, fsum's (the pairwise order) and one
+    torch.sum's (the library call) time.  A mismatch fails the run."""
     from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import (
         ordered_sum, ordered_sum_lanes)
     from x265_mod_by_patman_tpu_torch.ops.numeric import (fsum,
                                                           lanes_sum_plain,
+                                                          lsum, osum,
                                                           osum_plain)
     res = {"max_abs_err": 0.0, "shapes": []}
-    for k, m, what, on_path in K3_SHAPES:
-        xt = torch.from_numpy((rng.random((k, m)) * rng.choice(
-            [1.0, 1e3, 4e4], (k, m))).astype(np.float32)).to(dev)
-        got, ref = ordered_sum(xt), osum_plain(xt)
-        err = float((got.double() - ref.double()).abs().max())
-        print(f"K3 ordered_sum {what} K={k} M={m}: max_abs_err={err}")
+
+    def held(what, got, ref):
+        err = float((got.double() - ref.double()).abs().max()) \
+            if got.numel() else 0.0
+        print(f"K3 {what}: max_abs_err={err}")
         if not torch.equal(got, ref):
             raise AssertionError(f"ordered_sum differs: {what}")
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        k3 = lambda: ordered_sum(xt)
+
+    def timed(what, k3, whole, plain, pairwise, lib, nbytes_ms, adds,
+              on_path):
         ms = time_ms(k3)
-        plain = time_ms(lambda: osum_plain(xt), per_graph=2 if k > 64
-                        else 10)
-        pairwise = time_ms(lambda: fsum(xt, 0))
-        lib = time_ms(lambda: xt.sum(0))
-        bound = k3_bound_ms(k, m)
-        _report("K3", f"{what} K={k} M={m}", ms, call_ms(k3), bound, plain,
-                card, lib)
-        print(f"K3 beside fsum at {what} K={k} M={m}: fsum {pairwise:.4f} "
-              f"ms, K3 {ms:.4f} ms")
-        chain = k3_chain_ms(k, clock_hz)
-        print(f"K3 chain bound (assumed {FADD_LATENCY_CYCLES}-cycle add "
-              f"latency, not measured) at {what} K={k}: {chain:.6f} ms ({k}"
-              f" dependent adds; share {chain / ms:.3f})")
-        entry = dict(shape=f"{what} K={k} M={m}", ms=ms, plain_ms=plain,
-                     bound_ms=bound, bound_by="bytes", library_ms=lib,
-                     fsum_ms=pairwise, on_path=on_path)
+        # the plain version is timed where the path runs K3 (a graph of
+        # its thousands of launches costs seconds to capture)
+        plain_ms = time_ms(plain, per_graph=2) if on_path else None
+        fsum_ms = time_ms(pairwise)
+        lib_ms = time_ms(lib)
+        chain = k3_chain_ms(adds, clock_hz)
+        bound, by = _k3_bound(nbytes_ms, chain)
+        call = call_ms(whole)
+        _report("K3", what, ms, call, bound,
+                float("nan") if plain_ms is None else plain_ms, card, lib_ms)
+        print(f"K3 at {what}: whole call {call:.4f} ms, fsum "
+              f"{fsum_ms:.4f} ms, torch.sum {lib_ms:.4f} ms; bytes bound "
+              f"{nbytes_ms:.6f} ms, chain bound {chain:.6f} ms ({adds} "
+              f"dependent adds at {FADD_LATENCY['cycles']:.3f} cycles); "
+              f"bound by {by}, share {bound / ms:.3f}")
+        entry = dict(shape=what, ms=ms, call_ms=call, plain_ms=plain_ms,
+                     bound_ms=bound, bound_by=by, bytes_bound_ms=nbytes_ms,
+                     chain_bound_ms=chain, library_ms=lib_ms,
+                     fsum_ms=fsum_ms, on_path=on_path)
         if not res["shapes"]:
-            res.update(ms=ms, plain_ms=plain, bound_ms=bound,
-                       bound_by="bytes", library_ms=lib,
-                       shape=entry["shape"])
+            res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=by, library_ms=lib_ms, shape=what)
         res["shapes"].append(entry)
-    for n, m, what in K3_LANE_SHAPES:
-        x = torch.from_numpy((rng.random((m, n, n)) * rng.choice(
-            [1.0, 1e2, 1e5], (m, n, n))).astype(np.float32)).to(dev)
+
+    for what, shape, view, dims, on_path in K3_SITES:
+        x = _k3_terms(rng, shape, dev)
+        if view is not None:
+            sl, rs = view
+            x = (x[sl] if sl is not None else x).reshape(rs)
+        k = int(np.prod([x.shape[d] for d in dims]))
+        m = x.numel() // k
+        terms = lambda x=x, dims=dims: _k3_permuted(x, dims)
+        label = (f"{what} K={k} M={m} (strides "
+                 f"{tuple(x.stride())}, dims {dims})")
+        held(label, ordered_sum(x, dims).reshape(-1), osum_plain(terms()))
+        timed(label, lambda x=x, dims=dims: ordered_sum(x, dims),
+              lambda x=x, dims=dims: osum(x, dims),
+              lambda terms=terms: osum_plain(terms()),
+              lambda x=x, dims=dims: fsum(x, dims),
+              lambda x=x, dims=dims: x.sum(dims), k3_bound_ms(k, m), k,
+              on_path)
+    for k, m, what in K3_SHAPES:
+        xt = _k3_terms(rng, (k, m), dev)
+        label = f"{what} K={k} M={m} (compact)"
+        held(label, ordered_sum(xt, 0), osum_plain(xt))
+        timed(label, lambda xt=xt: ordered_sum(xt, 0),
+              lambda xt=xt: osum(xt, 0), lambda xt=xt: osum_plain(xt),
+              lambda xt=xt: fsum(xt, 0), lambda xt=xt: xt.sum(0),
+              k3_bound_ms(k, m), k, False)
+    for what, w, h, r in K3_FRAMES:
+        for site, x, dims in k3_frame_sums(w, h, r, dev, rng):
+            k = int(np.prod([x.shape[d] for d in dims]))
+            held(f"{what} {site} K={k} M={x.numel() // k} (strides "
+                 f"{tuple(x.stride())}, dims {dims})",
+                 ordered_sum(x, dims).reshape(-1),
+                 osum_plain(_k3_permuted(x, dims)))
+    for n, m, what in K3_LANE_SHAPES + K3_LANE_RAGGED:
+        x = _k3_terms(rng, (m, n, n), dev, (1.0, 1e2, 1e5))
         xt = x.reshape(m, n * n).T.contiguous()
-        got, ref = ordered_sum_lanes(xt, n), lanes_sum_plain(xt, n)
-        err = float((got.double() - ref.double()).abs().max())
-        print(f"K3 lane mode {what} n={n} M={m}: max_abs_err={err}")
-        if not torch.equal(got, ref):
-            raise AssertionError(f"ordered_sum_lanes differs: {what}")
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        k3 = lambda: ordered_sum_lanes(xt, n)
-        ms = time_ms(k3)
-        plain = time_ms(lambda: lanes_sum_plain(xt, n), per_graph=2)
-        pairwise = time_ms(lambda: fsum(x, (1, 2)))
-        lib = time_ms(lambda: x.sum((1, 2)))
-        bound = k3_bound_ms(n * n, m)
-        chain = k3_chain_ms(n * n, clock_hz)
-        _report("K3 lane mode", f"{what} n={n} M={m}", ms, call_ms(k3),
-                bound, plain, card, lib)
-        print(f"K3 lane mode chain bound (assumed {FADD_LATENCY_CYCLES}-"
-              f"cycle add latency, not measured) at {what}: {chain:.6f} ms;"
-              f" fsum {pairwise:.4f} ms")
-        res["shapes"].append(dict(
-            shape=f"lane mode {what} n={n} M={m}", ms=ms, plain_ms=plain,
-            bound_ms=bound, bound_by="bytes", library_ms=lib,
-            fsum_ms=pairwise, on_path=True))
+        label = f"lane mode {what} n={n} M={m}"
+        held(label + " (M, n, n)", ordered_sum_lanes(x, n),
+             lanes_sum_plain(xt, n))
+        # every other block of a (2M, n, n) tensor: block-strided; and
+        # the blocks transposed: columns strided
+        for how, v in (("every other block", _k3_terms(
+                rng, (2 * m, n, n), dev, (1.0, 1e2, 1e5))[::2]),
+                       ("transposed blocks", x.transpose(1, 2))):
+            held(f"{label} {how}", ordered_sum_lanes(v, n),
+                 lanes_sum_plain(v.reshape(m, n * n).T.contiguous(), n))
+        if (n, m, what) not in K3_LANE_SHAPES:
+            continue
+        timed(label + " (M, n, n)", lambda x=x, n=n: ordered_sum_lanes(x, n),
+              lambda x=x: lsum(x),
+              lambda xt=xt, n=n: lanes_sum_plain(xt, n),
+              lambda x=x: fsum(x, (1, 2)), lambda x=x: x.sum((1, 2)),
+              k3_bound_ms(n * n, m), lane_chain_adds(n), True)
     return res
 
 
@@ -3167,6 +3366,7 @@ def run_phases(dev, rng, cap: str, clock: float):
     wg = res["window_gather"]
     wg["shapes"].append(mc_k2)
     wg["max_abs_err"] = max(wg["max_abs_err"], e2)
+    fadd_latency_cycles(FADD_BUILD)
     res["ordered_sum"] = phase_k3(dev, rng, cap, clock)
     print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
     counts = {}
@@ -3354,10 +3554,14 @@ def main() -> int:
     print("native entropy engine: loaded "
           f"({os.path.relpath(native.library_path(), ROOT)})")
     t0 = time.perf_counter()
+    global FADD_BUILD
+    FADD_BUILD = fadd_build_start()
     build.build(force=True)
     build.load_library()
+    FADD_BUILD[0].wait()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
-          f"({build.library_path().relative_to(ROOT)})")
+          f"({build.library_path().relative_to(ROOT)}, one nvcc a source, "
+          "and the add-latency microbenchmark beside them)")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2026)
     global DECODES

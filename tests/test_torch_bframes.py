@@ -50,7 +50,8 @@ def _one_torch_thread():
     """The port's CPU ops here are on tiny tensors: one intra-op thread
     is faster than many, and keeps this file from starving the other
     test workers.  Integer results do not depend on the thread count.
-    The worker's memory is released before and after the module."""
+    The worker's memory is released before and after the module when it
+    has grown past RELEASE_ABOVE_BYTES."""
     _release_memory()
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -59,19 +60,42 @@ def _one_torch_thread():
     _release_memory()
 
 
-def _release_memory():
-    """Drop the compiled JAX programs the worker holds and hand the freed
-    heap back to the system (glibc keeps it otherwise).  A test worker
-    otherwise keeps every program and the high-water mark of every module
-    it ran, and six of them outgrow the host's memory late in a parallel
-    run.  A program dropped here is compiled again when next called, from
-    the persistent compilation cache; no result depends on it."""
+# A worker whose resident memory is past this where a port test module
+# starts or ends drops its compiled JAX programs.  A worker holds about
+# 2-3 GB after a few port modules; six workers at the mark and one
+# module's growth above it fit a 62 GiB host.  Below the mark the programs stay
+# compiled: under xdist's --dist load a module's tests are spread over
+# several workers, and clearing at every module boundary made each of
+# them trace and load the reference's programs again.
+RELEASE_ABOVE_BYTES = 5 * 2 ** 30
+
+
+def _rss_bytes() -> int:
+    """This process's resident memory now (not its peak)."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return 0
+
+
+def _release_memory(above: int = RELEASE_ABOVE_BYTES) -> bool:
+    """Past `above` bytes resident, drop the compiled JAX programs the
+    worker holds and hand the freed heap back to the system (glibc keeps
+    it otherwise).  A test worker otherwise keeps every program and the
+    high-water mark of every module it ran, and six of them outgrow the
+    host's memory late in a parallel run.  A program dropped here is
+    compiled again when next called, from the persistent compilation
+    cache; no result depends on it.  Returns whether it released."""
+    if _rss_bytes() <= above:
+        return False
     jax.clear_caches()
     gc.collect()
     try:
         ctypes.CDLL("libc.so.6").malloc_trim(0)
     except (OSError, AttributeError):
         pass                # not glibc: nothing to trim
+    return True
 
 
 def _defs(rel):
@@ -315,8 +339,7 @@ def encoded():
     return get
 
 
-@pytest.mark.parametrize("case", sorted(STREAMS))
-def test_b_stream_equals_jax_and_decodes(encoded, case):
+def _b_stream_equals_jax_and_decodes(encoded, case):
     s_pt, e_pt, s_jax, e_jax = encoded(case)
     n = STREAMS[case][1]
     for i, (a, b) in enumerate(zip(e_pt, e_jax)):
@@ -332,8 +355,7 @@ def test_b_stream_equals_jax_and_decodes(encoded, case):
         assert pic.md5 == f.md5 == pic.sei_md5
 
 
-@pytest.mark.parametrize("case", sorted(STREAMS))
-def test_b_stream_slice_and_nal_types(encoded, case):
+def _b_stream_slice_and_nal_types(encoded, case):
     s_pt, e_pt, _s_jax, _e_jax = encoded(case)
     _kw, n, types, nals = STREAMS[case]
     assert [f.slice_type for f in e_pt] == types
@@ -347,3 +369,15 @@ def test_b_stream_slice_and_nal_types(encoded, case):
         aud = [u[2] >> 5 for u in split_annexb(s_pt)
                if (u[0] >> 1) & 0x3F == 35]
         assert aud == [0, 1, 2, 2, 2, 2]
+
+
+B_STREAM_CHECKS = {"equals_jax_and_decodes": _b_stream_equals_jax_and_decodes,
+                   "slice_and_nal_types": _b_stream_slice_and_nal_types}
+
+
+# the case outermost: xdist's --dist load hands out runs of consecutive
+# tests, so a case's checks land on the worker that encoded it
+@pytest.mark.parametrize("case,check", [(c, k) for c in sorted(STREAMS)
+                                        for k in B_STREAM_CHECKS])
+def test_b_stream(encoded, case, check):
+    B_STREAM_CHECKS[check](encoded, case)

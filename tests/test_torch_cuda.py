@@ -425,7 +425,7 @@ def test_ordered_sum_kernel_equals_plain(dev, k, m):
     xt = torch.from_numpy((rng.random((k, m)) * rng.choice(
         [1.0, 1e3, 1e6], (k, m))).astype(np.float32)).to(dev)
     kernels.reset_counts()
-    got = ordered_sum(xt)
+    got = ordered_sum(xt, 0)
     assert kernels.counts()["ordered_sum"] == 1
     assert torch.equal(got, osum_plain(xt))
 
@@ -439,12 +439,12 @@ def test_ordered_sum_lanes_equals_plain(dev, n, m):
         ordered_sum_lanes
     from x265_mod_by_patman_tpu_torch.ops.numeric import lanes_sum_plain
     rng = np.random.default_rng(n * 5 + m)
-    xt = torch.from_numpy((rng.random((n * n, m)) * rng.choice(
-        [1.0, 1e2, 1e5], (n * n, m))).astype(np.float32)).to(dev)
+    x = torch.from_numpy((rng.random((m, n, n)) * rng.choice(
+        [1.0, 1e2, 1e5], (m, n, n))).astype(np.float32)).to(dev)
     kernels.reset_counts()
-    got = ordered_sum_lanes(xt, n)
+    got = ordered_sum_lanes(x, n)
     assert kernels.counts()["ordered_sum"] == 1
-    assert torch.equal(got, lanes_sum_plain(xt, n))
+    assert torch.equal(got, lanes_sum_plain(x.reshape(m, n * n).T, n))
 
 
 def test_card_intra_batched_equals_cpu(dev):

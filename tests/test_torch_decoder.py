@@ -50,18 +50,22 @@ STREAMS = {"defaults_b": _defaults_b, "main10": _main10,
 
 @pytest.fixture(scope="module")
 def decoded():
-    out = {}
-    for name, make in STREAMS.items():
-        p, frames = make()
-        stream, enc = encode_sequence(p.validate(), frames, CPU)
-        out[name] = (enc, TDecoder().decode(stream),
-                     JDecoder().decode(stream))
-    return out
+    """name -> (port frames, port decoder's pictures, JAX decoder's),
+    each stream encoded and decoded once, when a test first reads it."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            p, frames = STREAMS[name]()
+            stream, enc = encode_sequence(p.validate(), frames, CPU)
+            cache[name] = (enc, TDecoder().decode(stream),
+                           JDecoder().decode(stream))
+        return cache[name]
+    return get
 
 
-@pytest.mark.parametrize("name", list(STREAMS))
-def test_port_decoder_equals_jax_decoder(decoded, name):
-    enc, tp, jp = decoded[name]
+def _equals_jax_decoder(decoded, name):
+    enc, tp, jp = decoded(name)
     assert [p.poc for p in tp] == [p.poc for p in jp]
     for a, b in zip(tp, jp):
         assert a.md5 == b.md5 and a.sei_md5 == b.sei_md5
@@ -69,9 +73,8 @@ def test_port_decoder_equals_jax_decoder(decoded, name):
             np.testing.assert_array_equal(pa, pb)
 
 
-@pytest.mark.parametrize("name", list(STREAMS))
-def test_port_decoder_gives_the_encoder_recon(decoded, name):
-    enc, tp, _ = decoded[name]
+def _gives_the_encoder_recon(decoded, name):
+    enc, tp, _ = decoded(name)
     assert len(tp) == len(enc)
     by_poc = {f.poc: f for f in enc}
     for pic in tp:
@@ -82,3 +85,15 @@ def test_port_decoder_gives_the_encoder_recon(decoded, name):
     if name == "slow_tools":
         assert any(f.stats.get("cu_rect_pct", 0) > 0 for f in enc)
     assert {f.slice_type for f in enc} >= {"I", "P", "B"}
+
+
+DECODER_CHECKS = {"equals_jax_decoder": _equals_jax_decoder,
+                  "gives_the_encoder_recon": _gives_the_encoder_recon}
+
+
+# the stream outermost: xdist's --dist load hands out runs of consecutive
+# tests, so a stream's checks land on the worker that encoded it
+@pytest.mark.parametrize("name,check", [(n, k) for n in STREAMS
+                                        for k in DECODER_CHECKS])
+def test_port_decoder(decoded, name, check):
+    DECODER_CHECKS[check](decoded, name)

@@ -109,8 +109,8 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     ys = to_torch(np.array([0, 5], np.int32), CPU)
     full_search(plane, plane, ys, ys, ys, ys, 100, 8, 4)
     window_gather(plane, ys, ys, 9)
-    ordered_sum(torch.ones((4, 3)))
-    ordered_sum_lanes(torch.ones((16, 3)), 4)
+    ordered_sum(torch.ones((4, 3)), 0)
+    ordered_sum_lanes(torch.ones((3, 4, 4)), 4)
     assert kernels.counts() == {"full_search": 0, "window_gather": 0,
                                 "ordered_sum": 0}
     assert kernels.counts_by_shape() == {"full_search": {},
@@ -187,9 +187,10 @@ def test_lane_mode_twin_is_the_lane_order(n):
     want = np.array([_lane_model(b) for b in x], np.float32)
     xt = torch.from_numpy(x.reshape(40, -1).T.copy())
     np.testing.assert_array_equal(lanes_sum_plain(xt, n).numpy(), want)
-    np.testing.assert_array_equal(ordered_sum_lanes(xt, n).numpy(), want)
+    np.testing.assert_array_equal(
+        ordered_sum_lanes(torch.from_numpy(x), n).numpy(), want)
     np.testing.assert_array_equal(lsum(torch.from_numpy(x)).numpy(), want)
-    rowmajor = ordered_sum(xt).numpy()
+    rowmajor = ordered_sum(xt, 0).numpy()
     assert (rowmajor != want).any()
 
 

@@ -41,7 +41,7 @@ def test_twin_is_a_row_major_float32_loop(k, m):
     xt = _terms((k, m), k)
     np.testing.assert_array_equal(osum_plain(torch.from_numpy(xt)).numpy(),
                                   _loop(xt))
-    np.testing.assert_array_equal(ordered_sum(torch.from_numpy(xt))
+    np.testing.assert_array_equal(ordered_sum(torch.from_numpy(xt), 0)
                                   .numpy(), _loop(xt))
 
 
@@ -53,12 +53,143 @@ def test_osum_takes_the_reduced_dims_in_row_major_order():
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
+    """float32 only; at most two reduced and four kept axes after
+    merging; the lane mode on (M, n, n) blocks at n = 4, 8, 16, 32."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import \
+        ordered_sum_lanes
     with pytest.raises(TypeError):
-        ordered_sum(torch.zeros((4, 3), dtype=torch.float64))
-    with pytest.raises(ValueError):
-        ordered_sum(torch.zeros((4, 3, 2)))
-    with pytest.raises(ValueError):
-        ordered_sum(torch.zeros((3, 4)).T)
+        ordered_sum(torch.zeros((4, 3), dtype=torch.float64), 0)
+    with pytest.raises(ValueError):     # three reduced axes
+        ordered_sum(torch.zeros((2, 3) * 3), (0, 2, 4))
+    with pytest.raises(ValueError):     # five kept axes
+        ordered_sum(torch.zeros((2, 3) * 5), (1, 3, 5, 7, 9))
+    with pytest.raises(ValueError):     # n = 2
+        ordered_sum_lanes(torch.zeros((3, 2, 2)), 2)
+    with pytest.raises(ValueError):     # (n*n, M) terms, not blocks
+        ordered_sum_lanes(torch.zeros((16, 3)), 4)
+
+
+def _permuted_osum(x, dims):
+    """The sum as osum made it before it read the caller's layout: the
+    reduced dims permuted first and the terms copied to (K, M)."""
+    keep = [d for d in range(x.dim()) if d not in dims]
+    shape = [x.shape[d] for d in keep]
+    xt = x.permute(*dims, *keep).reshape(-1, int(np.prod(shape))) \
+        .contiguous()
+    return osum_plain(xt).reshape(shape)
+
+
+def _site_view(site):
+    """A call site's terms in the layout its caller hands osum, and the
+    reduced dims: _group_sum's (gh, g, gw, g) crop of the block map (a
+    slice where the groups do not cover it), _modes_rd_multi's 2x2 CTU
+    groups of the (F, nby, nbx, 35) totals and of the chosen totals
+    (views of a slice), _tree_sum's padded 32x32 windows and its last
+    level."""
+    kind, shape = site
+    x = torch.from_numpy(_terms(shape, sum(shape)))
+    if kind == "group":
+        g = 4 if shape[0] % 4 == 3 else 2
+        gh, gw = shape[0] // g, shape[1] // g
+        return x[:gh * g, :gw * g].reshape(gh, g, gw, g), (1, 3)
+    if kind == "modes":
+        f, nby, nbx = shape[:3]
+        cy, cx = nby // 2, nbx // 2
+        return x[:, :cy * 2, :cx * 2].reshape(f, cy, 2, cx, 2,
+                                              *shape[3:]), (2, 4)
+    if kind == "windows":
+        h, w = shape
+        a = torch.nn.functional.pad(x, (0, (-w) % 32, 0, (-h) % 32))
+        return a.reshape(a.shape[0] // 32, 32, a.shape[1] // 32, 32), (1, 3)
+    return x, (0, 1)
+
+
+@pytest.mark.parametrize("site", [
+    ("group", (34, 60)), ("group", (135, 240)), ("group", (67, 121)),
+    ("modes", (2, 9, 13, 35)), ("modes", (1, 8, 12, 35)),
+    ("modes", (2, 9, 13)), ("windows", (68, 120)), ("windows", (17, 30)),
+    ("last", (17, 30)), ("last", (3, 4))])
+def test_osum_reads_the_callers_layout(site):
+    """osum reads each call site's terms where they lie (the kernel's
+    sizes and strides, here through torch.as_strided on the CPU) and
+    gives the bits of the old permute-then-sum, with no copy of the
+    terms: the term view shares the caller's storage."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import (
+        term_layout, terms_view)
+    x, dims = _site_view(site)
+    got = osum(x, dims)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _permuted_osum(x, dims).numpy())
+    lay = term_layout(x, dims)
+    assert lay is not None and lay.k * lay.m == x.numel()
+    assert len(lay.reduced) <= 2 and len(lay.kept) <= 4
+    v = torch.as_strided(x, [s for s, _ in lay.reduced + lay.kept],
+                         [st for _, st in lay.reduced + lay.kept],
+                         x.storage_offset())
+    assert v.data_ptr() == x.data_ptr()
+    np.testing.assert_array_equal(terms_view(x, lay).numpy(),
+                                  x.permute(*dims, *[
+                                      d for d in range(x.dim())
+                                      if d not in dims]).reshape(
+                                          lay.k, lay.m).numpy())
+
+
+@pytest.mark.parametrize("case", ["merge", "drop_ones", "interleaved",
+                                  "empty", "five_axes"])
+def test_term_layout_arithmetic(case):
+    """The sizes and strides the kernel is given: neighbours that one
+    stride walks merge, size-1 axes drop, interleaved reduced and kept
+    axes stay apart, an empty side is one axis of size 1, and five
+    reduced axes that do not merge are refused (no call site has more
+    than two)."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import (
+        MAX_REDUCED, term_layout)
+    if case == "merge":
+        x = torch.zeros((4, 5, 6))
+        assert term_layout(x, (1, 2)) == (((30, 1),), ((4, 30),))
+    elif case == "drop_ones":
+        x = torch.zeros((1, 5, 1, 6))
+        assert term_layout(x, (0, 1)) == (((5, 6),), ((6, 1),))
+    elif case == "interleaved":
+        x = torch.zeros((3, 4, 5, 6))
+        assert term_layout(x, (1, 3)) == (((4, 30), (6, 1)),
+                                          ((3, 120), (5, 6)))
+    elif case == "empty":
+        x = torch.zeros((5, 6))
+        assert term_layout(x, (0, 1)) == (((30, 1),), ((1, 0),))
+        assert term_layout(x, ()) == (((1, 0),), ((30, 1),))
+    else:
+        x = torch.from_numpy(_terms((2,) * 10, 3))
+        dims = (1, 3, 5, 7, 9)
+        assert MAX_REDUCED == 2
+        with pytest.raises(ValueError):
+            term_layout(x, dims)
+        with pytest.raises(ValueError):
+            osum(x, dims)
+        # merged to one axis, the same five dims are taken
+        x = torch.from_numpy(_terms((3,) + (2,) * 5, 3))
+        np.testing.assert_array_equal(
+            osum(x, (1, 2, 3, 4, 5)).numpy(),
+            _permuted_osum(x, (1, 2, 3, 4, 5)).numpy())
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_lsum_reads_the_blocks_in_place(n):
+    """lsum hands the kernel the (M, n, n) blocks where they lie (no
+    transpose); the bits equal the old transposed terms', and every
+    other block of a taller tensor (block-strided) gives the same."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import \
+        ordered_sum_lanes
+    from x265_mod_by_patman_tpu_torch.ops.numeric import (lanes_sum_plain,
+                                                          lsum)
+    x = torch.from_numpy(_terms((3, 7, n, n), n) * F32(1e-2))
+    old = lanes_sum_plain(x.reshape(-1, n * n).T.contiguous(), n)
+    np.testing.assert_array_equal(lsum(x).numpy(), old.reshape(3, 7))
+    wide = torch.from_numpy(_terms((42, n, n), n + 1))
+    np.testing.assert_array_equal(
+        ordered_sum_lanes(wide[::2], n).numpy(),
+        lanes_sum_plain(wide[::2].reshape(-1, n * n).T.contiguous(),
+                        n).numpy())
 
 
 def _fsum_scalars(low, intra):

@@ -42,20 +42,25 @@ CASES = {"veryslow": ("veryslow", {}),
 
 @pytest.fixture(scope="module")
 def streams():
-    out = {}
-    frames = moving_scene(96, 64, 5)
-    for name, (preset, kw) in CASES.items():
-        js, _ = jtop.encode_sequence(preset_params(preset, **kw).validate(),
-                                     frames)
-        ts, tf = ttop.encode_sequence(preset_params(preset, **kw).validate(),
-                                      frames, CPU)
-        out[name] = (js, ts, tf)
-    return out
+    """case -> (JAX stream, port stream, port frames), each case encoded
+    once, when a test first reads it."""
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            preset, kw = CASES[case]
+            frames = moving_scene(96, 64, 5)
+            js, _ = jtop.encode_sequence(
+                preset_params(preset, **kw).validate(), frames)
+            ts, tf = ttop.encode_sequence(
+                preset_params(preset, **kw).validate(), frames, CPU)
+            cache[case] = (js, ts, tf)
+        return cache[case]
+    return get
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_preset_stream_equals_jax(streams, case):
-    js, ts, _ = streams[case]
+def _equals_jax(streams, case):
+    js, ts, _ = streams(case)
     assert ts == js
 
 
@@ -71,9 +76,8 @@ def check_intra_decodes(stream, frames):
                 np.testing.assert_array_equal(a, np.asarray(b))
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_preset_stream_decodes(streams, case):
-    _, ts, tf = streams[case]
+def _decodes(streams, case):
+    _, ts, tf = streams(case)
     if case == "ultrafast_intra":
         assert {f.slice_type for f in tf} == {"I"}
         check_intra_decodes(ts, tf)
@@ -81,10 +85,10 @@ def test_preset_stream_decodes(streams, case):
         check_decodes(ts, tf)
 
 
-def test_veryslow_premises(streams):
+def _veryslow_premises(streams, case):
     """The preset reaches the encoder with AMP, rect, rd 6, subme 4,
     star search and 4 references, and AMP PUs occur in the stream."""
-    _, ts, tf = streams["veryslow"]
+    _, ts, tf = streams(case)
     p = preset_params("veryslow").validate()
     assert (p.amp, p.rect, p.rd_level, p.subpel_refine, p.bframes,
             p.search_method) == (True, True, 6, 4, 8, "star")
@@ -99,12 +103,28 @@ def slice_nals(stream):
     return [u for u in split_annexb(stream) if u and (u[0] >> 1) & 0x3F < 32]
 
 
-@pytest.mark.parametrize("preset", ["slower", "placebo"])
-def test_slower_and_placebo_slices_equal_veryslow(streams, preset):
+def _slices_equal(streams, case, preset):
     """At this size the three top presets code the same slices (their
     parameter sets and info SEI differ): the port's slower and placebo
     slice NALs equal the reference's veryslow ones."""
     ts, _ = ttop.encode_sequence(preset_params(preset).validate(),
                                  moving_scene(96, 64, 5), CPU)
-    assert ts != streams["veryslow"][0]
-    assert slice_nals(ts) == slice_nals(streams["veryslow"][0])
+    assert ts != streams(case)[0]
+    assert slice_nals(ts) == slice_nals(streams(case)[0])
+
+
+PRESET_CHECKS = {
+    "equals_jax": _equals_jax, "decodes": _decodes,
+    "premises": _veryslow_premises,
+    "slower_slices": lambda st, c: _slices_equal(st, c, "slower"),
+    "placebo_slices": lambda st, c: _slices_equal(st, c, "placebo")}
+VERYSLOW_ONLY = ("premises", "slower_slices", "placebo_slices")
+
+
+# the case outermost: xdist's --dist load hands out runs of consecutive
+# tests, so a case's checks land on the worker that encoded it
+@pytest.mark.parametrize("case,check", [
+    (c, k) for c in CASES for k in PRESET_CHECKS
+    if k not in VERYSLOW_ONLY or c == "veryslow"])
+def test_preset_stream(streams, case, check):
+    PRESET_CHECKS[check](streams, case)

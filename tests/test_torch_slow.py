@@ -151,15 +151,13 @@ def _encoded(encoded, case, monkeypatch):
     return encoded[case]
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_slow_stream_equals_jax_and_decodes(encoded, case, monkeypatch):
+def _equals_jax_and_decodes(encoded, case, monkeypatch):
     js, ts, tf = _encoded(encoded, case, monkeypatch)
     assert ts == js
     check_decodes(ts, tf)
 
 
-@pytest.mark.parametrize("case", ["rect_p", "rect_b", "slow_hme_crf_vbv"])
-def test_slow_stream_uses_rect(encoded, case, monkeypatch):
+def _uses_rect(encoded, case, monkeypatch):
     """Premise: rect PUs really occur in the stream."""
     _, _, tf = _encoded(encoded, case, monkeypatch)
     assert any(f.stats.get("cu_rect_pct", 0) > 0 for f in tf), case
@@ -178,7 +176,7 @@ def test_banded_rect_stream_decodes(monkeypatch):
     assert any(f.stats.get("cu_rect_pct", 0) > 0 for f in tf)
 
 
-def test_slow_crf_vbv_stream_premises(encoded, monkeypatch):
+def _crf_vbv_premises(encoded, case, monkeypatch):
     """The slow preset reaches the encoder as the CLI builds it (rd 4,
     RDOQ 2 + sign hiding, rect, star search r = 32, 4 refs) and the VBV
     binds: some picture re-encodes its rows."""
@@ -190,3 +188,19 @@ def test_slow_crf_vbv_stream_premises(encoded, monkeypatch):
     assert enc._me_range == 32 and enc.max_refs == 4
     assert max(f.pipeline_runs for f in tf) > 1
     assert {f.slice_type for f in tf} >= {"I", "P", "B"}
+
+
+SLOW_CHECKS = {"equals_jax_and_decodes": _equals_jax_and_decodes,
+               "uses_rect": _uses_rect, "crf_vbv_premises": _crf_vbv_premises}
+RECT_CASES = ("rect_p", "rect_b", "slow_hme_crf_vbv")
+
+
+# the case outermost: xdist's --dist load hands out runs of consecutive
+# tests, so a case's checks land on the worker that encoded it
+@pytest.mark.parametrize("case,check", [
+    (c, k) for c in CASES for k in SLOW_CHECKS
+    if k == "equals_jax_and_decodes"
+    or (k == "uses_rect" and c in RECT_CASES)
+    or (k == "crf_vbv_premises" and c == "slow_hme_crf_vbv")])
+def test_slow_stream(encoded, case, check, monkeypatch):
+    SLOW_CHECKS[check](encoded, case, monkeypatch)

@@ -147,32 +147,36 @@ CASES = {"weightb_fade": (_weightb, lambda: _fade_frames(7, 96, 64)),
 
 @pytest.fixture(scope="module")
 def streams():
-    out = {}
-    for name, (params, clip) in CASES.items():
-        frames = clip()
-        js, _ = jtop.encode_sequence(params().validate(), frames)
-        ts, tf = ttop.encode_sequence(params().validate(), frames, CPU)
-        out[name] = (js, ts, tf)
-    return out
+    """case -> (JAX stream, port stream, port frames), each case encoded
+    once, when a test first reads it."""
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            params, clip = CASES[case]
+            frames = clip()
+            js, _ = jtop.encode_sequence(params().validate(), frames)
+            ts, tf = ttop.encode_sequence(params().validate(), frames, CPU)
+            cache[case] = (js, ts, tf)
+        return cache[case]
+    return get
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_stream_equals_jax(streams, case):
-    js, ts, tf = streams[case]
+def _equals_jax(streams, case):
+    js, ts, tf = streams(case)
     assert "B" in {f.slice_type for f in tf}
     assert ts == js
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_stream_decodes(streams, case):
-    _, ts, tf = streams[case]
+def _decodes(streams, case):
+    _, ts, tf = streams(case)
     check_decodes(ts, tf)
 
 
-def test_weightb_b_slices_carry_explicit_weights(streams):
+def _b_slices_carry_explicit_weights(streams, case):
     """Premise: the fade makes the B slices' pred_weight_table carry an
     explicit luma weight (and one set per list: 1 + 1 references)."""
-    _, ts, tf = streams["weightb_fade"]
+    _, ts, tf = streams(case)
     tables = []
     parse = TDecoder._parse_pred_weight_table
 
@@ -191,3 +195,16 @@ def test_weightb_b_slices_carry_explicit_weights(streams):
     assert all((n0, n1) == (1, 1) for n0, n1, _ in tables)
     assert any(w is not None for _, _, (_d, l0, _c, l1) in tables
                for w in l0 + l1)
+
+
+STREAM_CHECKS = {"equals_jax": _equals_jax, "decodes": _decodes,
+                 "explicit_b_weights": _b_slices_carry_explicit_weights}
+
+
+# the case outermost: xdist's --dist load hands out runs of consecutive
+# tests, so a case's checks land on the worker that encoded it
+@pytest.mark.parametrize("case,check", [
+    (c, k) for c in CASES for k in STREAM_CHECKS
+    if k != "explicit_b_weights" or c == "weightb_fade"])
+def test_stream(streams, case, check):
+    STREAM_CHECKS[check](streams, case)

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 All sources under ``x265_mod_by_patman_tpu_torch/csrc/*.cu`` are compiled
-by ``nvcc`` for sm_90a into ONE shared library with a plain C interface,
-loaded through ctypes.  The build happens at first use, into
-``build/torch_kernels/<hash>/`` at the repository root, keyed by a hash
-of the sources and flags, so an edited kernel rebuilds and an unchanged
-one is reused.  Nothing is compiled when the module is imported."""
+by ``nvcc`` for sm_90a (one process per source, in parallel) into ONE
+shared library with a plain C interface, loaded through ctypes.  The
+build happens at first use, into ``build/torch_kernels/<hash>/`` at the
+repository root, keyed by a hash of the sources and flags, so an edited
+kernel rebuilds and an unchanged one is reused.  Nothing is compiled
+when the module is imported."""
 from __future__ import annotations
 
 import ctypes
@@ -54,7 +55,8 @@ def library_path() -> Path:
 
 def build(force: bool = False) -> Path:
     """Compile the kernels (unless a library for these sources exists)
-    and return the library path."""
+    and return the library path.  One nvcc per source, all started
+    together, then one link."""
     global build_seconds
     srcs = _sources()
     out = library_path()
@@ -63,8 +65,20 @@ def build(force: bool = False) -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    objs = [out.parent / f"{s.stem}.{os.getpid()}.o" for s in srcs]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    procs = [subprocess.Popen([nvcc, *compile_flags, "-c", "-o", str(o),
+                               str(s)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("nvcc failed:\n" + "".join(logs))
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                          *map(str, objs)], capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
     if res.returncode != 0:
         raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
     os.replace(tmp, out)
@@ -84,9 +98,10 @@ def load_library():
             lib.full_search_launch.restype = i
             lib.window_gather_launch.argtypes = [p, p, p, p, i, i, i, i, p]
             lib.window_gather_launch.restype = i
-            lib.ordered_sum_launch.argtypes = [p, p, i, i, p]
+            q = ctypes.c_longlong
+            lib.ordered_sum_launch.argtypes = [p, p, p, p]
             lib.ordered_sum_launch.restype = i
-            lib.ordered_sum_lanes_launch.argtypes = [p, p, i, i, p]
+            lib.ordered_sum_lanes_launch.argtypes = [p, p, i, i, q, q, q, p]
             lib.ordered_sum_lanes_launch.restype = i
             _lib = lib
     return _lib

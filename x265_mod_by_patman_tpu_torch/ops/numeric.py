@@ -19,6 +19,7 @@ backend:
 from __future__ import annotations
 
 import functools
+import math
 import threading
 
 import numpy as np
@@ -101,27 +102,22 @@ def lanes_sum_plain(xt: torch.Tensor, n: int) -> torch.Tensor:
 def lsum(x: torch.Tensor) -> torch.Tensor:
     """(..., n, n) float32 -> (...) sums of each n x n block in the
     reference's fused TU-sum order (lanes_sum_plain; K3's lane mode on
-    the card)."""
+    the card, reading the blocks where x holds them)."""
     from .cuda.ordered_sum import ordered_sum_lanes
     n = x.shape[-1]
     lead = x.shape[:-2]
-    xt = x.to(torch.float32).reshape(-1, n * n).T.contiguous()
-    return ordered_sum_lanes(xt, n).reshape(lead)
+    # a view wherever the leading dims merge (always for the callers'
+    # contiguous terms); otherwise reshape makes the one copy
+    blocks = x.to(torch.float32).reshape(math.prod(lead), n, n)
+    return ordered_sum_lanes(blocks, n).reshape(lead)
 
 
 def osum(x: torch.Tensor, dims) -> torch.Tensor:
     """float32 sum over `dims`, the terms added one by one in row-major
-    order of the reduced dims (K3 on the card, osum_plain on the CPU)."""
+    order of the reduced dims (K3 on the card, osum_plain on the CPU),
+    read where x holds them."""
     from .cuda.ordered_sum import ordered_sum
-    if isinstance(dims, int):
-        dims = (dims,)
-    nd = x.dim()
-    dims = sorted(d % nd for d in dims)
-    keep = [d for d in range(nd) if d not in dims]
-    shape = [x.shape[d] for d in keep]
-    xt = x.to(torch.float32).permute(*dims, *keep).reshape(
-        -1, int(np.prod(shape, dtype=np.int64))).contiguous()
-    return ordered_sum(xt).reshape(shape)
+    return ordered_sum(x.to(torch.float32), dims)
 
 
 def fma32(a, b, c) -> torch.Tensor:
