@@ -67,7 +67,16 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    costs of tu_rd_levels (n = 32, 16, 8, 4 at 1080p block counts) in
    lsum's (M, n, n) layout, on every other block, on transposed blocks
    and at ragged M, against lanes_sum_plain, exact, and timed the same
-   way at the path's shapes.  K1 and K2 at the tile-row
+   way at the path's shapes; K3's chained lane mode and its row mode at
+   the wavefront's TB bit estimates (the (B, n, n) terms of each step's
+   B blocks that tb_bits_est hands csum, in the order the reference's
+   program takes at B lanes, and its (B, g, g) CG flag bits; B = 1, 4,
+   15 and 30: 96x64, 416x240, 1080p, 2160p), contiguous and
+   block-strided, against chain_sum_plain / osum_plain, exact, timed at
+   1080p's; the wavefront's tables (phase_wavefront_tables): log_ref,
+   log2_ref and the candidate rate's multiply-add at every integer they
+   take, lam2_ref at every QP and depth, on the card equal to the
+   CPU's.  K1 and K2 at the tile-row
    path's shapes (phase_k_tiles): one band's 384x1920 slab of 1080p
    park at mesh_tile_rows 4, the analysis search (n = 16, r = 16) and
    the rect 8x8 sub-block search on the band's stacked reference, exact
@@ -77,7 +86,9 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    port's Encoder on the card at the repo defaults (CQP 32, 4 B-frames
    with b-adapt 2 and the pyramid, open GOP, scenecut); checks the
    decode order I0 P1, that both kernels launched during the encode,
-   and the recon quality;
+   and the recon quality; it prints its bits per picture beside those
+   of commit 479e61e's code (BASE_BITS) and whether they moved, as every
+   encode phase does;
    prints seconds per I and P picture, the lookahead's trace spans,
    each kernel's launches split into lookahead, cuTree and analysis,
    bits per frame and peak device memory, and whether the lowres
@@ -1105,6 +1116,17 @@ K3_SHAPES = ((256, 8160, "TU16 terms row-major (lane mode runs there)"),
 # blocks (9a); then ragged M
 K3_LANE_SHAPES = ((32, 2040, "TU32 costs"), (16, 8160, "TU16 costs"),
                   (8, 32640, "TU8 costs"), (4, 130560, "TU4 DST costs"))
+# K3 at the wavefront's TB bit estimates (ops.rdoq.tb_bits_est with the
+# step's lane count B): the coefficient bits of B n x n blocks in the
+# chained lane order (n, lanes, span) the reference's program takes at
+# B lanes (ops.rdoq.wavefront_sum_order), and the CG flag bits, (B, g, g)
+# in row mode; B = 1 (96x64), 4 (416x240), 15 (1080p, timed: on the
+# path), 30 (2160p).  (what, n, B, timed)
+K3_WAVEFRONT_SHAPES = tuple(
+    (f"{what} {c} TB bits", n, b, b == 15)
+    for what, b in (("96x64", 1), ("416x240", 4), ("1080p", 15),
+                    ("2160p", 30))
+    for c, n in (("luma", 16), ("chroma", 8)))
 K3_LANE_RAGGED = ((32, 37, "ragged M"), (16, 1, "one block"),
                   (8, 1001, "ragged M"), (4, 999, "ragged M"))
 # The frames whose sums K3 takes in the smoke's phases, at the size the
@@ -1264,11 +1286,13 @@ def phase_k3(dev, rng, card: str, clock_hz: float):
     latency), the plain version's, fsum's (the pairwise order) and one
     torch.sum's (the library call) time.  A mismatch fails the run."""
     from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import (
-        ordered_sum, ordered_sum_lanes)
-    from x265_mod_by_patman_tpu_torch.ops.numeric import (fsum,
+        ordered_sum, ordered_sum_chained, ordered_sum_lanes)
+    from x265_mod_by_patman_tpu_torch.ops.numeric import (chain_sum_plain,
+                                                          csum, fsum,
                                                           lanes_sum_plain,
                                                           lsum, osum,
                                                           osum_plain)
+    from x265_mod_by_patman_tpu_torch.ops.rdoq import wavefront_sum_order
     res = {"max_abs_err": 0.0, "shapes": []}
 
     def held(what, got, ref):
@@ -1358,7 +1382,64 @@ def phase_k3(dev, rng, card: str, clock_hz: float):
               lambda xt=xt, n=n: lanes_sum_plain(xt, n),
               lambda x=x: fsum(x, (1, 2)), lambda x=x: x.sum((1, 2)),
               k3_bound_ms(n * n, m), lane_chain_adds(n), True)
+    for what, n, b, on_path in K3_WAVEFRONT_SHAPES:
+        lanes, span = wavefront_sum_order(n, b)
+        x = _k3_terms(rng, (b, n, n), dev, (1.0, 4.0, 20.0))
+        xt = x.reshape(b, n * n).T.contiguous()
+        label = (f"chained lane mode {what} n={n} B={b} (lanes {lanes}, "
+                 f"span {span})")
+        held(label, ordered_sum_chained(x, n, lanes, span),
+             chain_sum_plain(xt, n, lanes, span))
+        v = _k3_terms(rng, (2 * b, n, n), dev, (1.0, 4.0, 20.0))[::2]
+        held(label + " every other block",
+             ordered_sum_chained(v, n, lanes, span),
+             chain_sum_plain(v.reshape(b, n * n).T.contiguous(), n, lanes,
+                             span))
+        g = n // 4
+        cg = _k3_terms(rng, (b, g, g), dev, (0.5, 1.0, 2.0))
+        held(f"row mode {what} CG flag bits K={g * g} M={b}",
+             ordered_sum(cg, (1, 2)), osum_plain(_k3_permuted(cg, (1, 2))))
+        if on_path:
+            timed(label, lambda x=x: ordered_sum_chained(x, n, lanes, span),
+                  lambda x=x: csum(x, lanes, span),
+                  lambda xt=xt: chain_sum_plain(xt, n, lanes, span),
+                  lambda x=x: fsum(x, (1, 2)), lambda x=x: x.sum((1, 2)),
+                  k3_bound_ms(n * n, b), chain_adds(n, lanes, span), True)
     return res
+
+
+def chain_adds(n: int, lanes: int, span: int) -> int:
+    """The dependent adds of one block in the chained lane mode: lane
+    0's chain a row, span / lanes adds, the tree's log2(lanes) and the
+    row's tail of n - span."""
+    return n * (span // lanes + lanes.bit_length() - 1 + n - span)
+
+
+def phase_wavefront_tables(dev) -> None:
+    """The wavefront's tables on the card against the CPU's, exact:
+    log_ref and log2_ref at every integer they take (1 to LOG_REF_MAX),
+    the candidate rate's multiply-add on log_ref (fma32, float64 on the
+    card), and lam2_ref at every QP it takes at 8, 10 and 12 bits.  A
+    mismatch fails the run."""
+    from x265_mod_by_patman_tpu_torch.ops import numeric
+    x = torch.arange(1, numeric.LOG_REF_MAX + 1, dtype=torch.float32)
+    q = torch.arange(numeric.LAM2_REF_QPS[0],
+                     numeric.LAM2_REF_QPS[1] + 1)
+    two = 2 * float(numeric.LOG2E_F32)
+    checks = [("log_ref", lambda t: numeric.log_ref(t), x),
+              ("log2_ref", lambda t: numeric.log2_ref(t), x),
+              ("rate term", lambda t: numeric.fma32(numeric.log_ref(t), two,
+                                                    3.0), x)]
+    checks += [(f"lam2_ref {bd}-bit",
+                lambda t, bd=bd: numeric.lam2_ref(t, bd), q)
+               for bd in (8, 10, 12)]
+    for what, fn, arg in checks:
+        card, cpu = fn(arg.to(dev)).cpu(), fn(arg)
+        err = float((card.double() - cpu.double()).abs().max())
+        print(f"wavefront table {what} at {arg.numel()} arguments: card "
+              f"equals CPU {torch.equal(card, cpu)}, max_abs_err {err}")
+        if not torch.equal(card, cpu):
+            raise AssertionError(f"{what}: the card's table differs")
 
 
 def lowres_sums_exact(frames, dev, hw=FRAME_HW) -> None:
@@ -1463,6 +1544,70 @@ def drive(enc, frames):
                 peak=torch.cuda.max_memory_allocated())
 
 
+# Each phase's bits per picture as commit 479e61e's code codes them (its
+# chip_smoke.py from `git archive 479e61e`, run on NVIDIA H100 80GB HBM3
+# at 700.00 W beside this tree's in one chip call), keyed by the phase's
+# label, in decode order.  The wavefront's float32 decisions follow the
+# reference's compiled program since; bits_beside_base prints each
+# phase's bits beside these and says whether the phase moved.
+BASE_BITS = {
+    'main path 1920x1080 at the repo defaults':
+        (403712, 3640),
+    ('UHD slow path 3840x2160, --preset slow --hme, CRF 24, VBV '
+     '25000/25000 at 60 fps'):
+        (4122152, 77168, 21680),
+    'veryslow path 1920x1080, --preset veryslow --crf 24':
+        (1064144, 24136, 6576),
+    '4:2:2 10-bit path 1920x1080, --crf 24 --aq-mode 2':
+        (7723136, 124120, 19848),
+    'lossless path 1920x1080, --lossless':
+        (14351504, 10433496),
+    '4:4:4 8-bit path 1920x1080, CQP defaults':
+        (504712, 8312),
+    'phase 11, ladder rung 0 1920x1080 --crf 24 --aq-mode 2 --mcstf':
+        (749456, 11328, 3840),
+    'phase 11, ladder rung 1 1280x720 --crf 26 --aq-mode 0':
+        (353656, 6896, 2616),
+    'phase 11, ladder rung 2 640x360 --crf 28 --aq-mode 0':
+        (156464, 1680, 1440),
+    ('weightb/SEA path 1920x1080, luma fade 0.82, --weightb --me sea '
+     '--no-scenecut'):
+        (403712, 38440, 28360),
+    'phase 12 batched':
+        (459680, 464520, 442192, 450712),
+    'phase 12 pipelined':
+        (459680, 464520, 442192, 450712),
+    ('frame-parallel and tile-row path 1920x1080, CRF 28, AQ 2, '
+     'cuTree, --bframes 2 --no-b-pyramid --frame-threads 3, '
+     'mesh_tile_rows 4'):
+        (438336, 11152, 2824, 3216),
+    ('Main10 delivery path 1920x1080, CRF 28, AQ 2, cuTree, VBV '
+     '1000/1000, HRD, HDR10'):
+        (427832, 15336),
+    ('residual path 1920x1080, --crf 24 --aq-mode 2 --nxn-intra '
+     '--tu-intra-depth 2 --scaling-list default --nr-intra 200 '
+     '--nr-inter 400'):
+        (715496, 22112, 6512),
+    'rate-control path 1920x1080, CRF 28, AQ 2, cuTree (rc_lookahead 20)':
+        (403576, 3648),
+}
+
+
+def bits_beside_base(what: str, bits) -> None:
+    """Print a phase's bits per picture beside BASE_BITS' and whether
+    they moved: they may only where a decision rode one of the float32
+    values that now follow the reference's program."""
+    bits = [int(b) for b in bits]
+    ref = BASE_BITS.get(what)
+    if ref is None:
+        print(f"bits against 479e61e, {what}: {bits}; not recorded")
+        return
+    moved = [i for i in range(max(len(bits), len(ref)))
+             if i >= len(bits) or i >= len(ref) or bits[i] != ref[i]]
+    print(f"bits against 479e61e, {what}: {bits} beside {list(ref)}: "
+          + (f"moved at pictures {moved}" if moved else "held"))
+
+
 def report_drive(run, frames, w, h, what, peak=255):
     """Print a drive()'s pictures, spans, launches and memory; checks the
     recon quality and that both kernels launched."""
@@ -1522,6 +1667,7 @@ def report_drive(run, frames, w, h, what, peak=255):
     print("kernel launches during the encode: " + ", ".join(
         f"{k} {c} (lookahead {la[k]}, cuTree {ct[k]}, analysis "
         f"{c - la[k] - ct[k]}{hme(k)})" for k, c in run["counts"].items()))
+    bits_beside_base(what, [f.bits for f in out])
     for name, c in run["counts"].items():
         if c <= 0:
             raise AssertionError(f"{name} never launched on the path: "
@@ -1904,11 +2050,17 @@ def phase_lossless(dev, w=1920, h=1080, n=2):
 def shapes_line(by_shape) -> str:
     """Each kernel's launches by shape, from the wrappers' own counts: K1
     by block size n, range r and plane, K2 by window size and plane, K3
-    by (K, M) or, in its lane mode, by block size n and block count M."""
+    by (K, M) or, in its lane modes, by block size n (and the chained
+    mode's lanes and span) and block count M."""
     fmt = lambda d, f: ", ".join(f"{f(*k)}: {v}"
                                  for k, v in sorted(d.items()))
-    k3 = lambda k: ("lane mode n=%d M=%d" % k[1:] if k[0] == "lanes"
-                    else "K=%d M=%d" % k)
+
+    def k3(k):
+        if k[0] == "lanes":
+            return "lane mode n=%d M=%d" % k[1:]
+        if k[0] == "chain":
+            return "chained lane mode n=%d lanes=%d span=%d M=%d" % k[1:]
+        return "K=%d M=%d" % k
     return ("K1 launches by shape: " + fmt(
         by_shape["full_search"],
         lambda n, r, h, w: f"n={n} r={r} plane={h}x{w}") +
@@ -2081,6 +2233,7 @@ def phase_intra_batched(dev, w=1920, h=1080, n=4):
               + "; PSNR-Y " + ", ".join(f"{x:.2f}" for x in q)
               + f" dB; max_memory_allocated {runs[name]['peak'] / 2**20:.0f}"
               f" MiB; kernel launches {runs[name]['counts']}")
+        bits_beside_base(f"phase 12 {name}", [f.bits for f in out])
         if not all(x > 28.0 for x in q):
             raise AssertionError(f"phase 12 {name}: recon PSNR {q}")
     sb = b"".join(f.bitstream for f in runs["batched"]["out"])
@@ -3305,6 +3458,7 @@ def phase_ladder_finish(fut, outs, mc_hw):
             f"share writer {r['writes']}, reader {r['reads']}; pictures "
             f"with the master's offsets {sum(o for _, o in r['offsets'])}"
             f" of {len(r['offsets'])}")
+        bits_beside_base(what, [f.bits for f in r["pics"]])
         if not all(x > 28.0 for x in q):
             raise AssertionError(f"{what}: recon PSNR {q}")
         if i == 0:
@@ -3368,6 +3522,7 @@ def run_phases(dev, rng, cap: str, clock: float):
     wg["max_abs_err"] = max(wg["max_abs_err"], e2)
     fadd_latency_cycles(FADD_BUILD)
     res["ordered_sum"] = phase_k3(dev, rng, cap, clock)
+    phase_wavefront_tables(dev)
     print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
     counts = {}
     t0 = time.perf_counter()

@@ -447,6 +447,25 @@ def test_ordered_sum_lanes_equals_plain(dev, n, m):
     assert torch.equal(got, lanes_sum_plain(x.reshape(m, n * n).T, n))
 
 
+@pytest.mark.parametrize("n,lanes,span,m", [
+    (8, 8, 8, 8160), (8, 4, 8, 8160), (16, 8, 8, 8160), (16, 8, 16, 8160),
+    (32, 8, 32, 2040), (8, 4, 8, 1)])
+def test_ordered_sum_chained_equals_plain(dev, n, lanes, span, m):
+    """K3's chained lane mode against chain_sum_plain on the card: the
+    same float32 bits, one launch counted under ordered_sum."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import \
+        ordered_sum_chained
+    from x265_mod_by_patman_tpu_torch.ops.numeric import chain_sum_plain
+    rng = np.random.default_rng(n * 5 + lanes + m)
+    x = torch.from_numpy((rng.random((m, n, n)) * rng.choice(
+        [1.0, 1e2, 1e5], (m, n, n))).astype(np.float32)).to(dev)
+    kernels.reset_counts()
+    got = ordered_sum_chained(x, n, lanes, span)
+    assert kernels.counts()["ordered_sum"] == 1
+    assert torch.equal(got, chain_sum_plain(x.reshape(m, n * n).T, n,
+                                            lanes, span))
+
+
 def test_card_intra_batched_equals_cpu(dev):
     """encode_intra_batched on the card (K3 in its CTU group sums) gives
     the CPU's bytes."""

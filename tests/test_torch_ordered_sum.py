@@ -67,6 +67,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         ordered_sum_lanes(torch.zeros((3, 2, 2)), 2)
     with pytest.raises(ValueError):     # (n*n, M) terms, not blocks
         ordered_sum_lanes(torch.zeros((16, 3)), 4)
+    from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import \
+        ordered_sum_chained
+    with pytest.raises(ValueError):     # an order the kernel lacks
+        ordered_sum_chained(torch.zeros((3, 8, 8)), 8, 2, 8)
+    with pytest.raises(ValueError):     # blocks of another n
+        ordered_sum_chained(torch.zeros((3, 16, 16)), 8, 8, 8)
 
 
 def _permuted_osum(x, dims):
@@ -190,6 +196,60 @@ def test_lsum_reads_the_blocks_in_place(n):
         ordered_sum_lanes(wide[::2], n).numpy(),
         lanes_sum_plain(wide[::2].reshape(-1, n * n).T.contiguous(),
                         n).numpy())
+
+
+def _chained_loop(x, lanes, span):
+    """(M, n, n) float32 blocks -> (M,) sums in numpy, as the reference's
+    CPU backend vectorises a fused TB sum by rows: a vector of `lanes`
+    lanes holding the running sum added to the row's first term and the
+    row's next lanes - 1 terms, the row's further strips below `span`
+    added lane by lane, the vector reduced by halves, then the row's
+    terms from `span` on one by one."""
+    m, n, _ = x.shape
+    acc = np.zeros(m, F32)
+    for r in range(n):
+        vec = x[:, r, :lanes].copy()
+        vec[:, 0] = (acc + vec[:, 0]).astype(F32)
+        for c in range(lanes, span, lanes):
+            vec = (vec + x[:, r, c:c + lanes]).astype(F32)
+        while vec.shape[1] > 1:
+            h = vec.shape[1] // 2
+            vec = (vec[:, :h] + vec[:, h:]).astype(F32)
+        acc = vec[:, 0]
+        for c in range(span, n):
+            acc = (acc + x[:, r, c]).astype(F32)
+    return acc
+
+
+@pytest.mark.parametrize("n,lanes,span", [(8, 8, 8), (8, 4, 8), (16, 8, 8),
+                                          (16, 8, 16), (32, 8, 32)])
+def test_chained_lane_mode_is_the_row_vector_order(n, lanes, span):
+    """K3's chained lane mode (csum; its twin chain_sum_plain): each of
+    its orders equals the row-vector loop it stands for, on the blocks
+    where they lie and block-strided; at span = n it is the lane mode's
+    n >= 16 order (lanes_sum_plain), and at n = 16 a row of 16 lanes
+    reduced by halves gives the same bits as 8 lanes of two terms."""
+    from x265_mod_by_patman_tpu_torch.ops.cuda.ordered_sum import \
+        ordered_sum_chained
+    from x265_mod_by_patman_tpu_torch.ops.numeric import (chain_sum_plain,
+                                                          csum,
+                                                          lanes_sum_plain)
+    x = _terms((3, 11, n, n), n + lanes) * F32(1e-2)
+    want = _chained_loop(x.reshape(-1, n, n), lanes, span).reshape(3, 11)
+    np.testing.assert_array_equal(csum(torch.from_numpy(x), lanes, span)
+                                  .numpy(), want)
+    wide = torch.from_numpy(_terms((42, n, n), n + span))
+    np.testing.assert_array_equal(
+        ordered_sum_chained(wide[::2], n, lanes, span).numpy(),
+        _chained_loop(wide[::2].numpy(), lanes, span))
+    xt = torch.from_numpy(x.reshape(-1, n * n).T.copy())
+    if span == n and n >= 16:
+        np.testing.assert_array_equal(
+            chain_sum_plain(xt, n, lanes, span).numpy(),
+            lanes_sum_plain(xt, n).numpy())
+    if (n, span) == (16, 16):
+        np.testing.assert_array_equal(
+            _chained_loop(x.reshape(-1, n, n), 16, n), want.reshape(-1))
 
 
 def _fsum_scalars(low, intra):

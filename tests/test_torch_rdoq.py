@@ -3,13 +3,17 @@ seeded inputs (the input style of tests/test_rdoq.py and
 tests/test_tb_bits_est.py).
 
 Tolerance: levels are integers and must match exactly.  The bit
-estimates are float32 sums over a TB: the JAX CPU backend accumulates
-them sequentially, the port pairwise (so that the card and the CPU give
-the same bits), and two orders of an n-term float32 sum differ by up to
-about n * 6e-8 relative.  They are held to rtol=1e-6 up to 16x16 TBs
-and rtol=1e-5 for 32x32 TBs (1024 terms)."""
+estimates are float32 sums over a TB.  Where the wavefront takes them
+(tb_bits_est with the step's lane count) they follow the reference's
+compiled order and are held exactly; elsewhere the port sums pairwise
+(so that the card and the CPU give the same bits) and two orders of an
+n-term float32 sum differ by up to about n * 6e-8 relative: held to
+rtol=1e-6 up to 16x16 TBs and rtol=1e-5 for 32x32 TBs (1024 terms)."""
+import functools
+
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -91,9 +95,77 @@ def test_rdoq_sign_hide_matches_reference(log2n, c_idx, mode):
         assert (exp != plain).any()           # hiding fired somewhere
 
 
-@pytest.mark.parametrize("log2n,c_idx", [(2, 0), (3, 1), (4, 0), (4, 2),
-                                         (5, 0)])
-def test_tb_bits_est_matches_reference(log2n, c_idx):
+@functools.partial(jax.jit, static_argnums=(4, 5))
+def _tb_bits_in_steps(lev, qp, tabs, thr, log2n, c_idx):
+    """The reference's tb_bits_est as its wavefront runs it: a fori_loop
+    whose step s estimates the (B, n, n) levels lev[s] with per-lane rate
+    tables, the estimate consumed by a compare (the skip test's) and
+    stored.  So XLA's CPU backend emits the coefficient-bit sum as a
+    fusion of its own, as in jit(_wavefront_body), and vectorises its row
+    loop as there: for B = 1 the whole row (16 lanes at n = 16, 8 at
+    n = 8), for B = 4 eight lanes and the row's tail one by one, for
+    B = 15 16 lanes (the loop structure of the fusions' LLVM IR, dumped
+    with XLA_FLAGS=--xla_dump_to, equals the wavefront's at 96x64,
+    416x240 and 1920x1088).  The wavefront's chroma sums at B > 1 (four
+    lanes) arise only in its own layout and are not reproduced here.
+    -> ((S, B) bits, (S, B) compares)."""
+    def step(s, carry):
+        bits, flags = carry
+        b = jr.tb_bits_est(lev[s], qp[s], log2n, c_idx, jnp.int32(1),
+                           bits_table=tabs[s])
+        return bits.at[s].set(b), flags.at[s].set(thr[s] <= 6.0 + b)
+    z = jnp.zeros(lev.shape[:2], jnp.float32)
+    return jax.lax.fori_loop(0, lev.shape[0], step,
+                             (z, jnp.zeros(lev.shape[:2], bool)))
+
+
+def _tb_case(log2n, c_idx, lanes):
+    """(S, B, n, n) seeded levels with large ones (8197 among them, where
+    the reference's floor(log2) of the remaining level is one short),
+    per-lane QPs and rate tables."""
+    rng = np.random.default_rng(100 * log2n + 10 * c_idx + lanes)
+    n = 1 << log2n
+    shape = (48, lanes, n, n)
+    lev = np.where(rng.random(shape) < 0.35,
+                   rng.integers(-60, 61, shape), 0).astype(np.int32)
+    big = rng.random(shape) < 0.01
+    lev[big] = rng.integers(-20000, 20000, int(big.sum()))
+    lev[:, :, 0, 0] = np.where(rng.random(shape[:2]) < 0.2, 8197,
+                               lev[:, :, 0, 0])
+    lev[0, 0] = 0
+    qp = rng.integers(22, 40, shape[:2]).astype(np.int32)
+    rows = np.stack([bits_table_from_states(init_states(1, q))
+                     for q in (22, 30, 38)]).astype(np.float32)
+    tabs = rows[rng.integers(0, 3, shape[:2])]
+    return lev, qp, tabs
+
+
+@pytest.mark.parametrize("log2n,c_idx,lanes", [
+    pytest.param(2, 0, None, id="2-0"), pytest.param(3, 1, None, id="3-1"),
+    pytest.param(4, 0, None, id="4-0"), pytest.param(4, 2, None, id="4-2"),
+    pytest.param(5, 0, None, id="5-0"),
+    pytest.param(4, 0, 1, id="4-0-wavefront-1"),
+    pytest.param(3, 1, 1, id="3-1-wavefront-1"),
+    pytest.param(3, 2, 1, id="3-2-wavefront-1"),
+    pytest.param(4, 0, 4, id="4-0-wavefront-4"),
+    pytest.param(4, 0, 15, id="4-0-wavefront-15")])
+def test_tb_bits_est_matches_reference(log2n, c_idx, lanes):
+    """With `lanes`, the wavefront's estimate (tb_bits_est(lanes=B)) is
+    held exactly against the reference's function in the wavefront's
+    compiled context (_tb_bits_in_steps), and the pairwise sums with the
+    exact floor (the port's arithmetic before) differ from it."""
+    if lanes is not None:
+        lev, qp, tabs = _tb_case(log2n, c_idx, lanes)
+        thr = np.zeros(lev.shape[:2], np.float32)
+        exp = np.asarray(_tb_bits_in_steps(lev, qp, tabs, thr, log2n,
+                                           c_idx)[0])
+        got, before = (np.stack([to_numpy(tr.tb_bits_est(
+            _t(lev[s]), _t(qp[s]), log2n, c_idx, 1, bits_table=_t(tabs[s]),
+            lanes=ln)) for s in range(lev.shape[0])])
+            for ln in (lanes, None))
+        np.testing.assert_array_equal(got, exp)
+        assert (before != exp).any()
+        return
     rng = np.random.default_rng(log2n * 3 + c_idx)
     n = 1 << log2n
     b = 12

@@ -3,9 +3,14 @@ frame/inter_tu32.py of the PyTorch port against the JAX reference on
 the same seeded planes and decisions.
 
 Tolerance: recon planes, level stores and mode winners are integers and
-must match exactly."""
+must match exactly; so must the wavefront's float32 decision values
+(the candidate costs, the lambda, the log tables), which follow the
+reference's compiled program bit for bit."""
+import functools
+
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -16,10 +21,14 @@ from x265_mod_by_patman_tpu.entropy.est_bits import bits_table_from_states
 from x265_mod_by_patman_tpu.frame import inter_tu32 as jtu
 from x265_mod_by_patman_tpu.frame.recon_intra import (
     IntraReconstructor as JRecon)
+from x265_mod_by_patman_tpu.ops.transform import quant_dyn as jquant
 from x265_mod_by_patman_tpu.params import default_params
 from x265_mod_by_patman_tpu_torch.frame import inter_tu32 as ttu
 from x265_mod_by_patman_tpu_torch.frame.recon_intra import (
-    IntraReconstructor as TRecon)
+    IntraReconstructor as TRecon, candidate_cost, skip_costs)
+from x265_mod_by_patman_tpu_torch.ops.cost import psy_weight
+from x265_mod_by_patman_tpu_torch.ops import numeric
+from x265_mod_by_patman_tpu_torch.ops.transform import quant_dyn as tquant
 
 CPU = torch.device("cpu")
 KEYS = ("recon_y", "recon_u", "recon_v", "lev_y", "lev_u", "lev_v")
@@ -47,7 +56,7 @@ def _assert_same(got, exp):
                                       err_msg=k)
 
 
-@pytest.mark.parametrize("qp", [27, 36])
+@pytest.mark.parametrize("qp", [27, 36, 22, 31, 44])
 def test_run_tree_matches_reference(qp):
     w, h = 96, 64
     y, u, v = _frame(w, h, qp)
@@ -87,7 +96,7 @@ def _ebits_rows(qp, nby):
     return rows[np.arange(nby + 1) % 2]
 
 
-@pytest.mark.parametrize("qp", [30, 38])
+@pytest.mark.parametrize("qp", [30, 38, 25, 41, 47])
 def test_run_inter_matches_reference(qp):
     w, h = 96, 64
     (y, u, v), mc, inter, modes = _inter_inputs(w, h, qp)
@@ -134,3 +143,228 @@ def test_region_uniform_mask_is_the_reference_function():
     np.testing.assert_array_equal(
         ttu.region_uniform_mask(inter, mvs, None, None, rs, None, 96, 64),
         jtu.region_uniform_mask(inter, mvs, None, None, rs, None, 96, 64))
+
+
+# -- the wavefront's float32 decision values ---------------------------------
+# The reference's candidate choice and skip test ride float32 values whose
+# arithmetic its CPU backend fixes when it compiles the wavefront.  The
+# programs below put the reference's own expressions in that context (a
+# fori_loop over steps, the value consumed as the wavefront consumes it),
+# so XLA emits them as it does there: the same polynomial log and exp
+# with the same multiply-adds contracted, the same vectorised row loop
+# for the TB's sum (read in the fusions' LLVM IR and object code,
+# XLA_FLAGS=--xla_dump_to, against jit(_wavefront_tree_body) at 96x64,
+# 416x240 and 1920x1088).
+
+@jax.jit
+def _rate_terms_in_steps(lev):
+    """(S, 1, 16, 16) levels with one nonzero each -> (S,) candidate rates,
+    each the reference's 3 + 2 * log2(|level| + 1) at that level."""
+    def step(s, acc):
+        al = jnp.abs(lev[s]).astype(jnp.float32)
+        rate = jnp.sum(jnp.where(al > 0.0, 3.0 + 2.0 * jnp.log2(al + 1.0),
+                                 0.0), axis=(1, 2))
+        return acc.at[s].set(rate[0])
+    return jax.lax.fori_loop(0, lev.shape[0], step,
+                             jnp.zeros(lev.shape[0], jnp.float32))
+
+
+@jax.jit
+def _candidates_in_steps(coef, qps, cb, sse):
+    """The reference's candidate RD choice (recon_intra._substep_body at
+    cand_bits) over steps of B blocks and K candidates: the levels
+    quantized in the step, the rate, the lambda of the step's QPs, the
+    cost and the running minimum.  -> ((S, K, B) costs, (S, B) winners,
+    (S, B) lambdas)."""
+    s_, k_, b_ = coef.shape[:3]
+
+    def step(s, carry):
+        costs, sel, lams = carry
+        qp = qps[s]
+        ones = jnp.ones(qp.shape, bool)
+        lam2 = 0.85 * jnp.exp2((qp.astype(jnp.float32) - 12.0) / 3.0)
+        best = None
+        for kk in range(k_):
+            lev = jquant(coef[s, kk], ones, qp, 4, 8, None)
+            al = jnp.abs(lev).astype(jnp.float32)
+            rate = jnp.sum(jnp.where(al > 0.0,
+                                     3.0 + 2.0 * jnp.log2(al + 1.0), 0.0),
+                           axis=(1, 2))
+            cost = sse[s, kk].astype(jnp.float32) + lam2 * (rate
+                                                           + cb[s, kk])
+            costs = costs.at[s, kk].set(cost)
+            if best is None:
+                best = (cost, jnp.zeros(qp.shape, jnp.int32))
+            else:
+                u = cost < best[0]
+                best = (jnp.where(u, cost, best[0]),
+                        jnp.where(u, kk, best[1]))
+        return costs, sel.at[s].set(best[1]), lams.at[s].set(lam2)
+    z = jnp.zeros((s_, b_), jnp.float32)
+    return jax.lax.fori_loop(
+        0, s_, step, (jnp.zeros((s_, k_, b_), jnp.float32),
+                      jnp.zeros((s_, b_), jnp.int32), z))
+
+
+@jax.jit
+def _skip_costs_in_steps(sse_skip, sse_coded, est, qps, psy_skip, psy_coded,
+                         psy256, init_type):
+    """The reference's luma zero-residual test (recon_intra._substep_body
+    with init_type and psy-rd) over steps of B blocks: the lambda of the
+    step's QPs, bits = base + the TB estimate, the two costs with their
+    psy terms and the decision.  -> ((S, B) cost_skip, cost_coded,
+    skip)."""
+    def step(s, carry):
+        cs, cc, sk = carry
+        qp = qps[s]
+        lam2 = 0.85 * jnp.exp2((qp.astype(jnp.float32) - 12.0) / 3.0)
+        bits = jnp.where(init_type == 0, 14.0, 6.0) + est[s]
+        cost_skip = sse_skip[s].astype(jnp.float32)
+        cost_coded = sse_coded[s].astype(jnp.float32) + lam2 * bits
+        styp = jnp.asarray([300.0, 256.0, 96.0], jnp.float32)[
+            jnp.clip(init_type, 0, 2)] / 256.0
+        qpf = qp.astype(jnp.float32)
+        roll = jnp.where(qpf >= 40.0,
+                         jnp.clip((51.0 - qpf) * 23.0 / 256.0, 0.0, 1.0),
+                         1.0)
+        psy_w = jnp.sqrt(lam2) * (psy256.astype(jnp.float32) / 256.0) \
+            * 0.33 * styp * roll
+        cost_skip = cost_skip + psy_w * psy_skip[s].astype(jnp.float32)
+        cost_coded = cost_coded + psy_w * psy_coded[s].astype(jnp.float32)
+        return (cs.at[s].set(cost_skip), cc.at[s].set(cost_coded),
+                sk.at[s].set(cost_skip <= cost_coded))
+    z = jnp.zeros(qps.shape, jnp.float32)
+    return jax.lax.fori_loop(0, qps.shape[0], step,
+                             (z, z, jnp.zeros(qps.shape, bool)))
+
+
+def _exact_fma32(a, b, c):
+    """float32 a * b + c rounded once to nearest even, in Python integers
+    (each float32 is an integer times a power of two)."""
+    from fractions import Fraction
+    out = []
+    for x, y, z in zip(*np.broadcast_arrays(*(np.asarray(v, np.float32)
+                                              for v in (a, b, c)))):
+        v = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        f = np.float32(v.numerator / v.denominator)
+        up, dn = (np.nextafter(f, np.float32(d)) for d in (np.inf, -np.inf))
+        dist = [(abs(Fraction(float(c)) - v),
+                 int(np.array(c, np.float32).view(np.int32)) & 1, c)
+                for c in (f, up, dn)]
+        out.append(min(dist)[2])
+    return np.array(out, np.float32)
+
+
+def _before_cost(lev, sse, qp, cb):
+    """The candidate cost in the port's earlier arithmetic: the log2 in
+    float64, the pairwise sum, the product and the add rounded apart,
+    the lambda's 2**x in float64."""
+    al = torch.abs(lev).to(torch.float32)
+    l2 = torch.log2(al.to(torch.float64) + 1.0).to(torch.float32)
+    rate = numeric.fsum(torch.where(al > 0.0, 3.0 + 2.0 * l2, 0.0), (1, 2))
+    return sse + numeric.lam2_f32(qp) * (rate + cb)
+
+
+@pytest.mark.parametrize("site", ["log", "fma", "rate-term", "candidates-1",
+                                  "candidates-4", "candidates-15",
+                                  "skip-costs-1", "skip-costs-15"])
+def test_wavefront_float32_follows_the_reference(site):
+    """log_ref / log2_ref equal the reference's float32 log and log2 at
+    every integer they take (1 to 32769; their tables' multiply-adds,
+    and the candidate term's fma32 on them, each equal the exactly
+    rounded value); the candidate term equals the reference's
+    3 + 2 * log2(a + 1) in a loop at every a; candidate_cost and
+    lam2_ref equal the reference's costs, winners and lambdas at every
+    QP 0-51 with 1, 4 and 15 blocks a step, where the earlier arithmetic
+    (_before_cost) gives other costs; skip_costs with lam2_ref and
+    psy_weight equals the reference's zero-residual test (its costs and
+    decisions) at every QP, where the products rounded apart do not."""
+    x = np.arange(1, numeric.LOG_REF_MAX + 1, dtype=np.float32)
+    xt = torch.from_numpy(x)
+    if site == "log":
+        np.testing.assert_array_equal(numeric.log_ref(xt).numpy(),
+                                      np.asarray(jax.jit(jnp.log)(x)))
+        np.testing.assert_array_equal(numeric.log2_ref(xt).numpy(),
+                                      np.asarray(jax.jit(jnp.log2)(x)))
+        # the floor the skip test's remaining-level length takes
+        assert numeric.log2_ref(torch.tensor([8192.0])).floor() == 12.0
+        with pytest.raises(ValueError):
+            numeric.log_ref(torch.tensor([0.0, 5.0]))
+        with pytest.raises(ValueError):
+            numeric.log2_ref(torch.tensor([numeric.LOG_REF_MAX + 1.0]))
+        return
+    if site == "fma":
+        # the tables' multiply-adds (numeric._fma_f32) and the term's
+        # float64-route fma32 against exact rounding, at every entry
+        exact = functools.partial(numeric._xla_log, fma=_exact_fma32)
+        np.testing.assert_array_equal(numeric.log_ref(xt).numpy(),
+                                      exact(x))
+        two = np.float32(2 * float(numeric.LOG2E_F32))
+        ln = numeric.log_ref(xt)
+        np.testing.assert_array_equal(
+            numeric.fma32(ln, float(two), 3.0).numpy(),
+            _exact_fma32(ln.numpy(), two, np.float32(3.0)))
+        return
+    if site == "rate-term":
+        a = np.arange(1, numeric.LOG_REF_MAX, dtype=np.int32)
+        lev = np.zeros((a.size, 1, 16, 16), np.int32)
+        lev[np.arange(a.size), 0, (a // 16) % 16, a % 16] = \
+            np.where(a % 2 == 0, a, -a)
+        exp = np.asarray(_rate_terms_in_steps(lev))
+        t = torch.from_numpy(a)
+        got = numeric.fma32(numeric.log_ref(t + 1),
+                            2 * float(numeric.LOG2E_F32), 3.0).numpy()
+        np.testing.assert_array_equal(got, exp)
+        return
+    lanes = int(site.split("-")[-1])
+    rng = np.random.default_rng(lanes)
+    t = torch.from_numpy
+    if site.startswith("skip-costs"):
+        steps = 52 * 4
+        qps = np.repeat(np.arange(52, dtype=np.int32), 4)[:, None] \
+            .repeat(lanes, 1)
+        sse_s = rng.integers(0, 200000, qps.shape).astype(np.int32)
+        sse_c = (sse_s * rng.uniform(0.3, 1.0, qps.shape)).astype(np.int32)
+        est = (rng.random(qps.shape) * 300).astype(np.float32)
+        psy_s = rng.integers(0, 30000, qps.shape).astype(np.int32)
+        psy_c = rng.integers(0, 30000, qps.shape).astype(np.int32)
+        psy256, it = 512, 1
+        cs, cc, sk = (np.asarray(a) for a in _skip_costs_in_steps(
+            sse_s, sse_c, est, qps, psy_s, psy_c, jnp.int32(psy256),
+            jnp.int32(it)))
+        lam2 = numeric.lam2_ref(t(qps))
+        psy = (psy_weight(lam2, psy256, it, t(qps)), t(psy_s), t(psy_c))
+        got = skip_costs(t(sse_s), t(sse_c), 6.0 + t(est), lam2, psy)
+        np.testing.assert_array_equal(got[0].numpy(), cs)
+        np.testing.assert_array_equal(got[1].numpy(), cc)
+        np.testing.assert_array_equal((got[0] <= got[1]).numpy(), sk)
+        apart = (t(sse_c).to(torch.float32) + lam2 * (6.0 + t(est))) \
+            + psy[0] * t(psy_c).to(torch.float32)
+        assert (apart.numpy() != cc).any()
+        return
+    steps, k = 52 * 2, 3
+    qps = np.repeat(np.arange(52, dtype=np.int32), 2)[:, None] \
+        .repeat(lanes, 1)
+    coef = (rng.integers(-4000, 4001, (steps, k, lanes, 16, 16))
+            * (rng.random((steps, k, lanes, 16, 16)) < 0.4)).astype(np.int32)
+    cb = (rng.random((steps, k, lanes)) * 12).astype(np.float32)
+    sse = rng.integers(0, 60000, (steps, k, lanes)).astype(np.int32)
+    costs, sel, lams = (np.asarray(a) for a in
+                        _candidates_in_steps(coef, qps, cb, sse))
+    got_lam = numeric.lam2_ref(t(qps))
+    np.testing.assert_array_equal(got_lam.numpy(), lams)
+    ones = torch.ones(lanes, dtype=torch.bool)
+    got = np.zeros_like(costs)
+    before = np.zeros_like(costs)
+    for s in range(steps):
+        for kk in range(k):
+            lev = tquant(t(coef[s, kk]), ones, t(qps[s]), 4, 8, None)
+            sse_f = t(sse[s, kk]).to(torch.float32)
+            got[s, kk] = candidate_cost(lev, sse_f, got_lam[s],
+                                        t(cb[s, kk])).numpy()
+            before[s, kk] = _before_cost(lev, sse_f, t(qps[s]),
+                                         t(cb[s, kk])).numpy()
+    np.testing.assert_array_equal(got, costs)
+    first_min = np.argmin(got, axis=1)          # ties to the first
+    np.testing.assert_array_equal(first_min, sel)
+    assert (before != costs).any()

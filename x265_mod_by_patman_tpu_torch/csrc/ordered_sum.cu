@@ -26,8 +26,16 @@
 //           j + 16, ... after the running sum is added into lane 0's
 //           first term; the 8 lanes add as a tree (j with j + 4, then
 //           j + 2, then 1), which gives the new running sum.
+// The n >= 16 order is one case of the chained lane mode
+// (ordered_sum_chain_launch): W lanes (4 or 8) per row, lane j summing
+// the row's terms j, j + W, ... below column V after the running sum is
+// added into lane 0's first term, the W lanes as a halving tree, then
+// the row's terms V..n-1 one by one.  The reference's wavefront sums its
+// TB bit estimates so, W and V set by its vectorisation: (W, V) = (8, 8)
+// or (4, 8) at n = 8, (8, 8) or (8, 16) at n = 16 (ops.rdoq).
 // Every add is __fadd_rn: no contraction into an FMA, no reassociation,
-// no atomics; the bits equal ops.numeric.osum_plain / lanes_sum_plain.
+// no atomics; the bits equal ops.numeric.osum_plain / lanes_sum_plain /
+// chain_sum_plain.
 //
 // What bounds it on this card, and what the design does about it:
 // * Row mode at K > 16 (the lookahead's 1 or 12 sums of 510 or 1024
@@ -54,7 +62,9 @@
 //   and run the tree over __shfl_xor_sync within the group.  Only lane
 //   0's n/8 + 3 adds a row wait on the running sum; the other lanes'
 //   sums and the shuffles do not, so the next rows' loads and shuffles
-//   overlap the chain.  Blocks shrink until the grid covers every SM.
+//   overlap the chain.  The chained mode is the same kernel with W
+//   threads a block and, below V = n, lane 0's tail of n - V adds.
+//   Blocks shrink until the grid covers every SM.
 #include <cuda_runtime.h>
 
 namespace {
@@ -238,43 +248,48 @@ __global__ void lanes_narrow_kernel(const float* __restrict__ x,
   if (valid && r == 0) out[blk] = s;
 }
 
-// Lane mode, n = 16 or 32: eight consecutive threads hold block blk's
-// lanes j = 0..7.
-template <int N>
-__global__ void lanes_wide_kernel(const float* __restrict__ x,
-                                  float* __restrict__ out, int m,
-                                  long long sb, long long sr, long long sc) {
+// Chained lane mode (and the lane mode at n = 16, 32: W = 8, V = n): W
+// consecutive threads hold block blk's lanes j = 0..W-1.
+template <int N, int W, int V>
+__global__ void lanes_chain_kernel(const float* __restrict__ x,
+                                   float* __restrict__ out, int m,
+                                   long long sb, long long sr,
+                                   long long sc) {
+  static_assert(V % W == 0 && V <= N, "V: a multiple of W, at most N");
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long blk = tid >> 3;
-  const int j = (int)(tid & 7);
+  const long long blk = tid / W;
+  const int j = (int)(tid % W);
   const bool valid = blk < m;
   // a group past the last block reads block 0 and stores nothing: all 32
   // lanes of the warp take part in the shuffles
-  const float* p = x + (valid ? blk : 0) * sb + j * sc;
+  const float* p = x + (valid ? blk : 0) * sb;
   float acc = 0.0f;
 #pragma unroll 4
   for (int r = 0; r < N; ++r) {
     const float* q = p + r * sr;
-    float v[N / 8];
+    float v[V / W];
 #pragma unroll
-    for (int i = 0; i < N / 8; ++i) v[i] = __ldg(q + 8 * i * sc);
-    // l: lane j's sum of the row's terms j, j + 8, ... (lane 0's value
+    for (int i = 0; i < V / W; ++i) v[i] = __ldg(q + (W * i + j) * sc);
+    // l: lane j's sum of the row's terms j, j + W, ... (lane 0's value
     // is not read by the others); a: lane 0's chain from the running sum
     float l = v[0];
     float a = __fadd_rn(acc, l);
 #pragma unroll
-    for (int i = 1; i < N / 8; ++i) {
+    for (int i = 1; i < V / W; ++i) {
       l = __fadd_rn(v[i], l);
       a = __fadd_rn(v[i], a);
     }
-    const float o4 = __shfl_xor_sync(0xffffffffu, l, 4, 8);   // lane j + 4
-    const float t4 = __fadd_rn(l, o4);
-    const float o2 = __shfl_xor_sync(0xffffffffu, t4, 2, 8);  // j + 2
-    const float t2 = __fadd_rn(t4, o2);
-    const float o1 = __shfl_xor_sync(0xffffffffu, t2, 1, 8);  // j + 1
-    a = __fadd_rn(a, o4);
-    a = __fadd_rn(a, o2);
-    acc = __fadd_rn(a, o1);
+    // the halving tree: lane j + w's partial sum into lane j's; lane 0's
+    // chain takes each partial sum it would have added
+#pragma unroll
+    for (int w = W / 2; w >= 1; w /= 2) {
+      const float o = __shfl_xor_sync(0xffffffffu, l, w, W);
+      l = __fadd_rn(l, o);
+      a = __fadd_rn(a, o);
+    }
+#pragma unroll
+    for (int c = V; c < N; ++c) a = __fadd_rn(a, __ldg(q + c * sc));
+    acc = a;
   }
   if (valid && j == 0) out[blk] = acc;
 }
@@ -385,10 +400,54 @@ extern "C" int ordered_sum_lanes_launch(const void* x, void* out, int n,
                                                              sr, sc);
       break;
     case 16:
-      lanes_wide_kernel<16><<<blocks, bd, 0, st>>>(xp, op, m, sb, sr, sc);
+      lanes_chain_kernel<16, 8, 16><<<blocks, bd, 0, st>>>(xp, op, m, sb,
+                                                           sr, sc);
       break;
     case 32:
-      lanes_wide_kernel<32><<<blocks, bd, 0, st>>>(xp, op, m, sb, sr, sc);
+      lanes_chain_kernel<32, 8, 32><<<blocks, bd, 0, st>>>(xp, op, m, sb,
+                                                           sr, sc);
+      break;
+    default:
+      return 1;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The chained lane mode: x block 0's term (0, 0); (n, w, v) one of (8, 8,
+// 8), (8, 4, 8), (16, 8, 8), (16, 8, 16), (32, 8, 32); sb, sr, sc: block,
+// row and column strides (floats); out: (M,) float32.
+extern "C" int ordered_sum_chain_launch(const void* x, void* out, int n,
+                                        int w, int v, int m, long long sb,
+                                        long long sr, long long sc,
+                                        void* stream) {
+  if (m <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* xp = (const float*)x;
+  float* op = (float*)out;
+  const long long total = (long long)m * w;
+  const int bd = block_threads(total);
+  const int blocks = (int)((total + bd - 1) / bd);
+  const int key = n * 10000 + w * 100 + v;
+  switch (key) {
+    case 80808:
+      lanes_chain_kernel<8, 8, 8><<<blocks, bd, 0, st>>>(xp, op, m, sb, sr,
+                                                         sc);
+      break;
+    case 80408:
+      lanes_chain_kernel<8, 4, 8><<<blocks, bd, 0, st>>>(xp, op, m, sb, sr,
+                                                         sc);
+      break;
+    case 160808:
+      lanes_chain_kernel<16, 8, 8><<<blocks, bd, 0, st>>>(xp, op, m, sb,
+                                                          sr, sc);
+      break;
+    case 160816:
+      lanes_chain_kernel<16, 8, 16><<<blocks, bd, 0, st>>>(xp, op, m, sb,
+                                                           sr, sc);
+      break;
+    case 320832:
+      lanes_chain_kernel<32, 8, 32><<<blocks, bd, 0, st>>>(xp, op, m, sb,
+                                                           sr, sc);
       break;
     default:
       return 1;

@@ -27,7 +27,8 @@ from ..constants.scaling import (default_matrix, list_matrix,
 from ..ops.cost import psy_cost_batch, psy_weight
 from ..ops.intra import (block_index, gather_ref_samples,
                          intra_pred_select_batch, substitute_filter_batch)
-from ..ops.numeric import flog2, fsum, lam2_f32
+from ..ops.numeric import (LOG2E_F32, fma32, lam2_ref, log_ref,
+                           lsum)
 from ..ops.rdoq import rdoq_levels, tb_bits_est
 from ..ops.transform import (dct_batch, dequant_dyn, idct_batch, quant_dyn,
                              quant_mats, sbh_adjust)
@@ -55,6 +56,34 @@ def _scan_sel_of(modes):
         .to(I32)
 
 
+def candidate_cost(lev, sse, lam2, cand_bits):
+    """The RD cost sse + lam2 * (rate + cand_bits) of (B, n, n) candidate
+    levels, rate = sum over the TB of 3 + 2 * log2(|level| + 1) at the
+    nonzero levels, in the reference's compiled float32: the term one
+    multiply-add on its log (log(.) * float32(2 / ln 2) + 3), the TB's
+    sum in its 8-lane order (lsum), the cost's multiply contracted into
+    its add; lam2 from lam2_ref."""
+    al = torch.abs(lev)
+    term = fma32(log_ref(al + 1), 2 * float(LOG2E_F32), 3.0)
+    rate = lsum(torch.where(al > 0, term, 0.0))
+    return fma32(lam2, rate + cand_bits, sse)
+
+
+def skip_costs(sse_skip, sse_coded, bits, lam2, psy=None):
+    """(cost of skipping, cost of coding) of the inter zero-residual test
+    from the int32 SSEs, the float32 bit estimate and lambda, and psy =
+    (weight, int32 psy cost of the prediction, of the reconstruction) or
+    None, in the reference's compiled float32: each product contracted
+    into the add that consumes it."""
+    cost_skip = sse_skip.to(F32)
+    cost_coded = fma32(lam2, bits, sse_coded.to(F32))
+    if psy is not None:
+        psy_w, psy_skip, psy_coded = psy
+        cost_skip = fma32(psy_w, psy_skip.to(F32), cost_skip)
+        cost_coded = fma32(psy_w, psy_coded.to(F32), cost_coded)
+    return cost_skip, cost_coded
+
+
 def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
                   qp, c_idx: int, bit_depth: int = 8, mc_pred=None,
                   inter_mask=None, sign_hide: bool = False,
@@ -63,7 +92,7 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
                   dmats=None, split_map=None, modes8=None, av8=None,
                   m8=(None, None), lossless: bool = False, tu4_map=None,
                   av4y=None, nr=None, m4=(None, None),
-                  fchroma: bool = False):
+                  fchroma: bool = False, est_lanes=None):
     """One wavefront substep for one component, updating `plane` and
     `levels` in place.
 
@@ -74,8 +103,11 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
     voluntary TU4 (DST) split of each 8x8 luma sub-TU, m4 its 4x4
     matrices; lossless: transquant bypass; nr: ((n*n,) intra, (n*n,)
     inter) noise-reduction offsets; fchroma: 4:4:4 chroma filters its
-    reference samples as luma does (spec 8.4.4.2.3).  Returns (skip (B,)
-    or None, chosen modes or None, this substep's NR sums or None)."""
+    reference samples as luma does (spec 8.4.4.2.3); est_lanes: the
+    step's lane count where the reference's program is the 4:2:0
+    wavefront, whose skip test then sums its TB bit estimates in that
+    program's order (ops.rdoq.tb_bits_est).  Returns (skip (B,) or None,
+    chosen modes or None, this substep's NR sums or None)."""
     n = 1 << log2n
     maxval = (1 << bit_depth) - 1
     hp, wp = plane.shape
@@ -92,7 +124,7 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
     if cand_bits is not None:
         # RD-true mode selection among the analysis' top-K candidates
         ones = torch.ones(bx.shape, dtype=torch.bool, device=dev)
-        lam2 = lam2_f32(qp, bit_depth)
+        lam2 = lam2_ref(qp, bit_depth)
         best = None
         for kk in range(modes.shape[1]):
             md_k = modes[:, kk]
@@ -104,10 +136,7 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
             rec_k = torch.clip(pred_k + idct_batch(deq_k, log2n, bit_depth),
                                0, maxval)
             sse = ((org - rec_k) ** 2).sum((1, 2), dtype=I32).to(F32)
-            al = torch.abs(lev_k).to(F32)
-            rate = fsum(torch.where(al > 0.0, 3.0 + 2.0 * flog2(al + 1.0),
-                                    0.0), (1, 2))
-            cost = sse + lam2 * (rate + cand_bits[:, kk])
+            cost = candidate_cost(lev_k, sse, lam2, cand_bits[:, kk])
             if best is None:
                 best = (cost, md_k)
             else:
@@ -175,7 +204,7 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
                           maxval)
         sse_coded = ((org - rec0) ** 2).sum((1, 2), dtype=I32)
         sse_skip = ((org - pred) ** 2).sum((1, 2), dtype=I32)
-        lam2 = lam2_f32(qp, bit_depth)
+        lam2 = lam2_ref(qp, bit_depth)
         if init_type is None:
             nzf = (lev != 0).sum((1, 2), dtype=I32).to(F32)
             base_bits = 6.0 if c_idx == 0 else 2.0
@@ -186,17 +215,15 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
             else:
                 base_bits = 6.0 if c_idx == 0 else 2.0
             bits = base_bits + tb_bits_est(lev, qp, log2n, c_idx, init_type,
-                                           bits_table=ebits)
-        cost_skip = sse_skip.to(F32)
-        cost_coded = sse_coded.to(F32) + lam2 * bits
+                                           bits_table=ebits,
+                                           lanes=est_lanes)
+        psy = None
         if psy256 is not None and c_idx == 0:
-            psy_w = psy_weight(lam2, psy256,
-                               init_type if init_type is not None else 2,
-                               qp)
-            cost_skip = cost_skip + psy_w * \
-                psy_cost_batch(org, pred).to(F32)
-            cost_coded = cost_coded + psy_w * \
-                psy_cost_batch(org, rec0).to(F32)
+            psy = (psy_weight(lam2, psy256,
+                              init_type if init_type is not None else 2, qp),
+                   psy_cost_batch(org, pred), psy_cost_batch(org, rec0))
+        cost_skip, cost_coded = skip_costs(sse_skip, sse_coded, bits, lam2,
+                                           psy)
         skip = (~intra_mask) & (cost_skip <= cost_coded)
         lev = torch.where(skip[:, None, None], 0, lev)
     deq = dequant_dyn(lev, qp, log2n, bit_depth, dmats, intra_mask)
@@ -479,6 +506,9 @@ def _wavefront(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes, sched,
         nr_cc = (nr_c[0], nr_c[1])
     else:
         nr_l = nr_cc = None
+    # the reference's 4:2:0 program sums the skip test's bit estimates in
+    # an order its lane count decides (read at 4:2:0 only)
+    est_lanes = sb_bx.shape[1] if clog2 == 3 and not csp422 else None
     for s in range(sb_bx.shape[0]):
         bx = sb_bx[s]
         by = sb_by[s]
@@ -495,7 +525,7 @@ def _wavefront(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes, sched,
                     av8=sched["av8"][s] if split_map is not None else None,
                     m8=(q8y, d8y), lossless=lossless, tu4_map=tu4_map,
                     av4y=sched["av4y"][s] if tu4_map is not None else None,
-                    m4=(q4y, d4y), nr=nr_l, ebits=eb_s)
+                    m4=(q4y, d4y), nr=nr_l, ebits=eb_s, est_lanes=est_lanes)
         if cand16 is not None:
             _, md_w, nr_o = _substep_body(
                 yp, lev_y, oy, bx, by, cand16[byc, bxc], sb_avy[s], 4, qp_b,
@@ -537,7 +567,7 @@ def _wavefront(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov, modes, sched,
                 modes8=modes8,
                 av8=sched["av4c"][s] if split_map is not None else None,
                 m8=(q4c, d4c), lossless=lossless, nr=nr_cc,
-                fchroma=fchroma)
+                fchroma=fchroma, est_lanes=est_lanes)
             if have_nr:
                 nr_acc = _nr_add(nr_acc, nr_o, False)
     return m_map, nr_acc

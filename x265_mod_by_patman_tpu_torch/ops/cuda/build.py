@@ -103,6 +103,9 @@ def load_library():
             lib.ordered_sum_launch.restype = i
             lib.ordered_sum_lanes_launch.argtypes = [p, p, i, i, q, q, q, p]
             lib.ordered_sum_lanes_launch.restype = i
+            lib.ordered_sum_chain_launch.argtypes = [p, p, i, i, i, i, q, q,
+                                                     q, p]
+            lib.ordered_sum_chain_launch.restype = i
             _lib = lib
     return _lib
 

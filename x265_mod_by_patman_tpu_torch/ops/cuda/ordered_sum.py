@@ -3,14 +3,16 @@
 port the summation order of the reference's CPU backend where that order
 is known (ops.numeric.osum), and in a second mode (`ordered_sum_lanes`,
 ops.numeric.lsum) the 8-lane order its CPU backend gives a fused sum
-over an n x n transform block.
+over an n x n transform block, and in a third (`ordered_sum_chained`,
+ops.numeric.csum) the chained lane orders its wavefront gives its TB bit
+estimates: W lanes a row, the lanes' tree, then the row's tail.
 
 Both read the terms where the caller holds them: the launch takes the
 sizes and strides of the reduced and the kept axes (`term_layout`), so
 no copy of the terms is made first.  Both dispatch on the tensor's
 device: a CPU tensor takes the plain PyTorch version (ops.numeric.
-osum_plain, lanes_sum_plain) on a view of the same layout, a CUDA tensor
-launches the kernel (or raises)."""
+osum_plain, lanes_sum_plain, chain_sum_plain) on a view of the same
+layout, a CUDA tensor launches the kernel (or raises)."""
 from __future__ import annotations
 
 import ctypes
@@ -18,12 +20,15 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..numeric import lanes_sum_plain, osum_plain
+from ..numeric import chain_sum_plain, lanes_sum_plain, osum_plain
 from .build import check, count_launch, load_library
 
 MAX_REDUCED = 2     # reduced axes the row-mode kernel walks (after merging)
 MAX_KEPT = 4        # kept axes
 LANE_SIZES = (4, 8, 16, 32)   # the lane mode's n: the TU sizes
+# the chained lane mode's (n, lanes, span): the wavefront's TB bit
+# estimates (n = 8, 16) and the lane mode's n >= 16
+CHAIN_ORDERS = ((8, 8, 8), (8, 4, 8), (16, 8, 8), (16, 8, 16), (32, 8, 32))
 
 
 class TermLayout(NamedTuple):
@@ -159,5 +164,39 @@ def ordered_sum_lanes(x: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+def ordered_sum_chained(x: torch.Tensor, n: int, lanes: int,
+                        span: int) -> torch.Tensor:
+    """K3's chained lane mode: (M,) float32 sums of the M n x n blocks of
+    x, an (M, n, n) tensor in any strides, in the order of
+    ops.numeric.chain_sum_plain(., n, lanes, span) for (n, lanes, span)
+    in CHAIN_ORDERS.  Its launches count as ordered_sum's, keyed
+    ("chain", n, lanes, span, M)."""
+    _check(x)
+    if (n, lanes, span) not in CHAIN_ORDERS or x.dim() != 3 or \
+            tuple(x.shape[1:]) != (n, n):
+        raise ValueError(f"ordered_sum_chained: {tuple(x.shape)} terms in "
+                         f"order (n, lanes, span) = {(n, lanes, span)}; "
+                         f"the kernel takes (M, n, n) blocks in "
+                         f"{CHAIN_ORDERS}")
+    m = x.shape[0]
+    if x.device.type == "cpu":
+        return chain_sum_plain(x.reshape(m, n * n).T, n, lanes, span)
+    if x.device.type != "cuda":
+        raise ValueError(f"ordered_sum_chained: unsupported device "
+                         f"{x.device}")
+    out = torch.empty((m,), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out
+    lib = load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    sb, sr, sc = x.stride()
+    check(lib.ordered_sum_chain_launch(x.data_ptr(), out.data_ptr(), n,
+                                       lanes, span, m, sb, sr, sc, stream),
+          "ordered_sum_chained")
+    count_launch(ordered_sum, ("chain", n, lanes, span, m))
+    return out
+
+
 ordered_sum.launches = 0
-ordered_sum.launches_by_shape = {}  # (K, M) or ("lanes", n, M) -> launches
+ordered_sum.launches_by_shape = {}  # (K, M), ("lanes", n, M) or
+#                                     ("chain", n, lanes, span, M) -> launches

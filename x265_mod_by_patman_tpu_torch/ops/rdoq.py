@@ -11,7 +11,8 @@ import torch
 from ..constants.hevc_tables import scan_order
 from ..entropy.est_bits import (
     BITS_TABLE, residual_ctx_scalars, sig_ctx_map)
-from .numeric import exp2_ref, fma32, fsqrt, fsum, lsum
+from .numeric import (csum, exp2_ref, fma32, fsqrt, fsum, log2_ref,
+                      lsum, osum)
 from .transform import (MAX_TR_DYNAMIC_RANGE, QUANT_SHIFT, _mat_sel, _qp_vec,
                         const)
 
@@ -48,6 +49,31 @@ def _rem_bits(v):
     return torch.where(v < 3.0, v + 1.0,
                        4.0 + 2.0 * _floor_log2(torch.clamp(v - 2.0,
                                                            min=1.0)))
+
+
+def _rem_bits_ref(v):
+    """_rem_bits with the floor the reference's wavefront takes:
+    floor(log2_ref(.)), one less than the exact floor at 8192 (v =
+    8194)."""
+    return torch.where(v < 3.0, v + 1.0,
+                       4.0 + 2.0 * torch.floor(
+                           log2_ref(torch.clamp(v - 2.0, min=1.0))))
+
+
+def wavefront_sum_order(n: int, lanes: int):
+    """(lanes, span) of the chained lane order (numeric.chain_sum_plain)
+    in which the reference's compiled wavefront sums an n x n TB's bit
+    estimate when its steps hold `lanes` blocks: its CPU backend
+    vectorises the sum by rows, 16 or 8 wide at n = 16 and 8 or 4 wide
+    at n = 8, as the lane count of the step decides.  Read from the
+    object code of jit(_wavefront_body) (4:2:0, 8, 10 and 12 bits) at
+    1, 2, 3, 4, 5, 7, 8, 9, 10, 12, 15, 20 and 30 lanes (frame widths 96
+    to 3840); 16 lanes a row sum as 8 lanes of two terms each."""
+    if n == 8:
+        return (8, 8) if lanes == 1 else (4, 8)
+    if n == 16:
+        return (8, 8) if 2 <= lanes <= 8 else (8, 16)
+    raise ValueError(f"wavefront_sum_order: no read order for n = {n}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -245,9 +271,14 @@ _LAST_BITS_LUT = ((_LAST_GROUP_IDX + 1).astype(np.float32) * 0.9
 
 
 def tb_bits_est(lev, qp, log2_size: int, c_idx: int = 0, init_type=None,
-                bits_table=None):
+                bits_table=None, lanes=None):
     """Rate estimate (float32 bits, (B,)) of coding each TB's levels;
-    0 for all-zero TBs."""
+    0 for all-zero TBs.  lanes: the wavefront's lane count B, given where
+    the caller is the reference's 4:2:0 wavefront (n = 8 or 16): the sums
+    then follow its compiled program (the coefficient bits in
+    wavefront_sum_order's chained lane order, the CG flag bits row-major)
+    and so does the remaining-level floor (_rem_bits_ref).  Without it
+    the sums take fsum's pairwise order and the floor is exact."""
     dev = lev.device
     b = lev.shape[0]
     qp = _qp_vec(qp, b, dev)
@@ -269,7 +300,14 @@ def tb_bits_est(lev, qp, log2_size: int, c_idx: int = 0, init_type=None,
     any_nz = nz.any(2).any(1)
     last = torch.where(nz, S[None], -1).amax((1, 2))
     region = S[None] <= last[:, None, None]
-    rem = _rem_bits(torch.clamp(al - 3.0, min=0.0))
+    if lanes is None:
+        rem = _rem_bits(torch.clamp(al - 3.0, min=0.0))
+        coeff_sum = cg_sum = lambda t: fsum(t, (1, 2))
+    else:
+        rem = _rem_bits_ref(torch.clamp(al - 3.0, min=0.0))
+        order = wavefront_sum_order(n, lanes)
+        coeff_sum = lambda t: csum(t, *order)
+        cg_sum = lambda t: osum(t, (1, 2))
     lb = torch.where(
         al == 0, sig0,
         sig1 + _SIGN + torch.where(
@@ -287,17 +325,17 @@ def tb_bits_est(lev, qp, log2_size: int, c_idx: int = 0, init_type=None,
         dc_cg = (pos[..., 0] == 0) & (pos[..., 1] == 0)
         dc_cg_b = dc_cg[None].repeat_interleave(4, 1) \
             .repeat_interleave(4, 2)
-        coeff_bits = fsum(torch.where(region & (cg_nz_b | dc_cg_b), lb, 0.0),
-                          (1, 2))
+        coeff_bits = coeff_sum(torch.where(region & (cg_nz_b | dc_cg_b), lb,
+                                           0.0))
         cg0b = bt[:, cgc, 0][:, None, None]
         cg1b = bt[:, cgc, 1][:, None, None]
         last_cg = ((pos[None, ..., 0] == (lxy[:, 1] >> 2)[:, None, None])
                    & (pos[None, ..., 1] == (lxy[:, 0] >> 2)[:, None, None]))
         cg_mask = cg_reg & ~dc_cg[None] & ~last_cg
-        cg_bits = fsum(torch.where(cg_mask, torch.where(cg_nz, cg1b, cg0b),
-                                   0.0), (1, 2))
+        cg_bits = cg_sum(torch.where(cg_mask, torch.where(cg_nz, cg1b, cg0b),
+                                     0.0))
     else:
-        coeff_bits = fsum(torch.where(region, lb, 0.0), (1, 2))
+        coeff_bits = coeff_sum(torch.where(region, lb, 0.0))
         cg_bits = 0.0
     bidx = torch.arange(b, device=dev)
     sig1_last = sig1[bidx, torch.clip(lxy[:, 1], 0, n - 1),
