@@ -73,21 +73,31 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    program takes at B lanes, and its (B, g, g) CG flag bits; B = 1, 4,
    15 and 30: 96x64, 416x240, 1080p, 2160p), contiguous and
    block-strided, against chain_sum_plain / osum_plain, exact, timed at
-   1080p's; the wavefront's tables (phase_wavefront_tables): log_ref,
-   log2_ref and the candidate rate's multiply-add at every integer they
-   take, lam2_ref at every QP and depth, on the card equal to the
-   CPU's.  K1 and K2 at the tile-row
-   path's shapes (phase_k_tiles): one band's 384x1920 slab of 1080p
-   park at mesh_tile_rows 4, the analysis search (n = 16, r = 16) and
-   the rect 8x8 sub-block search on the band's stacked reference, exact
-   and timed, and K2 at sizes 23 and 11 on the slab, exact;
-3. main path: a 2-frame (I P) 1920x1080 8-bit
+   1080p's; the same at the inter TU32 pre-pass's bit estimates (the
+   order tu32_sum_order gives its padded region count rp: the TU32 luma
+   at rp = 8, 16, 1024 and 2048, timed at 1080p's 1024 and 2048, the
+   chroma at 8 and 2048, the quads at 8192); RDOQ's group sums of its
+   chosen costs (lsum at n = 4 over each TB's groups, as cg_keep_kill
+   hands them) at the 1080p wavefront's B = 15 luma (timed) and chroma
+   and the pre-pass's TU32s and quads at rp = 2048, and cg_keep_kill's
+   keep and kill on the card equal to the CPU's; the tables
+   (phase_wavefront_tables): log_ref, log2_ref and the candidate rate's
+   multiply-add at every integer they take, lam2_ref at every QP and
+   depth, lam2_exp_ref at every QP and floor_log2_ref on 2.4 million
+   integers up to 2**24, on the card equal to the CPU's.  K1 and K2 at
+   the tile-row path's shapes (phase_k_tiles): one band's 384x1920 slab
+   of 1080p park at mesh_tile_rows 4, the analysis search (n = 16, r =
+   16) and the rect 8x8 sub-block search on the band's stacked
+   reference, exact and timed, and K2 at sizes 23 and 11 on the slab,
+   exact;
+3. main path (in the fourth worker, beside phases 4 and 7): a 2-frame
+   (I P) 1920x1080 8-bit
    4:2:0 clip (the `park` generator of tools/make_clips.py) through the
    port's Encoder on the card at the repo defaults (CQP 32, 4 B-frames
    with b-adapt 2 and the pyramid, open GOP, scenecut); checks the
    decode order I0 P1, that both kernels launched during the encode,
    and the recon quality; it prints its bits per picture beside those
-   of commit 479e61e's code (BASE_BITS) and whether they moved, as every
+   of commit fa44676's code (BASE_BITS) and whether they moved, as every
    encode phase does;
    prints seconds per I and P picture, the lookahead's trace spans,
    each kernel's launches split into lookahead, cuTree and analysis,
@@ -107,7 +117,7 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    10 and 12 bits: Main10 at the repo defaults (4 frames) with HDR10
    signalling, HDR10+ metadata and a Dolby Vision RPU file written
    under build/; Main10 CRF 28 + AQ 2 + cuTree under a 150 kbit /
-   150 kb/s VBV with HRD (6 frames; a picture must re-encode, and the
+   150 kb/s VBV with HRD (4 frames; a picture must re-encode, and the
    CPB model holds on the parsed timing SEIs), also through the CLI on
    a 10-bit y4m; 12-bit I P P.  Then BASELINE config 3 at 416x240 (10
    bits, --preset medium --bitrate 300 --rdoq-level 2 --b-pyramid,
@@ -129,16 +139,16 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    defaults (a B picture must occur).  Then an ABR ladder through the
    port's CLI (--abr-ladder, agree_ladder) on the card and on the CPU:
    a 416x240 master under CRF 28 + AQ 2 + --mcstf writing the cuTree
-   share and a 208x120 slave reading it, 10 frames (MCSTF at display 0
-   and 8); each rung's file must be byte-identical.  Then the batched
+   share and a 208x120 slave reading it, 5 frames (MCSTF at display
+   0); each rung's file must be byte-identical.  Then the batched
    and parallel entry points (agree_batched): bench.py's own point
    (416x240, QP 32, keyint 1, CTU 32, rd 2, SAO off), 16 frames through
    encode_intra_batched in batches of 8 (its fps printed for
    information); MultiStreamIntraEncoder with 4 streams x 2 steps, also
    equal to the four streams encoded one by one; MultiStreamEncoder
-   with 2 streams of 3 frames at the repo defaults, also equal to the
+   with 2 streams of 2 frames at the repo defaults, also equal to the
    two encoded alone (K1 / K2 launches by shape printed);
-   encode_gop_parallel on 8 frames in chunks of 4, and
+   encode_gop_parallel on 6 frames in chunks of 3, and
    ElasticGopEncoder with one injected WorkerFailure equal to it.
    Then frame-parallel B, the tile-row analysis and the mesh layer
    (agree_parallel): CRF 28 + AQ 2 + cuTree with --bframes 3 (pyramid,
@@ -152,7 +162,7 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    cases that follow them.  The phase runs in a thread beside phases 7
    and 8a, whose host thread leaves the other cores idle; their
    seconds per picture include its load;
-5. the rate-control path (in the third worker, below): the same 1080p
+5. the rate-control path (in the fourth worker, below): the same 1080p
    clip as phase 3, cut to 2
    frames (I P), under CRF 28 with AQ 2 and the cuTree
    lookahead (rc_lookahead at its default); prints, besides what phase
@@ -161,7 +171,7 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    spans and the launches split into lookahead, cuTree and analysis;
    checks the recon quality, the decode order I0 P1 and that the
    per-CTU QP map varies on at least one picture;
-6. the Main10 delivery path (last in the phase worker): phase 3's 2 frames
+6. the Main10 delivery path (last in the fourth worker): phase 3's 2 frames
    (I P) at 10 bits
    (park times 4 plus a seeded dither in [-2, 2])
    under CRF 28 + AQ 2 + cuTree, a
@@ -182,7 +192,8 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    blocks coded as rect PUs and the launches with the HME tier counted;
    fails on a decode order other than I0 P2 B1, a VBV underflow, no
    rect PU on any picture or a recon below 28 dB;
-8. the inter tools at full width (8a after phase 7, 8b after 10b),
+8. the inter tools at full width (8a in the fourth worker after phase
+   3, beside phases 4 and 7; 8b after 9b),
    1920x1080 park: 8a, 3 frames (I P B), `--preset
    veryslow --crf 24` as the CLI builds it (AMP, rect, star r = 32, 4
    references, subme 4, 8 B-frames, rc-lookahead 40), with each
@@ -193,8 +204,8 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    fails on a decode order other than I0 P2 B1 or a recon below 28 dB;
    8b also fails when the B slice carries no
    explicit weight;
-9. the residual-side options at full width (9b after 10a, 9a first in
-   the third worker): 9b 1080p park, 2 frames (I P), --lossless
+9. the residual-side options at full width (9b after 10a, 9a in the
+   third worker): 9b 1080p park, 2 frames (I P), --lossless
    (transquant bypass, no loop filters), with bits per picture; fails
    unless the card's recon equals the source in all three planes.  9a
    1080p park, 3 frames (I P B), --crf 24 --aq-mode 2 --nxn-intra
@@ -206,7 +217,7 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    decode order other than I0 P2 B1 or a recon below 28 dB.  Each
    prints what phase 3 prints;
 10. the 4:2:2 and 4:4:4 paths at full width (10a after phase 4, 10b
-   after 9b), 1080p park with its chroma brought to the format (rows,
+   first in the fourth worker after phase 4), 1080p park with its chroma brought to the format (rows,
    or rows and columns, repeated plus a seeded sigma = 1 noise), on the
    fixed-grid wavefront: 10a Main 4:2:2 10, 3 frames (I P B), --crf 24
    --aq-mode 2 with cuTree as the CLI builds it for a C422p10 y4m; 10b
@@ -230,10 +241,10 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    picture while the second took none (the reference's one-consumer
    ring), and K1 and K2 ran at MCSTF's shapes;
 12. the batched all-intra path at full width (first in the phase
-   worker): 4 frames of 1080p park at bench.py's operating point (QP
+   worker): 3 frames of 1080p park at bench.py's operating point (QP
    32, keyint 1, CTU 32, rd 2, SAO off, deblock on) through
-   encode_intra_batched(batch=2), whose second batch runs on the card
-   while the first one's entropy runs on the host, and through
+   encode_intra_batched(batch=2), whose second batch (one frame) runs on
+   the card while the first one's entropy runs on the host, and through
    encode_intra_pipelined.  Prints each run's seconds per frame, fps,
    `wavefront` spans, bits, PSNR-Y and peak memory, and the torch
    operations the batched wavefront dispatches on two frames against
@@ -253,12 +264,13 @@ checkout; imports neither JAX nor the JAX package.  Phases:
    decode order other than I0 P3 B1 B2, a recon below 28 dB, when
    no window of two jobs ran or the tile-row analysis did not.
 
-After phase 4 three card worker processes start: phase 11's, the
-phase worker (12, 13 and 6 in turn) and a third (9a, then 5); their
-output is printed when they all end.  This process meanwhile runs 10a,
-9b, 10b and 8b.  Each holds one host thread and leaves the card mostly
-idle, so the four overlap on the 8-core host; their seconds per
-picture include the others' load.
+A fourth card worker process starts with phases 4 and 7 and runs
+phases 3 and 8a beside them.  After phase 4 three more start: phase 11's,
+the phase worker (12, then 13) and a third (9a); the fourth goes on with
+10b, 5 and 6 in turn.  Their output is printed when they all end.  This
+process meanwhile runs 10a, 9b and 8b.  Each holds one host thread and
+leaves the card mostly idle, so the five overlap on the 8-core host;
+their seconds per picture include the others' load.
 
 Every stream of phases 3-13 is decoded with the port's own decoder in
 three worker processes on the host as each phase ends, while the card
@@ -1127,6 +1139,30 @@ K3_WAVEFRONT_SHAPES = tuple(
     for what, b in (("96x64", 1), ("416x240", 4), ("1080p", 15),
                     ("2160p", 30))
     for c, n in (("luma", 16), ("chroma", 8)))
+# K3 at the inter TU32 pre-pass's TB bit estimates (tb_bits_est in
+# ops.rdoq.tu32_sum_order's order for the padded region count rp): the
+# TU32 luma (n = 32, rp blocks; (8, 16) at rp = 8, (16, 32) above), the
+# chroma TU16s (n = 16, rp; (4, 12) at rp = 8) and the quad luma TU16s
+# (n = 16, 4 rp).  A 1080p picture has up to 33 x 60 regions: rp 1024
+# or 2048, timed (on the path of every P and B picture with a
+# region-uniform 32x32 area), as are the two orders of rp = 8 (pictures
+# of 8 such regions or fewer, e.g. 416x240).  (what, n, blocks, timed)
+K3_TU32_SHAPES = (("TU32 luma rp=8", 32, 8, True),
+                  ("TU32 luma rp=16", 32, 16, False),
+                  ("TU32 luma 1080p rp=1024", 32, 1024, True),
+                  ("TU32 luma 1080p rp=2048", 32, 2048, True),
+                  ("TU32 chroma rp=8", 16, 8, True),
+                  ("TU32 chroma 1080p rp=2048", 16, 2048, False),
+                  ("TU32 quad luma 1080p 4rp=8192", 16, 8192, False))
+# RDOQ's per-4x4-group sums of its chosen costs (ops.rdoq.cg_keep_kill:
+# lsum over each TB's (g, g) groups of 4 x 4): the wavefront's luma and
+# chroma TBs at 1080p (B = 15; timed: on the path of every RDOQ step)
+# and the TU32 pre-pass's TU32s and quads at rp = 2048.  (what, n,
+# blocks, timed)
+K3_RDOQ_SHAPES = (("RDOQ keep 1080p luma B=15", 16, 15, True),
+                  ("RDOQ keep 1080p chroma B=15", 8, 15, False),
+                  ("RDOQ keep TU32 rp=2048", 32, 2048, False),
+                  ("RDOQ keep TU32 quads 4rp=8192", 16, 8192, False))
 K3_LANE_RAGGED = ((32, 37, "ragged M"), (16, 1, "one block"),
                   (8, 1001, "ragged M"), (4, 999, "ragged M"))
 # The frames whose sums K3 takes in the smoke's phases, at the size the
@@ -1292,7 +1328,8 @@ def phase_k3(dev, rng, card: str, clock_hz: float):
                                                           lanes_sum_plain,
                                                           lsum, osum,
                                                           osum_plain)
-    from x265_mod_by_patman_tpu_torch.ops.rdoq import wavefront_sum_order
+    from x265_mod_by_patman_tpu_torch.ops.rdoq import (
+        cg_keep_kill, tu32_sum_order, wavefront_sum_order)
     res = {"max_abs_err": 0.0, "shapes": []}
 
     def held(what, got, ref):
@@ -1382,12 +1419,17 @@ def phase_k3(dev, rng, card: str, clock_hz: float):
               lambda xt=xt, n=n: lanes_sum_plain(xt, n),
               lambda x=x: fsum(x, (1, 2)), lambda x=x: x.sum((1, 2)),
               k3_bound_ms(n * n, m), lane_chain_adds(n), True)
-    for what, n, b, on_path in K3_WAVEFRONT_SHAPES:
-        lanes, span = wavefront_sum_order(n, b)
+    # the wavefront's and the TU32 pre-pass's TB bit estimates: the
+    # chained lane mode in each program's order, and the CG flag bits
+    chained_sites = [(what, n, b, on_path, "B", wavefront_sum_order(n, b))
+                     for what, n, b, on_path in K3_WAVEFRONT_SHAPES]
+    chained_sites += [(what, n, b, on_path, "M", tu32_sum_order(n, b))
+                      for what, n, b, on_path in K3_TU32_SHAPES]
+    for what, n, b, on_path, count, (lanes, span) in chained_sites:
         x = _k3_terms(rng, (b, n, n), dev, (1.0, 4.0, 20.0))
         xt = x.reshape(b, n * n).T.contiguous()
-        label = (f"chained lane mode {what} n={n} B={b} (lanes {lanes}, "
-                 f"span {span})")
+        label = (f"chained lane mode {what} n={n} {count}={b} (lanes "
+                 f"{lanes}, span {span})")
         held(label, ordered_sum_chained(x, n, lanes, span),
              chain_sum_plain(xt, n, lanes, span))
         v = _k3_terms(rng, (2 * b, n, n), dev, (1.0, 4.0, 20.0))[::2]
@@ -1405,6 +1447,36 @@ def phase_k3(dev, rng, card: str, clock_hz: float):
                   lambda xt=xt: chain_sum_plain(xt, n, lanes, span),
                   lambda x=x: fsum(x, (1, 2)), lambda x=x: x.sum((1, 2)),
                   k3_bound_ms(n * n, b), chain_adds(n, lanes, span), True)
+    for what, n, b, on_path in K3_RDOQ_SHAPES:
+        # (B, n, n) costs and levels' scaled coefficients; the groups as
+        # cg_keep_kill hands them to lsum, and its kill on the card (the
+        # contracted squares in float64) against the CPU's
+        g = n // 4
+        cost = _k3_terms(rng, (b, n, n), dev, (0.1, 1.0, 10.0))
+        groups = cost.reshape(b, g, 4, g, 4).permute(0, 1, 3, 2, 4)
+        blocks = groups.reshape(b * g * g, 4, 4)
+        label = f"lane mode {what} n=4 M={b * g * g} (groups of (B, n, n))"
+        held(label, lsum(groups).reshape(-1), lanes_sum_plain(
+            blocks.reshape(-1, 16).T.contiguous(), 4))
+        cs = _k3_terms(rng, (b, n, n), dev, (0.5, 5.0, 50.0))
+        k = torch.full((b,), 0.12, dtype=torch.float32, device=dev)
+        save = _k3_terms(rng, (b,), dev, (0.5, 1.0, 2.0))
+        for contract in (False, True):
+            on_card = cg_keep_kill(cost, cs, k, save, contract)
+            on_cpu = cg_keep_kill(cost.cpu(), cs.cpu(), k.cpu(), save.cpu(),
+                                  contract)
+            for name, a, c in zip(("keep", "kill"), on_card, on_cpu):
+                held(f"{what} cg_keep_kill {name} (contract {contract}), "
+                     f"card against CPU", a.cpu(), c)
+        if on_path:
+            bt = blocks.contiguous()
+            bxt = bt.reshape(-1, 16).T.contiguous()
+            timed(label, lambda bt=bt: ordered_sum_lanes(bt, 4),
+                  lambda groups=groups: lsum(groups),
+                  lambda bxt=bxt: lanes_sum_plain(bxt, 4),
+                  lambda groups=groups: fsum(groups, (3, 4)),
+                  lambda groups=groups: groups.sum((3, 4)),
+                  k3_bound_ms(16, b * g * g), lane_chain_adds(4), True)
     return res
 
 
@@ -1419,8 +1491,10 @@ def phase_wavefront_tables(dev) -> None:
     """The wavefront's tables on the card against the CPU's, exact:
     log_ref and log2_ref at every integer they take (1 to LOG_REF_MAX),
     the candidate rate's multiply-add on log_ref (fma32, float64 on the
-    card), and lam2_ref at every QP it takes at 8, 10 and 12 bits.  A
-    mismatch fails the run."""
+    card), lam2_ref at every QP it takes at 8, 10 and 12 bits,
+    lam2_exp_ref at every QP and floor_log2_ref (RDOQ's and the bit
+    estimates' floor) on 2.4 million integers up to 2**24.  A mismatch
+    fails the run."""
     from x265_mod_by_patman_tpu_torch.ops import numeric
     x = torch.arange(1, numeric.LOG_REF_MAX + 1, dtype=torch.float32)
     q = torch.arange(numeric.LAM2_REF_QPS[0],
@@ -1433,6 +1507,15 @@ def phase_wavefront_tables(dev) -> None:
     checks += [(f"lam2_ref {bd}-bit",
                 lambda t, bd=bd: numeric.lam2_ref(t, bd), q)
                for bd in (8, 10, 12)]
+    # the TU32 choice's 2**x, and the level bits' floor of log2 over the
+    # integers 1..2**24 it takes (every 7th, and each run it departs on)
+    wide = torch.cat([torch.arange(1, 1 << 24, 7, dtype=torch.float32),
+                      torch.tensor([float(v) for lo, hi, _ in
+                                    numeric._FLOOR_LOG2_DEPARTS
+                                    for v in range(lo - 1, hi + 2)])])
+    checks += [("lam2_exp_ref", lambda t: numeric.lam2_exp_ref(t), q),
+               ("floor_log2_ref", lambda t: numeric.floor_log2_ref(t),
+                wide)]
     for what, fn, arg in checks:
         card, cpu = fn(arg.to(dev)).cpu(), fn(arg)
         err = float((card.double() - cpu.double()).abs().max())
@@ -1544,11 +1627,12 @@ def drive(enc, frames):
                 peak=torch.cuda.max_memory_allocated())
 
 
-# Each phase's bits per picture as commit 479e61e's code codes them (its
-# chip_smoke.py from `git archive 479e61e`, run on NVIDIA H100 80GB HBM3
-# at 700.00 W beside this tree's in one chip call), keyed by the phase's
-# label, in decode order.  The wavefront's float32 decisions follow the
-# reference's compiled program since; bits_beside_base prints each
+# Each phase's bits per picture as commit fa44676's code codes them,
+# keyed by the phase's label, in decode order: recorded from commit
+# 479e61e's chip_smoke.py on NVIDIA H100 80GB HBM3 at 700.00 W, and
+# fa44676's smoke coded the same bits in every phase and picture on that
+# card.  The inter TU32 pre-pass's and RDOQ's float32 decisions follow
+# the reference's compiled program since; bits_beside_base prints each
 # phase's bits beside these and says whether the phase moved.
 BASE_BITS = {
     'main path 1920x1080 at the repo defaults':
@@ -1574,9 +1658,9 @@ BASE_BITS = {
      '--no-scenecut'):
         (403712, 38440, 28360),
     'phase 12 batched':
-        (459680, 464520, 442192, 450712),
+        (459680, 464520, 442192),
     'phase 12 pipelined':
-        (459680, 464520, 442192, 450712),
+        (459680, 464520, 442192),
     ('frame-parallel and tile-row path 1920x1080, CRF 28, AQ 2, '
      'cuTree, --bframes 2 --no-b-pyramid --frame-threads 3, '
      'mesh_tile_rows 4'):
@@ -1600,11 +1684,11 @@ def bits_beside_base(what: str, bits) -> None:
     bits = [int(b) for b in bits]
     ref = BASE_BITS.get(what)
     if ref is None:
-        print(f"bits against 479e61e, {what}: {bits}; not recorded")
+        print(f"bits against fa44676, {what}: {bits}; not recorded")
         return
     moved = [i for i in range(max(len(bits), len(ref)))
              if i >= len(bits) or i >= len(ref) or bits[i] != ref[i]]
-    print(f"bits against 479e61e, {what}: {bits} beside {list(ref)}: "
+    print(f"bits against fa44676, {what}: {bits} beside {list(ref)}: "
           + (f"moved at pictures {moved}" if moved else "held"))
 
 
@@ -2187,10 +2271,11 @@ BENCH_KW = dict(qp=32, keyframe_max=1, ctu_size=32, rd_level=2, sao=False,
                 deblock=True)
 
 
-def phase_intra_batched(dev, w=1920, h=1080, n=4):
+def phase_intra_batched(dev, w=1920, h=1080, n=3):
     """Phase 12: the batched all-intra path at full width.  The same n
-    park frames through encode_intra_batched(batch=2) (two batches: the
-    first batch's entropy runs while the second is on the card) and
+    park frames through encode_intra_batched(batch=2) (two batches, of 2
+    and 1: the first batch's entropy runs while the second is on the
+    card) and
     through encode_intra_pipelined (frame by frame); the two streams must
     be byte-identical.  Prints each run's seconds per frame, fps,
     `wavefront` spans and peak memory, and the torch operations the
@@ -2250,16 +2335,11 @@ def phase_intra_batched(dev, w=1920, h=1080, n=4):
           f"{statistics.mean(p_['wf']):.3f} s; fps batched "
           f"{n / b['total']:.3f}, pipelined {n / p_['total']:.3f}")
     # the batched wavefront on one frame against it on two, the torch
-    # operations each dispatches counted (one path: run() also builds
-    # the zero MC planes and runs the skip test that run_batch leaves out)
+    # operations each dispatches counted
     enc = Encoder(default_params(w, h, **BENCH_KW), dev)
     pad = enc._pad_yuv(frames[:2])
     ys, us, vs = (np.stack([f[c] for f in pad]) for c in range(3))
     modes = decide_modes_rd_multi(ys, enc.sps, 32, dev)
-    with _OpCount() as frame:
-        enc.recon.run(ys[0], us[0], vs[0], modes[0].cpu().numpy(), qp=32,
-                      materialize=False)
-    torch.cuda.synchronize()
     with _OpCount() as one:
         enc.recon.run_batch(ys[:1], us[:1], vs[:1], modes[:1], qp=32,
                             materialize=False)
@@ -2268,8 +2348,7 @@ def phase_intra_batched(dev, w=1920, h=1080, n=4):
         enc.recon.run_batch(ys, us, vs, modes, qp=32, materialize=False)
     torch.cuda.synchronize()
     print(f"phase 12 wavefront torch operations: run_batch on one frame "
-          f"{one.n}, on two frames {two.n} ({two.n / one.n:.3f}x); run() "
-          f"on one frame {frame.n}")
+          f"{one.n}, on two frames {two.n} ({two.n / one.n:.3f}x)")
     if two.n > 1.5 * one.n:
         raise AssertionError("phase 12: the batched wavefront dispatches "
                              f"{two.n / one.n:.2f}x one frame's operations")
@@ -2430,7 +2509,7 @@ RC_AGREE = ((6, (("crf", "28"), ("aq-mode", "2"), ("rc-lookahead", "4"))),
 # the Main10 delivery case at 416x240: CRF + AQ 2 + cuTree under a VBV cap
 # low enough that the I picture re-encodes, with HRD timing; also run
 # through the CLI on a 10-bit y4m on the card
-MAIN10_AGREE = (6, (("crf", "28"), ("aq-mode", "2"), ("rc-lookahead", "4"),
+MAIN10_AGREE = (4, (("crf", "28"), ("aq-mode", "2"), ("rc-lookahead", "4"),
                     ("vbv-bufsize", "150"), ("vbv-maxrate", "150"),
                     ("hrd", "")))
 # HDR10 signalling (phases 4 and 6)
@@ -2706,8 +2785,8 @@ def _entry_encode(kind, params, frames, device):
     launches by shape.  kinds: "intra_batched" (batches of 8),
     "multistream_intra" (frames: per step one frame per stream),
     "multistream" (frames: per stream its frames), "single" (frames: per
-    stream its frames, each encoded alone), "gop" (chunks of 4) and
-    "elastic" (chunks of 4, two workers, the first dispatch of a later
+    stream its frames, each encoded alone), "gop" (chunks of 3) and
+    "elastic" (chunks of 3, two workers, the first dispatch of a later
     chunk preempted); and "sharded_step" (parallel/mesh.py's step on a
     4-shard mesh: its modes, levels and two totals in place of
     streams)."""
@@ -2743,7 +2822,7 @@ def _entry_encode(kind, params, frames, device):
     elif kind == "single":
         outs = [encode_closed(params, f, device)[1] for f in frames]
     elif kind == "gop":
-        outs = [gop.encode_gop_parallel(params, frames, 4, device)[1]]
+        outs = [gop.encode_gop_parallel(params, frames, 3, device)[1]]
     else:
         failed = []
 
@@ -2754,7 +2833,7 @@ def _entry_encode(kind, params, frames, device):
             return elastic.default_worker(p, chunk, first, device)
 
         data, report = elastic.ElasticGopEncoder(
-            params, chunk_len=4, workers=2, max_retries=2,
+            params, chunk_len=3, workers=2, max_retries=2,
             worker_fn=preempted).encode(frames)
         if sum(report["retries"].values()) != 1:
             raise AssertionError(f"elastic: retries {report['retries']}")
@@ -2788,9 +2867,9 @@ def agree_batched(pools, w: int, h: int, checks):
     points, card against CPU: bench.py's own point (416x240, QP 32,
     keyint 1, CTU 32, rd 2, SAO off) over 16 frames in batches of 8;
     MultiStreamIntraEncoder with 4 streams x 2 steps, equal to the four
-    streams encoded one by one; MultiStreamEncoder with 2 streams of 3
+    streams encoded one by one; MultiStreamEncoder with 2 streams of 2
     frames at the repo defaults, equal to the two encoded alone;
-    encode_gop_parallel on 8 frames in chunks of 4, and
+    encode_gop_parallel on 6 frames in chunks of 3, and
     ElasticGopEncoder with one injected WorkerFailure equal to it."""
     from x265_mod_by_patman_tpu_torch.params import default_params
     bench = default_params(w, h, **BENCH_KW)
@@ -2814,9 +2893,9 @@ def agree_batched(pools, w: int, h: int, checks):
     for i in range(4):
         DECODES.submit(f"multistream intra stream {i}", s_ms[i], pics[i])
     dflt = default_params(w, h)
-    two = [park_frames(w, h, 3 + 2 * i)[2 * i:] for i in range(2)]
+    two = [park_frames(w, h, 2 + 2 * i)[2 * i:] for i in range(2)]
     s_m, pics, by_shape, _t = _agree_entry(pools, "multistream", dflt, two,
-                                           f"{w}x{h} 2 streams x 3 "
+                                           f"{w}x{h} 2 streams x 2 "
                                            "MultiStreamEncoder")
     print("MultiStreamEncoder " + shapes_line(by_shape))
     alone = pools.card.submit(_entry_encode, "single", dflt, two,
@@ -2828,9 +2907,9 @@ def agree_batched(pools, w: int, h: int, checks):
     for i in range(2):
         DECODES.submit(f"multistream stream {i}", s_m[i], pics[i])
     gop_p = default_params(w, h, bframes=2)
-    frames = park_frames(w, h, 8)
+    frames = park_frames(w, h, 6)
     s_g, pics, _b, _t = _agree_entry(pools, "gop", gop_p, frames,
-                                     f"{w}x{h} x8 encode_gop_parallel(4)")
+                                     f"{w}x{h} x6 encode_gop_parallel(3)")
     DECODES.submit("encode_gop_parallel", s_g[0], pics[0])
     s_e = pools.card.submit(_entry_encode, "elastic", gop_p, frames,
                             "cuda").result()[0]
@@ -3021,7 +3100,7 @@ def agree_deep(pools, w: int, h: int, checks):
     """Phase 4's 10- and 12-bit cases, cuda against cpu: Main10 at the
     repo defaults (CQP, 4 frames) with HDR10 signalling, HDR10+ metadata
     and a Dolby Vision RPU file written under build/; Main10 CRF 28 +
-    AQ 2 + cuTree under a 150 kbit / 150 kb/s VBV with HRD (6 frames;
+    AQ 2 + cuTree under a 150 kbit / 150 kb/s VBV with HRD (4 frames;
     a picture must re-encode), also through the CLI on a 10-bit y4m;
     and 12-bit I P P."""
     from x265_mod_by_patman_tpu_torch.params import default_params
@@ -3349,14 +3428,14 @@ def write_y4m(path: str, frames, bit_depth: int = 8,
 
 
 # phase 4's ladder: the master's and the slave's size and options
-LADDER_AGREE = (10, ((416, 240, "--crf 28 --aq-mode 2 --mcstf"),
+LADDER_AGREE = (5, ((416, 240, "--crf 28 --aq-mode 2 --mcstf"),
                      (208, 120, "--crf 28 --aq-mode 0")))
 
 
 def agree_ladder(pools, w: int, h: int, checks):
     """Phase 4's ABR ladder through the port's CLI (--abr-ladder), on the
-    card and on the CPU in worker processes: park at 416x240, 10 frames
-    (MCSTF at strength 1.5 on display 0 and 0.95 on display 8), the
+    card and on the CPU in worker processes: park at 416x240, 5 frames
+    (MCSTF at strength 1.5 on display 0), the
     master under CRF 28 + AQ 2 + --mcstf writing the cuTree share, a
     208x120 slave under CRF 28 reading it.  Each rung's .hevc must be
     byte-identical between cuda and cpu.  Each side has its own ring;
@@ -3525,23 +3604,27 @@ def run_phases(dev, rng, cap: str, clock: float):
     phase_wavefront_tables(dev)
     print(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
     counts = {}
-    t0 = time.perf_counter()
-    counts["cqp_defaults"] = phase_main(dev)
-    print(f"phase 3 main path: {time.perf_counter() - t0:.2f} s")
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    # phases 3 and 8a run in turn in a fourth worker beside phases 4 and
+    # 7, which start at once (phase 7's long host decode then ends
+    # early); the worker goes on with FOURTH_WORKER_PHASES after phase 4
+    fourth_ex = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=ctx, initializer=_phase_worker_init,
+        initargs=("fourth",))
     t4 = time.perf_counter()
+    beside = [fourth_ex.submit(_phases_in_worker, (ph,))
+              for ph in BESIDE_PHASE4]
+    for fut in beside:
+        fut.add_done_callback(_decode_worker_streams)
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
         agree = ex.submit(phase_agree)
         t0 = time.perf_counter()
         counts["uhd_slow"] = phase_uhd(dev)
         print(f"phase 7 UHD slow path: {time.perf_counter() - t0:.2f} s")
-        t0 = time.perf_counter()
-        counts["veryslow"] = phase_veryslow(dev)
-        print(f"phase 8a veryslow path: {time.perf_counter() - t0:.2f} s")
         t_agree = agree.result()
-    print(f"phase 4 agreement: {t_agree:.2f} s (beside phases 7 and 8a; "
-          f"the three took {time.perf_counter() - t4:.2f} s)")
-    import multiprocessing
-    ctx = multiprocessing.get_context("spawn")
+    print(f"phase 4 agreement: {t_agree:.2f} s (beside phases 7, 3 and "
+          f"8a; the four took {time.perf_counter() - t4:.2f} s)")
     ladder_ex = concurrent.futures.ProcessPoolExecutor(
         max_workers=1, mp_context=ctx, initializer=_card_worker_init)
     phase_ex = concurrent.futures.ProcessPoolExecutor(
@@ -3551,32 +3634,35 @@ def run_phases(dev, rng, cap: str, clock: float):
         initargs=("third",))
     try:
         counts.update(run_beside_ladder(dev, ladder_ex, phase_ex, third_ex,
-                                        res))
+                                        fourth_ex, beside, res))
     finally:
-        for ex in (ladder_ex, phase_ex, third_ex):
+        for ex in (ladder_ex, phase_ex, third_ex, fourth_ex):
             ex.shutdown(cancel_futures=True)
     return counts, res, sea
 
 
-# the phases after phase 4, in four processes that each hold one host
+# the phases after phase 4, in five processes that each hold one host
 # thread and leave the card mostly idle: phase 11 in its own card worker,
-# these two lists in two phase workers (each in turn) and MAIN_PHASES in
-# this process, in about equal seconds.  Each phase hands its streams to
-# the host decode as it ends, and the phase that ends each list is one
-# whose decode is short.  (key in the kernels line's launches_by_path,
-# function, label)
+# these three lists in three phase workers (each in turn; the fourth
+# worker has run phases 3 and 8a, BESIDE_PHASE4, beside phases 4 and 7)
+# and MAIN_PHASES in this process, in about equal seconds.  Each phase
+# hands its streams to the host decode as it ends, and the phase that
+# ends each list is one whose decode is short.  (key in the kernels
+# line's launches_by_path, function, label)
+BESIDE_PHASE4 = (("cqp_defaults", "phase_main", "3 main path"),
+                 ("veryslow", "phase_veryslow", "8a veryslow path"))
 WORKER_PHASES = (("intra_batched", "phase_intra_batched",
                   "12 1080p all-intra batched path"),
                  ("frame_parallel_tiles", "phase_parallel",
-                  "13 frame-parallel B and tile-row path"),
-                 ("main10_vbv_hrd", "phase_main10",
-                  "6 Main10 delivery path"))
-THIRD_WORKER_PHASES = (("residual", "phase_residual", "9a residual path"),
-                       ("crf_aq_cutree", "phase_rc",
-                        "5 rate-control path"))
+                  "13 frame-parallel B and tile-row path"))
+THIRD_WORKER_PHASES = (("residual", "phase_residual", "9a residual path"),)
+FOURTH_WORKER_PHASES = (("chroma444", "phase_chroma444", "10b 4:4:4 path"),
+                        ("crf_aq_cutree", "phase_rc",
+                         "5 rate-control path"),
+                        ("main10_vbv_hrd", "phase_main10",
+                         "6 Main10 delivery path"))
 MAIN_PHASES = (("chroma422_10bit", "phase_chroma422", "10a 4:2:2 10-bit"),
                ("lossless", "phase_lossless", "9b lossless"),
-               ("chroma444", "phase_chroma444", "10b 4:4:4"),
                ("weightb_sea", "phase_weightb_sea", "8b weightb/SEA"))
 
 
@@ -3638,21 +3724,28 @@ def _decode_worker_streams(fut):
             DECODES.submit(what, stream, pics)
 
 
-def run_beside_ladder(dev, ladder_ex, phase_ex, third_ex, res):
-    """Phase 11 in one card worker process, WORKER_PHASES in a second and
-    THIRD_WORKER_PHASES in a third (each in turn, one future per phase so
-    that its streams go to the host decode as it ends), beside
-    MAIN_PHASES in this process.  Returns the launch counts per path."""
+def run_beside_ladder(dev, ladder_ex, phase_ex, third_ex, fourth_ex,
+                      beside, res):
+    """Phase 11 in one card worker process, WORKER_PHASES in a second,
+    THIRD_WORKER_PHASES in a third and FOURTH_WORKER_PHASES in a fourth
+    after its BESIDE_PHASE4 (the futures `beside`; each in turn, one
+    future per phase so that its streams go to the host decode as it
+    ends), beside MAIN_PHASES in this process.  Returns the launch
+    counts per path."""
     counts = {}
     t11 = time.perf_counter()
     ladder = phase_ladder_start(ladder_ex)
     workers = []
     for what, ex, phases in (("the phase worker", phase_ex, WORKER_PHASES),
                              ("the third worker", third_ex,
-                              THIRD_WORKER_PHASES)):
+                              THIRD_WORKER_PHASES),
+                             ("the fourth worker", fourth_ex,
+                              FOURTH_WORKER_PHASES)):
         futs = [ex.submit(_phases_in_worker, (ph,)) for ph in phases]
         for fut in futs:
             fut.add_done_callback(_decode_worker_streams)
+        if ex is fourth_ex:
+            futs[:0] = beside
         workers.append((what, futs))
 
     def ladder_done():
@@ -3689,6 +3782,7 @@ def run_beside_ladder(dev, ladder_ex, phase_ex, third_ex, res):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
@@ -3726,6 +3820,7 @@ def main() -> int:
         DECODES.finish()
     finally:
         DECODES.pool.shutdown(cancel_futures=True)
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.2f} s")
     src = {"full_search": ("full_search.cu", "x265_mod_by_patman_tpu/ops/"
                            "pallas/sad.py:67"),
            "window_gather": ("window_gather.cu", "x265_mod_by_patman_tpu/"

@@ -449,7 +449,8 @@ def test_ordered_sum_lanes_equals_plain(dev, n, m):
 
 @pytest.mark.parametrize("n,lanes,span,m", [
     (8, 8, 8, 8160), (8, 4, 8, 8160), (16, 8, 8, 8160), (16, 8, 16, 8160),
-    (32, 8, 32, 2040), (8, 4, 8, 1)])
+    (32, 8, 32, 2040), (8, 4, 8, 1), (16, 4, 12, 8), (32, 8, 16, 8),
+    (32, 16, 32, 2048), (32, 16, 32, 37)])
 def test_ordered_sum_chained_equals_plain(dev, n, lanes, span, m):
     """K3's chained lane mode against chain_sum_plain on the card: the
     same float32 bits, one launch counted under ordered_sum."""

@@ -262,7 +262,14 @@ def _before_cost(lev, sse, qp, cb):
     al = torch.abs(lev).to(torch.float32)
     l2 = torch.log2(al.to(torch.float64) + 1.0).to(torch.float32)
     rate = numeric.fsum(torch.where(al > 0.0, 3.0 + 2.0 * l2, 0.0), (1, 2))
-    return sse + numeric.lam2_f32(qp) * (rate + cb)
+    return sse + _lam2_f64_rounded(qp) * (rate + cb)
+
+
+def _lam2_f64_rounded(qp):
+    """The port's earlier lambda: 0.85 * 2**((qp - 12) / 3) with 2**x in
+    float64, rounded once, then times 0.85 in float32."""
+    q = (qp.to(torch.float32) - 12.0) / 3.0
+    return 0.85 * torch.exp2(q.to(torch.float64)).to(torch.float32)
 
 
 @pytest.mark.parametrize("site", ["log", "fma", "rate-term", "candidates-1",
@@ -368,3 +375,171 @@ def test_wavefront_float32_follows_the_reference(site):
     first_min = np.argmin(got, axis=1)          # ties to the first
     np.testing.assert_array_equal(first_min, sel)
     assert (before != costs).any()
+
+
+# -- the inter TU32 pre-pass's float32 decision values -----------------------
+# jit(_tu32_core) pads its region batch to rp = 8, 16, 32, ... regions, and
+# its CPU backend compiles the pre-pass per rp.  Each program below holds
+# one site of it in a program whose fusion at that site was checked
+# (XLA_FLAGS=--xla_dump_to, objdump -d of the fusions' object files)
+# against jit(_tu32_core)'s at the same rp: the lambda's exp fusion is
+# the same object code at every rp 8 to 2048, the choice's and the costs'
+# fusions contract the same products (vfmadd) in the same order, and the
+# bit estimate's coefficient-sum loop is the same loop nest (the same
+# strips, vector widths and reductions in the LLVM IR).
+
+@jax.jit
+def _tu32_lambda(qp):
+    """The pre-pass's 2**((qp - 12) / 3) (inter_tu32.py:57, :118), which
+    its program multiplies by 0.85 once per use."""
+    return jnp.exp2((qp.astype(jnp.float32) - 12.0) / 3.0)
+
+
+@jax.jit
+def _tu32_choice(cost32, c16, e):
+    """The pre-pass's TU32 choice (inter_tu32.py:117-122) from the
+    lambda's 2**x (_tu32_lambda, the pre-pass's separate exp fusion):
+    -> (cost16 + lam2 * 3.0, use32)."""
+    cost16 = c16.reshape(-1, 4).sum(1)
+    lam2 = 0.85 * e * 1
+    thr = cost16 + lam2 * 3.0
+    return thr, cost32 <= thr
+
+
+@functools.partial(jax.jit, static_argnums=(8,))
+def _tu32_costs(sse_skip, sse_coded, nz, est, qp, psy_skip, psy_coded,
+                init_type, luma):
+    """The pre-pass's zero-residual costs (_plane_rd at inter_tu32.py:
+    57-86, psy 512) from its SSEs, nonzero counts, bit estimates and psy
+    costs: -> (cost_skip, cost_coded)."""
+    lam2 = 0.85 * jnp.exp2((qp.astype(jnp.float32) - 12.0) / 3.0) * 1
+    if luma:
+        nzf = nz.astype(jnp.float32)
+        lin = jnp.where(nzf > 0.0, 10.0, 0.0) + 4.5 * nzf
+        bits = 6.0 + jnp.maximum(lin, est)
+    else:
+        bits = 2.0 + est
+    cost_skip = sse_skip.astype(jnp.float32)
+    cost_coded = sse_coded.astype(jnp.float32) + lam2 * bits
+    if luma:
+        styp = jnp.asarray([300.0, 256.0, 96.0], jnp.float32)[
+            jnp.clip(init_type, 0, 2)] / 256.0
+        qpf = qp.astype(jnp.float32)
+        roll = jnp.where(qpf >= 40.0,
+                         jnp.clip((51.0 - qpf) * 23.0 / 256.0, 0.0, 1.0),
+                         1.0)
+        psy_w = jnp.sqrt(lam2) * (jnp.int32(512).astype(jnp.float32)
+                                  / 256.0) * 0.33 * styp * roll
+        cost_skip = cost_skip + psy_w * psy_skip.astype(jnp.float32)
+        cost_coded = cost_coded + psy_w * psy_coded.astype(jnp.float32)
+    return cost_skip, cost_coded
+
+
+@functools.partial(jax.jit, static_argnums=(5, 6))
+def _tu32_bits(levt, levt2, qp, tab, thr, log2n, c_idx):
+    """The pre-pass's TB bit estimates of two planes whose levels it holds
+    position-major, (n * n, B), as its quantiser leaves them; the two
+    estimates share the rate tables, which the program then stores once,
+    as jit(_tu32_core) stores each plane's.  -> ((estimates, compares)
+    of levt, of levt2), all four returned so that both planes stay in the
+    program."""
+    n, b = 1 << log2n, levt.shape[1]
+    out = []
+    for lt, ci in ((levt, c_idx), (levt2, 2 if c_idx else 0)):
+        est = jtu.tb_bits_est(lt.T.reshape(b, n, n), qp, log2n, ci,
+                              jnp.int32(1), bits_table=tab)
+        out.append((est, thr <= 2.0 + est))
+    return out
+
+
+@pytest.mark.parametrize("site,rp", [
+    (s, rp) for s in ("lambda", "choice", "costs", "bits-32", "bits-quads",
+                      "bits-chroma") for rp in (8, 16)])
+def test_tu32_float32_follows_the_reference(site, rp):
+    """The inter TU32 pre-pass's float32 values bit for bit against the
+    reference's, in programs compiled at the pre-pass's padded batch rp:
+    lambda: lam2_exp_ref / lam2_ref at every QP 0-51 (the port's earlier
+    float64 2**x differs at QP 32); choice: use32_choice at costs on
+    either side of the reference's cost16 + lam2 * 3.0 within an ulp;
+    costs: skip_costs with lam2_ref and the folded psy weight, for P and
+    B slices; bits: tb_bits_est in tu32_sum_order's order for the TU32
+    luma (n = 32, rp blocks), the quad luma (n = 16, 4 rp) and the chroma
+    (n = 16, rp), levels of 8197 among them (the one-short floor), where
+    the pairwise sums differ."""
+    rng = np.random.default_rng(rp + len(site))
+    t = torch.from_numpy
+    qps = np.arange(52, dtype=np.int32)
+    batches = [np.resize(np.roll(qps, -i), rp) for i in range(0, 52, rp)]
+    if site == "lambda":
+        for q in batches:
+            e = np.asarray(_tu32_lambda(q))
+            np.testing.assert_array_equal(numeric.lam2_exp_ref(t(q)).numpy(),
+                                          e)
+            lam2 = (e * np.float32(0.85)).astype(np.float32)
+            np.testing.assert_array_equal(numeric.lam2_ref(t(q)).numpy(),
+                                          lam2)
+            np.testing.assert_array_equal(
+                numeric.lam2_ref(t(q), 10).numpy(), lam2 * 16)
+        q32 = torch.tensor([32])
+        assert _lam2_f64_rounded(q32) != numeric.lam2_ref(q32)
+        return
+    if site == "choice":
+        for q in batches:
+            c16 = (rng.random((rp, 4)) * 3e5).astype(np.float32)
+            e = _tu32_lambda(q)
+            thr, _ = (np.asarray(a) for a in _tu32_choice(
+                np.zeros(rp, np.float32), c16, e))
+            for c32 in (thr, np.nextafter(thr, np.float32(np.inf)),
+                        np.nextafter(thr, np.float32(-np.inf))):
+                _, use = _tu32_choice(c32, c16, e)
+                got = ttu.use32_choice(t(c32), t(c16), t(q), 8)
+                np.testing.assert_array_equal(got.numpy(), np.asarray(use))
+        return
+    if site == "costs":
+        for it in (0, 1):
+            for luma, b in ((True, rp), (True, 4 * rp), (False, rp)):
+                for q in batches:
+                    q = np.resize(q, b)
+                    sse_s = rng.integers(0, 400000, b).astype(np.int32)
+                    sse_c = (sse_s * rng.uniform(0.2, 1.0, b)).astype(
+                        np.int32)
+                    nz = rng.integers(0, 60, b).astype(np.int32)
+                    est = (rng.random(b) * 400).astype(np.float32)
+                    ps = rng.integers(0, 30000, b).astype(np.int32)
+                    pc = rng.integers(0, 30000, b).astype(np.int32)
+                    cs, cc = (np.asarray(a) for a in _tu32_costs(
+                        sse_s, sse_c, nz, est, q, ps, pc, jnp.int32(it),
+                        luma))
+                    lam2 = numeric.lam2_ref(t(q))
+                    if luma:
+                        lin = torch.where(t(nz) > 0, 10.0, 0.0) \
+                            + 4.5 * t(nz).to(torch.float32)
+                        bits = 6.0 + torch.maximum(lin, t(est))
+                        psy = (psy_weight(lam2, 512, it, t(q), folded=True),
+                               t(ps), t(pc))
+                    else:
+                        bits, psy = 2.0 + t(est), None
+                    got = skip_costs(t(sse_s), t(sse_c), bits, lam2, psy)
+                    np.testing.assert_array_equal(got[0].numpy(), cs)
+                    np.testing.assert_array_equal(got[1].numpy(), cc)
+        return
+    log2n, c_idx, b = {"bits-32": (5, 0, rp), "bits-quads": (4, 0, 4 * rp),
+                       "bits-chroma": (4, 1, rp)}[site]
+    n = 1 << log2n
+    tab = bits_table_from_states(init_states(1, 30)).astype(np.float32)
+    for _ in range(3):
+        lev = np.where(rng.random((2, b, n, n)) < 0.5,
+                       rng.integers(-3000, 3001, (2, b, n, n)),
+                       0).astype(np.int32)
+        lev[:, :, 0, 0] = np.where(rng.random((2, b)) < 0.3, 8197, 5)
+        q = rng.integers(22, 40, b).astype(np.int32)
+        lt = [np.ascontiguousarray(a.reshape(b, n * n).T) for a in lev]
+        exp = np.asarray(_tu32_bits(lt[0], lt[1], q, tab,
+                                    np.zeros(b, np.float32), log2n,
+                                    c_idx)[0][0])
+        args = (t(lev[0]), t(q), log2n, c_idx, 1)
+        got = ttu.tb_bits_est(*args, bits_table=t(tab),
+                              order=ttu.tu32_sum_order(n, b))
+        np.testing.assert_array_equal(got.numpy(), exp)
+        pairwise = ttu.tb_bits_est(*args, bits_table=t(tab))
+        assert (pairwise.numpy() != exp).any()

@@ -27,12 +27,14 @@
 //           first term; the 8 lanes add as a tree (j with j + 4, then
 //           j + 2, then 1), which gives the new running sum.
 // The n >= 16 order is one case of the chained lane mode
-// (ordered_sum_chain_launch): W lanes (4 or 8) per row, lane j summing
+// (ordered_sum_chain_launch): W lanes (4, 8 or 16) per row, lane j summing
 // the row's terms j, j + W, ... below column V after the running sum is
 // added into lane 0's first term, the W lanes as a halving tree, then
 // the row's terms V..n-1 one by one.  The reference's wavefront sums its
 // TB bit estimates so, W and V set by its vectorisation: (W, V) = (8, 8)
-// or (4, 8) at n = 8, (8, 8) or (8, 16) at n = 16 (ops.rdoq).
+// or (4, 8) at n = 8, (8, 8) or (8, 16) at n = 16 (ops.rdoq); its inter
+// TU32 pre-pass (4, 12) or (8, 16) at n = 16 and (8, 16) or (16, 32) at
+// n = 32.
 // Every add is __fadd_rn: no contraction into an FMA, no reassociation,
 // no atomics; the bits equal ops.numeric.osum_plain / lanes_sum_plain /
 // chain_sum_plain.
@@ -414,7 +416,8 @@ extern "C" int ordered_sum_lanes_launch(const void* x, void* out, int n,
 }
 
 // The chained lane mode: x block 0's term (0, 0); (n, w, v) one of (8, 8,
-// 8), (8, 4, 8), (16, 8, 8), (16, 8, 16), (32, 8, 32); sb, sr, sc: block,
+// 8), (8, 4, 8), (16, 8, 8), (16, 8, 16), (32, 8, 32), (16, 4, 12), (32,
+// 8, 16), (32, 16, 32); sb, sr, sc: block,
 // row and column strides (floats); out: (M,) float32.
 extern "C" int ordered_sum_chain_launch(const void* x, void* out, int n,
                                         int w, int v, int m, long long sb,
@@ -448,6 +451,18 @@ extern "C" int ordered_sum_chain_launch(const void* x, void* out, int n,
     case 320832:
       lanes_chain_kernel<32, 8, 32><<<blocks, bd, 0, st>>>(xp, op, m, sb,
                                                            sr, sc);
+      break;
+    case 160412:
+      lanes_chain_kernel<16, 4, 12><<<blocks, bd, 0, st>>>(xp, op, m, sb,
+                                                           sr, sc);
+      break;
+    case 320816:
+      lanes_chain_kernel<32, 8, 16><<<blocks, bd, 0, st>>>(xp, op, m, sb,
+                                                           sr, sc);
+      break;
+    case 321632:
+      lanes_chain_kernel<32, 16, 32><<<blocks, bd, 0, st>>>(xp, op, m, sb,
+                                                            sr, sc);
       break;
     default:
       return 1;

@@ -16,10 +16,11 @@ import numpy as np
 import torch
 
 from ..ops.cost import psy_cost_batch, psy_weight
-from ..ops.numeric import lam2_f32
-from ..ops.rdoq import rdoq_levels, tb_bits_est
+from ..ops.numeric import fma32, lam2_exp_ref, lam2_ref
+from ..ops.rdoq import rdoq_levels, tb_bits_est, tu32_sum_order
 from ..ops.transform import (dct_batch, dequant_dyn, idct_batch, quant_dyn,
                              sbh_adjust)
+from .recon_intra import skip_costs
 
 F32 = torch.float32
 I32 = torch.int32
@@ -31,8 +32,14 @@ def _plane_rd(org, pred, qp_b, log2n: int, c_idx: int, bd: int,
     """Residual-code one TB per batch row with the wavefront's machinery
     and the per-plane zero-residual RD test; returns (lev, recon, cost)
     with cost = min(coded, zero) in SSE + lam2*bits units.  qmats/dmats:
-    scaling-list quant/raw matrices of this TB size (None: flat)."""
+    scaling-list quant/raw matrices of this TB size (None: flat).  The
+    float32 arithmetic is the reference's compiled jit(_tu32_core): the
+    bit estimate summed in tu32_sum_order's order for this batch, the
+    lambda lam2_ref, the costs' products contracted (skip_costs; the
+    linear bits' nz * 4.5 + 10 is exact either way), the psy weight
+    folded (psy_weight(folded=True))."""
     maxval = (1 << bd) - 1
+    n = 1 << log2n
     imask = torch.zeros(org.shape[:1], dtype=torch.bool, device=org.device)
     coef = dct_batch(org - pred, log2n, bd)
     if rdoq:
@@ -48,21 +55,21 @@ def _plane_rd(org, pred, qp_b, log2n: int, c_idx: int, bd: int,
     sse_coded = ((org - rec0) ** 2).sum((1, 2), dtype=I32)
     sse_skip = ((org - pred) ** 2).sum((1, 2), dtype=I32)
     nz = (lev != 0).sum((1, 2), dtype=I32)
-    lam2 = lam2_f32(qp_b, bd)
+    lam2 = lam2_ref(qp_b, bd)
     base_bits = 6.0 if c_idx == 0 else 2.0
-    est = tb_bits_est(lev, qp_b, log2n, c_idx, init_type, bits_table=ebits)
+    est = tb_bits_est(lev, qp_b, log2n, c_idx, init_type, bits_table=ebits,
+                      order=tu32_sum_order(n, lev.shape[0]))
     if c_idx != 0:
         bits = base_bits + est
     else:
         nzf = nz.to(F32)
         lin = torch.where(nzf > 0.0, 10.0, 0.0) + 4.5 * nzf
         bits = base_bits + torch.maximum(lin, est)
-    cost_skip = sse_skip.to(F32)
-    cost_coded = sse_coded.to(F32) + lam2 * bits
+    psy = None
     if psy256 is not None and c_idx == 0:
-        psy_w = psy_weight(lam2, psy256, init_type, qp_b)
-        cost_skip = cost_skip + psy_w * psy_cost_batch(org, pred).to(F32)
-        cost_coded = cost_coded + psy_w * psy_cost_batch(org, rec0).to(F32)
+        psy = (psy_weight(lam2, psy256, init_type, qp_b, folded=True),
+               psy_cost_batch(org, pred), psy_cost_batch(org, rec0))
+    cost_skip, cost_coded = skip_costs(sse_skip, sse_coded, bits, lam2, psy)
     skip = cost_skip <= cost_coded
     lev = torch.where(skip[:, None, None], 0, lev)
     recon = torch.where(skip[:, None, None], torch.clip(pred, 0, maxval),
@@ -70,12 +77,24 @@ def _plane_rd(org, pred, qp_b, log2n: int, c_idx: int, bd: int,
     return lev, recon, torch.minimum(cost_skip, cost_coded)
 
 
+def use32_choice(cost32, c16, qp_y, bd: int):
+    """The TU32-vs-quad choice cost32 <= cost16 + lam2 * 3.0 in the
+    reference's compiled float32: cost16 the quad's four costs added in
+    order, lam2 * 3.0 folded by its compiler into lam2_exp_ref(qp) times
+    float32(0.85 * 3) * 4**(bd - 8), that product contracted into the
+    add.  c16: (R, 4) quad costs."""
+    cost16 = ((c16[:, 0] + c16[:, 1]) + c16[:, 2]) + c16[:, 3]
+    three = float(np.float32(0.85) * np.float32(3.0)) * (1 << (2 * (bd - 8)))
+    return cost32 <= fma32(lam2_exp_ref(qp_y), three, cost16)
+
+
 def _tu32_core(oy32, py32, ou16, pu16, ov16, pv16, qp_y, qp_cb, qp_cr,
                init_type: int, psy256, psy_rdoq, bd: int, sign_hide: bool,
                rdoq: bool, mats32=None, ebits=None):
-    """(R,32,32)/(R,16,16) region stacks -> TU32 coding + use32 RD pick.
-    mats32: (qm_y, dm_y, qm_c, dm_c) scaling-list tables of the TU32
-    luma / TU16 chroma, or None."""
+    """(rp,32,32)/(rp,16,16) region stacks, padded to rp regions as the
+    reference pads them -> TU32 coding + use32 RD pick.  mats32: (qm_y,
+    dm_y, qm_c, dm_c) scaling-list tables of the TU32 luma / TU16
+    chroma, or None."""
     qm_l, dm_l, qm_c, dm_c = mats32 if mats32 is not None else (None,) * 4
     levy, recy, cost32 = _plane_rd(oy32, py32, qp_y, 5, 0, bd, sign_hide,
                                    rdoq, init_type, psy256, psy_rdoq, qm_l,
@@ -89,10 +108,7 @@ def _tu32_core(oy32, py32, ou16, pu16, ov16, pv16, qp_y, qp_cb, qp_cr,
     _, _, c16 = _plane_rd(quads(oy32), quads(py32), qp4, 4, 0, bd,
                           sign_hide, rdoq, init_type, psy256, psy_rdoq,
                           ebits=ebits)
-    c4 = c16.reshape(-1, 4)
-    cost16 = ((c4[:, 0] + c4[:, 1]) + c4[:, 2]) + c4[:, 3]
-    lam2 = lam2_f32(qp_y, bd)
-    use32 = cost32 <= cost16 + lam2 * 3.0
+    use32 = use32_choice(cost32, c16.reshape(-1, 4), qp_y, bd)
     levu, recu, _ = _plane_rd(ou16, pu16, qp_cb, 4, 1, bd, sign_hide, rdoq,
                               init_type, psy256, psy_rdoq, qm_c, dm_c,
                               ebits)
@@ -179,18 +195,25 @@ def prepare_inter_tu32(y, u, v, mc, region_mask, qp_map, recon,
         for i, (ry, rx) in enumerate(zip(ys, xs)):
             out[i] = pl[n * ry:n * ry + n, n * rx:n * rx + n]
         return out
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    # the reference pads the region batch to rp = 8, 16, 32, ... regions
+    # (zero planes at QP 32); its float32 sums' order depends on rp
+    rp = 1 << max(3, (R - 1).bit_length())
+
+    def t(a, fill=0):
+        a = np.concatenate([a, np.full((rp - R,) + a.shape[1:], fill,
+                                       np.int32)])
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    qps = [t(q[2 * ys, 2 * xs].astype(np.int32), 32)
+           for q in (qp_y16, qp_cb16, qp_cr16)]
     out = _tu32_core(
         t(region(oy, 32)), t(blocks2x2(mc_y, 16)), t(region(ou, 16)),
         t(blocks2x2(mc_u, 8)), t(region(ov, 16)), t(blocks2x2(mc_v, 8)),
-        t(qp_y16[2 * ys, 2 * xs].astype(np.int32)),
-        t(qp_cb16[2 * ys, 2 * xs].astype(np.int32)),
-        t(qp_cr16[2 * ys, 2 * xs].astype(np.int32)), int(init_type),
-        recon.psy256, recon.psy_rdoq, recon.bd, recon.sign_hide,
-        recon.rdoq, recon.mats32, None if ebits is None else
-        t(np.asarray(ebits, np.float32)))
+        *qps, int(init_type), recon.psy256, recon.psy_rdoq, recon.bd,
+        recon.sign_hide, recon.rdoq, recon.mats32,
+        None if ebits is None else
+        torch.from_numpy(np.asarray(ebits, np.float32)).to(dev))
     (use32, levy, recy, nzy, levu, recu, nzu, levv, recv,
-     nzv) = (a.cpu().numpy() for a in out)
+     nzv) = (a[:R].cpu().numpy() for a in out)
     if not use32.any():
         return None
     st = {
@@ -230,6 +253,7 @@ def prepare_inter_tu32(y, u, v, mc, region_mask, qp_map, recon,
                 recu[i][8 * zy:8 * zy + 8, 8 * zx:8 * zx + 8]
             mc_v2[2 * ry + zy, 2 * rx + zx] = \
                 recv[i][8 * zy:8 * zy + 8, 8 * zx:8 * zx + 8]
+    dv = lambda a: torch.from_numpy(a).to(dev)
     st["spliced"] = (y2.astype(dt), u2.astype(dt), v2.astype(dt),
-                     (t(mc_y2), t(mc_u2), t(mc_v2)))
+                     (dv(mc_y2), dv(mc_u2), dv(mc_v2)))
     return st

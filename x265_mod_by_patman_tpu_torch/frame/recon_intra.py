@@ -29,7 +29,7 @@ from ..ops.intra import (block_index, gather_ref_samples,
                          intra_pred_select_batch, substitute_filter_batch)
 from ..ops.numeric import (LOG2E_F32, fma32, lam2_ref, log_ref,
                            lsum)
-from ..ops.rdoq import rdoq_levels, tb_bits_est
+from ..ops.rdoq import rdoq_levels, tb_bits_est, wavefront_sum_order
 from ..ops.transform import (dct_batch, dequant_dyn, idct_batch, quant_dyn,
                              quant_mats, sbh_adjust)
 from .planes import dev_i32
@@ -106,8 +106,10 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
     reference samples as luma does (spec 8.4.4.2.3); est_lanes: the
     step's lane count where the reference's program is the 4:2:0
     wavefront, whose skip test then sums its TB bit estimates in that
-    program's order (ops.rdoq.tb_bits_est).  Returns (skip (B,) or None,
-    chosen modes or None, this substep's NR sums or None)."""
+    program's order (ops.rdoq.tb_bits_est) and whose RDOQ rounds its
+    zero-out test as that program does (ops.rdoq.rdoq_levels).  Returns
+    (skip (B,) or None, chosen modes or None, this substep's NR sums or
+    None)."""
     n = 1 << log2n
     maxval = (1 << bit_depth) - 1
     hp, wp = plane.shape
@@ -190,7 +192,7 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
     if rdoq:
         lev = rdoq_levels(coef, intra_mask, qp, log2n, bit_depth, c_idx,
                           init_type, psy_rdoq=psy_rdoq, qmats=qmats,
-                          rawmats=dmats, bits_table=ebits)
+                          rawmats=dmats, bits_table=ebits, lanes=est_lanes)
     else:
         lev = quant_dyn(coef, intra_mask, qp, log2n, bit_depth, qmats)
     if sign_hide:
@@ -214,9 +216,10 @@ def _substep_body(plane, levels, orig, bx, by, modes, avail, log2n: int,
                 base_bits = 14.0 if c_idx == 0 else 6.0
             else:
                 base_bits = 6.0 if c_idx == 0 else 2.0
+            order = None if est_lanes is None else \
+                wavefront_sum_order(n, est_lanes)
             bits = base_bits + tb_bits_est(lev, qp, log2n, c_idx, init_type,
-                                           bits_table=ebits,
-                                           lanes=est_lanes)
+                                           bits_table=ebits, order=order)
         psy = None
         if psy256 is not None and c_idx == 0:
             psy = (psy_weight(lam2, psy256,

@@ -92,15 +92,23 @@ def psy_cost_batch(a, b):
 
 
 _SLICE_SCALE = (300.0 / 256.0, 1.0, 96.0 / 256.0)     # B, P, I
+# sliceTypeScale * 256 times float32(0.33 / 256), rounded to float32: the
+# inter TU32 pre-pass's program folds 0.33 into sliceTypeScale's / 256
+_SLICE_SCALE_033 = tuple(float(np.float32(v) * np.float32(0.33 / 256.0))
+                         for v in (300.0, 256.0, 96.0))
 
 
-def psy_weight(lam2, psy256: int, init_type: int, qp):
+def psy_weight(lam2, psy256: int, init_type: int, qp, folded: bool = False):
     """float32 psy-rd weight sqrt(lam2) * psyRd * 0.33 * sliceTypeScale *
-    rolloff (x265 rdcost.h:57-65, :115; the reference's order of float32
-    operations)."""
+    rolloff (x265 rdcost.h:57-65, :115) in the order of float32
+    operations of the reference's wavefront, or with folded (its inter
+    TU32 pre-pass) sqrt(lam2) * psyRd * (sliceTypeScale * 0.33) *
+    rolloff, the middle factor one float32 product (_SLICE_SCALE_033)."""
     qpf = qp.to(torch.float32)
     roll = torch.where(qpf >= 40.0,
                        torch.clip((51.0 - qpf) * 23.0 / 256.0, 0.0, 1.0),
                        1.0)
-    return fsqrt(lam2) * (psy256 / 256.0) * 0.33 \
-        * _SLICE_SCALE[min(max(init_type, 0), 2)] * roll
+    it = min(max(init_type, 0), 2)
+    if folded:
+        return fsqrt(lam2) * (psy256 / 256.0) * _SLICE_SCALE_033[it] * roll
+    return fsqrt(lam2) * (psy256 / 256.0) * 0.33 * _SLICE_SCALE[it] * roll

@@ -28,7 +28,8 @@ MAX_KEPT = 4        # kept axes
 LANE_SIZES = (4, 8, 16, 32)   # the lane mode's n: the TU sizes
 # the chained lane mode's (n, lanes, span): the wavefront's TB bit
 # estimates (n = 8, 16) and the lane mode's n >= 16
-CHAIN_ORDERS = ((8, 8, 8), (8, 4, 8), (16, 8, 8), (16, 8, 16), (32, 8, 32))
+CHAIN_ORDERS = ((8, 8, 8), (8, 4, 8), (16, 8, 8), (16, 8, 16), (32, 8, 32),
+                (16, 4, 12), (32, 8, 16), (32, 16, 32))
 
 
 class TermLayout(NamedTuple):

@@ -15,9 +15,10 @@ backend:
 * float32 transcendental functions: evaluated in float64 and rounded
   once to float32, except where a decision rides the reference's own
   float32 value: 2**q for the integer exponents of the RDOQ level scale
-  (exp2_ref), and the wavefront's log, log2 and lambda (log_ref,
-  log2_ref, lam2_ref), tables of what the reference's CPU backend
-  computes, built here from its polynomials.
+  (exp2_ref), and the log, log2 and lambda of the wavefront, the inter
+  TU32 pre-pass and RDOQ (log_ref, log2_ref, floor_log2_ref, lam2_ref,
+  lam2_exp_ref), tables of what the reference's CPU backend computes,
+  built here from its polynomials.
 """
 from __future__ import annotations
 
@@ -162,10 +163,6 @@ def fma32(a, b, c) -> torch.Tensor:
     return (f(a) * f(b) + f(c)).to(torch.float32)
 
 
-def fexp2(x: torch.Tensor) -> torch.Tensor:
-    return torch.exp2(x.to(torch.float64)).to(torch.float32)
-
-
 @functools.lru_cache(maxsize=None)
 def _exp2_ref_table(device) -> torch.Tensor:
     arg = (np.arange(64, dtype=np.float64)
@@ -185,14 +182,6 @@ def exp2_ref(q: torch.Tensor) -> torch.Tensor:
 
 def fsqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
-
-
-def lam2_f32(qp: torch.Tensor, bit_depth: int = 8) -> torch.Tensor:
-    """0.85 * 2**((qp - 12) / 3) * 4**(bd - 8) in float32 (2**x in
-    float64, rounded once), the SSE lambda of the inter TU32 pre-pass.
-    The wavefront takes the reference's own value (lam2_ref)."""
-    q = qp.to(torch.float32)
-    return (0.85 * fexp2((q - 12.0) / 3.0)) * float(1 << (2 * (bit_depth - 8)))
 
 
 # -- the reference's float32 log, log2 and lambda ----------------------------
@@ -325,18 +314,62 @@ def log2_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _lam2_table(device) -> torch.Tensor:
+def _lam2_tables(device) -> tuple:
+    """(exp, lambda) tables over LAM2_REF_QPS: e = XLA's exp of (qp - 12)
+    * float32(ln 2 / 3), and e * 0.85 rounded."""
     q = np.arange(LAM2_REF_QPS[0], LAM2_REF_QPS[1] + 1).astype(
         np.float32)
-    arg = (q + np.float32(-12.0)) * _LN2_3
-    return torch.from_numpy(_xla_exp(arg) * np.float32(0.85)).to(device)
+    e = _xla_exp((q + np.float32(-12.0)) * _LN2_3)
+    return (torch.from_numpy(e).to(device),
+            torch.from_numpy(e * np.float32(0.85)).to(device))
 
 
 def lam2_ref(qp: torch.Tensor, bit_depth: int = 8) -> torch.Tensor:
-    """The wavefront's SSE lambda 0.85 * 2**((qp - 12) / 3) * 4**(bd - 8)
-    as the reference computes it in float32: exp((qp - 12) * float32(ln 2
-    / 3)) by its exp, times 0.85, rounded (the factor 4**(bd - 8) is
-    exact).  The float64 2**x that lam2_f32 rounds differs by an ulp at
-    23 of the QPs 0-51."""
-    return _lookup(_lam2_table(qp.device), qp, *LAM2_REF_QPS, "lam2_ref") \
-        * float(1 << (2 * (bit_depth - 8)))
+    """The SSE lambda 0.85 * 2**((qp - 12) / 3) * 4**(bd - 8) as the
+    reference's wavefront and inter TU32 pre-pass compute it in float32:
+    exp((qp - 12) * float32(ln 2 / 3)) by its exp, times 0.85, rounded
+    (the factor 4**(bd - 8) is exact)."""
+    return _lookup(_lam2_tables(qp.device)[1], qp, *LAM2_REF_QPS,
+                   "lam2_ref") * float(1 << (2 * (bit_depth - 8)))
+
+
+def lam2_exp_ref(qp: torch.Tensor) -> torch.Tensor:
+    """The float32 2**((qp - 12) / 3) that lam2_ref multiplies by 0.85:
+    where the reference scales the lambda again (lam2 * 3.0 in the TU32
+    choice), its compiler folds 0.85 into that constant and multiplies
+    this value once."""
+    return _lookup(_lam2_tables(qp.device)[0], qp, *LAM2_REF_QPS,
+                   "lam2_exp_ref")
+
+
+# floor(log2 x) of the reference's float32 log2 (log_ref * LOG2E_F32) at
+# the integers 1 <= x < 2**24 departs from the exact floor on these
+# intervals [lo, hi] (one short at the powers of two 8192 and 32768, one
+# over just below 2**21, ..., 2**24), read by evaluating _xla_log at every
+# such integer: _FLOOR_LOG2_BOUNDS are the interval ends (lo, hi + 1),
+# _FLOOR_LOG2_STEP the correction between consecutive ends
+_FLOOR_LOG2_DEPARTS = ((8192, 8192, -1), (32768, 32768, -1),
+                       (2097151, 2097151, 1), (4194303, 4194303, 1),
+                       (8388601, 8388607, 1), (16777201, 16777215, 1))
+_FLOOR_LOG2_MAX = 1 << 24
+
+
+@functools.lru_cache(maxsize=None)
+def _floor_log2_tables(device) -> tuple:
+    ends, step = [], [0.0]
+    for lo, hi, c in _FLOOR_LOG2_DEPARTS:
+        ends += [lo, hi + 1]
+        step += [float(c), 0.0]
+    return (torch.tensor(ends, dtype=torch.float32, device=device),
+            torch.tensor(step, dtype=torch.float32, device=device))
+
+
+def floor_log2_ref(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2 x) of the integer-valued float32 x in [1, 2**24) as the
+    reference computes it, floor(log_ref(x) * LOG2E_F32) (log2_ref's
+    floor where that table reaches): the exact floor, one less at 8192
+    and 32768 and one more on the few runs just below 2**21 to 2**24
+    (_FLOOR_LOG2_DEPARTS)."""
+    ends, step = _floor_log2_tables(x.device)
+    exact = (torch.frexp(x)[1] - 1).to(torch.float32)
+    return exact + step[torch.searchsorted(ends, x.contiguous(), right=True)]

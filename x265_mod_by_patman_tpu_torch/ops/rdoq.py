@@ -11,7 +11,7 @@ import torch
 from ..constants.hevc_tables import scan_order
 from ..entropy.est_bits import (
     BITS_TABLE, residual_ctx_scalars, sig_ctx_map)
-from .numeric import (csum, exp2_ref, fma32, fsqrt, fsum, log2_ref,
+from .numeric import (csum, exp2_ref, floor_log2_ref, fma32, fsqrt, fsum,
                       lsum, osum)
 from .transform import (MAX_TR_DYNAMIC_RANGE, QUANT_SHIFT, _mat_sel, _qp_vec,
                         const)
@@ -52,12 +52,13 @@ def _rem_bits(v):
 
 
 def _rem_bits_ref(v):
-    """_rem_bits with the floor the reference's wavefront takes:
-    floor(log2_ref(.)), one less than the exact floor at 8192 (v =
-    8194)."""
+    """_rem_bits with the floor the reference's compiled programs take
+    (the wavefront's and the TU32 pre-pass's TB bit estimates, RDOQ's
+    level bits): floor_log2_ref, one less than the exact floor at 8192
+    (v = 8194)."""
     return torch.where(v < 3.0, v + 1.0,
-                       4.0 + 2.0 * torch.floor(
-                           log2_ref(torch.clamp(v - 2.0, min=1.0))))
+                       4.0 + 2.0 * floor_log2_ref(torch.clamp(v - 2.0,
+                                                              min=1.0)))
 
 
 def wavefront_sum_order(n: int, lanes: int):
@@ -74,6 +75,25 @@ def wavefront_sum_order(n: int, lanes: int):
     if n == 16:
         return (8, 8) if 2 <= lanes <= 8 else (8, 16)
     raise ValueError(f"wavefront_sum_order: no read order for n = {n}")
+
+
+def tu32_sum_order(n: int, blocks: int):
+    """(lanes, span) of the chained lane order in which the reference's
+    compiled inter TU32 pre-pass (jit(_tu32_core)) sums the bit estimate
+    of its `blocks` n x n TBs: the TU32 luma (n = 32) and the chroma
+    TU16s (n = 16) at the padded region count rp, the quad luma TU16s at
+    4 rp.  At rp = 8 its levels lie 8 blocks apart and the CPU backend
+    vectorises a row 16 wide at n = 32 (then the row's tail one by one)
+    and 4 wide at n = 16 (three strips, then the tail); from 16 blocks
+    on a whole row 16 wide (two strips at n = 32).  Read from the LLVM
+    IR and object code of jit(_tu32_core) (8 and 10 bits, RDOQ off and
+    on) at rp = 8, 16, 32, ..., 2048; 16 lanes of one strip sum as 8
+    lanes of two terms each."""
+    if n == 32:
+        return (8, 16) if blocks <= 8 else (16, 32)
+    if n == 16:
+        return (4, 12) if blocks <= 8 else (8, 16)
+    raise ValueError(f"tu32_sum_order: no read order for n = {n}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,11 +127,54 @@ def _bt(bits_table, init_type, qp, b: int, device):
     return tbl[it, torch.clip(qp, 0, 51).long()]
 
 
-def rdoq_levels(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
-                c_idx: int = 0, init_type=None, sign_hide: bool = False,
-                psy_rdoq=None, qmats=None, rawmats=None, bits_table=None):
-    """RD-quantize a batch of TUs; drop-in for quant_dyn.  sign_hide:
-    the reference's RDOQ-integrated sign-bit hiding (see below)."""
+def rdoq_cost(cs, lv, k, bits, psy_k=None):
+    """RDOQ's cost of level lv, (cs - lv)**2 + k * bits, less psy_k * lv
+    with psy-RDOQ, as the reference's compiled program rounds it: k *
+    bits rounded, the square contracted into the add that takes it, the
+    psy product into the subtraction (fma32 twice).  Read from the
+    object code of its level and CG-sum fusions in jit(_wavefront_body)
+    at 1 and 15 blocks, jit(_tu32_core) at rp = 8 to 2048 and
+    jit(_wavefront_tree_body)."""
+    d = cs - lv
+    c = fma32(d, d, k * bits)
+    return c if psy_k is None else fma32(-psy_k, lv, c)
+
+
+def cg_keep_kill(cbest, cs, k, saving, contract: bool = False):
+    """(keep, kill) of RDOQ's per-4x4-group zero-out test of (B, n, n)
+    TBs, (B, n/4, n/4) each, as the reference's compiled program sums
+    them: a group's four rows each added left to right as 4-lane vectors
+    (row r in lane r), the lanes as a tree (lane 0 + lane 2) + (lane 1 +
+    lane 3) -- lsum's order at n = 4, K3's lane mode on the card -- with
+    kill's squares cs * cs contracted into the row adds; kill = that sum
+    less k * saving, the product rounded apart, or with contract (the P/B
+    wavefront at 4 blocks a step or more, rdoq_levels) contracted into
+    the subtraction.  k, saving: (B,) or a number."""
+    b, n = cs.shape[0], cs.shape[-1]
+    g = n // 4
+    groups = lambda a: a.reshape(b, g, 4, g, 4).permute(0, 1, 3, 2, 4)
+    keep = lsum(groups(cbest))
+    c = groups(cs).to(torch.float64)
+    row = (c[..., 0] * c[..., 0]).to(F32)
+    for j in range(1, 4):
+        row = (c[..., j] * c[..., j] + row.to(torch.float64)).to(F32)
+    sq = (row[..., 0] + row[..., 2]) + (row[..., 1] + row[..., 3])
+    kb = torch.as_tensor(k, dtype=F32, device=cs.device)
+    sv = torch.as_tensor(saving, dtype=F32, device=cs.device)
+    if kb.dim():
+        kb = kb[:, None, None]
+    if sv.dim():
+        sv = sv[:, None, None]
+    return keep, fma32(-kb, sv, sq) if contract else sq - kb * sv
+
+
+def rdoq_candidates(coef, intra_mask, qp, log2_size: int,
+                    bit_depth: int = 8, c_idx: int = 0, init_type=None,
+                    psy_rdoq=None, qmats=None, rawmats=None,
+                    bits_table=None):
+    """RDOQ's per-coefficient choice among ceil, floor and zero: (c, cs,
+    k, cg_save, level_bits, psy_k, lv, cbest), lv the chosen |level| and
+    cbest its cost (rdoq_cost), both (B, n, n) float32."""
     dev = coef.device
     b = coef.shape[0]
     qp = _qp_vec(qp, b, dev)
@@ -155,13 +218,14 @@ def rdoq_levels(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
         cg_save = bt[:, cgc, 1] - bt[:, cgc, 0]
 
         def level_bits(lv):
-            rem = _rem_bits(torch.clamp(lv - 3.0, min=0.0))
+            rem = _rem_bits_ref(torch.clamp(lv - 3.0, min=0.0))
             return torch.where(
                 lv == 0, sig0,
                 sig1 + _SIGN + torch.where(
                     lv == 1, g1_0,
                     g1_1 + torch.where(lv == 2, g2_0, g2_1 + rem)))
 
+    psy_k = None
     if psy_rdoq is not None and c_idx == 0:
         n_ = 1 << log2_size
         nondc = torch.ones((n_, n_), dtype=F32, device=dev)
@@ -169,11 +233,8 @@ def rdoq_levels(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
         psy_k = (torch.as_tensor(psy_rdoq, dtype=F32, device=dev)
                  * fsqrt(k)) * nondc[None]
 
-        def cost(lv):
-            return (cs - lv) ** 2 + k * level_bits(lv) - psy_k * lv
-    else:
-        def cost(lv):
-            return (cs - lv) ** 2 + k * level_bits(lv)
+    def cost(lv):
+        return rdoq_cost(cs, lv, k, level_bits(lv), psy_k)
 
     zero = torch.zeros_like(cs)
     c_hi, c_lo, c_z = cost(hi), cost(lo), cost(zero)
@@ -182,15 +243,34 @@ def rdoq_levels(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
     lv = torch.where(c_z <= cbest, zero, lv)
     cbest = torch.minimum(c_z, cbest)
 
+    return c, cs, k, cg_save, level_bits, psy_k, lv, cbest
+
+
+def rdoq_levels(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
+                c_idx: int = 0, init_type=None, sign_hide: bool = False,
+                psy_rdoq=None, qmats=None, rawmats=None, bits_table=None,
+                lanes=None):
+    """RD-quantize a batch of TUs; drop-in for quant_dyn.  sign_hide:
+    the reference's RDOQ-integrated sign-bit hiding (see below).  lanes:
+    the step's block count where the caller is the reference's 4:2:0 P/B
+    wavefront, whose program contracts the zero-out test's k * saving
+    into kill (cg_keep_kill) from 4 blocks a step on: read from the
+    object code of its levels' fusions at every count 1 to 30, where
+    every lane rounds alike at 1, 2 (and 3 in chroma) apart and at 4-16,
+    20, 24 and 28-30 contracted; at 3 (luma), 17-19, 21-23 and 25-27 its
+    vector body contracts and its scalar tail does not (ROADMAP.md §3).
+    Elsewhere (the I-picture tree, the TU32 pre-pass, 4:2:2 / 4:4:4)
+    kill rounds the product apart."""
+    c, cs, k, cg_save, level_bits, psy_k, lv, cbest = rdoq_candidates(
+        coef, intra_mask, qp, log2_size, bit_depth, c_idx, init_type,
+        psy_rdoq, qmats, rawmats, bits_table)
+    dev = coef.device
     n = 1 << log2_size
     if n > 4:
         g = n // 4
-        cb = cbest.reshape(-1, g, 4, g, 4)
-        czb = (cs ** 2).reshape(-1, g, 4, g, 4)
-        keep = fsum(cb, (2, 4))
-        saving = k[:, 0, 0] * cg_save if init_type is not None \
-            else k[:, 0, 0] * _CG_FLAG
-        kill = fsum(czb, (2, 4)) - saving[:, None, None]
+        saving = cg_save if init_type is not None else _CG_FLAG
+        keep, kill = cg_keep_kill(cbest, cs, k[:, 0, 0], saving,
+                                  lanes is not None and lanes >= 4)
         zero_cg = (kill < keep)[:, :, None, :, None]
         lv = torch.where(zero_cg, 0.0, lv.reshape(-1, g, 4, g, 4)) \
             .reshape(-1, n, n)
@@ -224,7 +304,7 @@ def rdoq_levels(coef, intra_mask, qp, log2_size: int, bit_depth: int = 8,
         mismatch = hide & (parity != want)
 
         kt = k[:, 0, 0][:, None, None, None]
-        if psy_rdoq is not None and c_idx == 0:
+        if psy_k is not None:
             psy_t = tiles(psy_k.expand(lv.shape))
         else:
             psy_t = torch.tensor(0.0, dtype=F32, device=dev)
@@ -271,14 +351,16 @@ _LAST_BITS_LUT = ((_LAST_GROUP_IDX + 1).astype(np.float32) * 0.9
 
 
 def tb_bits_est(lev, qp, log2_size: int, c_idx: int = 0, init_type=None,
-                bits_table=None, lanes=None):
+                bits_table=None, order=None):
     """Rate estimate (float32 bits, (B,)) of coding each TB's levels;
-    0 for all-zero TBs.  lanes: the wavefront's lane count B, given where
-    the caller is the reference's 4:2:0 wavefront (n = 8 or 16): the sums
-    then follow its compiled program (the coefficient bits in
-    wavefront_sum_order's chained lane order, the CG flag bits row-major)
-    and so does the remaining-level floor (_rem_bits_ref).  Without it
-    the sums take fsum's pairwise order and the floor is exact."""
+    0 for all-zero TBs.  order: the (lanes, span) in which the caller's
+    program in the reference sums the coefficient bits
+    (wavefront_sum_order for the 4:2:0 wavefront, tu32_sum_order for the
+    inter TU32 pre-pass): the sums then follow that compiled program
+    (the coefficient bits in that chained lane order, the CG flag bits
+    row-major) and so does the remaining-level floor (_rem_bits_ref).
+    Without it the sums take fsum's pairwise order and the floor is
+    exact."""
     dev = lev.device
     b = lev.shape[0]
     qp = _qp_vec(qp, b, dev)
@@ -300,12 +382,11 @@ def tb_bits_est(lev, qp, log2_size: int, c_idx: int = 0, init_type=None,
     any_nz = nz.any(2).any(1)
     last = torch.where(nz, S[None], -1).amax((1, 2))
     region = S[None] <= last[:, None, None]
-    if lanes is None:
+    if order is None:
         rem = _rem_bits(torch.clamp(al - 3.0, min=0.0))
         coeff_sum = cg_sum = lambda t: fsum(t, (1, 2))
     else:
         rem = _rem_bits_ref(torch.clamp(al - 3.0, min=0.0))
-        order = wavefront_sum_order(n, lanes)
         coeff_sum = lambda t: csum(t, *order)
         cg_sum = lambda t: osum(t, (1, 2))
     lb = torch.where(
